@@ -3,15 +3,18 @@ simulator, for NVIDIA Hopper.
 
 It runs the main path of the JAX package `cadnip_tpu`, which stays the
 reference: SPICE text -> parse and elaborate -> built-in level-1 MOSFET,
-diode, R, C and PWL/DC sources -> gather / torch.func.jacfwd / scatter
-assembly -> dense Gauss-Jordan solve (kernel K1, hand-written CUDA for
-sm_90a on a CUDA device) inside Newton -> DC operating point through the
-gmin/source homotopy -> adaptive trapezoidal transient.
+diode (with or without series rs), R, C and independent sources ->
+gather / torch.func.jacrev / scatter assembly -> dense Gauss-Jordan solve
+(kernel K1, hand-written CUDA for sm_90a on a CUDA device) inside Newton
+-> DC operating point through the gmin/source homotopy -> adaptive
+trapezoidal transient. `vmem_tran` runs the whole transient of a small
+circuit (n <= 127) in one launch of kernel K2 instead.
 
 A circuit is compiled for an explicit torch device:
 
     cc = parse_spice(dff_netlist(), device="cuda")
-    sol = tran(cc, (0, 6e-7), dt=3.333e-10)
+    sol = tran(cc, (0, 6e-7), dt=3.333e-10)        # host loop, K1 solves
+    sol = vmem_tran(cc, (0, 6e-7), dt=3.333e-10)   # one K2 launch
 
 This package imports torch and numpy, never jax or cadnip_tpu.
 """
@@ -19,20 +22,24 @@ from .mna.structure import Circuit, CompiledCircuit  # noqa: F401
 from .mna.spec import SimSpec  # noqa: F401
 from .mna import devices  # noqa: F401
 from .mna.devices import (  # noqa: F401
-    RESISTOR, CAPACITOR, VSOURCE, ISOURCE, DIODE, MOSFET1, DeviceModel)
+    RESISTOR, CAPACITOR, VSOURCE, ISOURCE, DIODE, DIODE_RS, MOSFET1,
+    DeviceModel)
 from .mna.waveforms import (  # noqa: F401
     DC as DCWave, Pulse, Sin, PWL, Exp, Sffm)
 from .analyses.dc import dc, op_tran, DCSolution  # noqa: F401
 from .analyses.tran import tran, TranSolution  # noqa: F401
+from .ops.vmem_tran import supported, vmem_tran  # noqa: F401
 from .frontend.elaborate import parse_spice  # noqa: F401
 from . import models  # noqa: F401
 from .models.dff import dff_netlist  # noqa: F401
 
 __all__ = [
     "Circuit", "CompiledCircuit", "SimSpec", "DeviceModel", "devices",
-    "RESISTOR", "CAPACITOR", "VSOURCE", "ISOURCE", "DIODE", "MOSFET1",
+    "RESISTOR", "CAPACITOR", "VSOURCE", "ISOURCE", "DIODE", "DIODE_RS",
+    "MOSFET1",
     "DCWave", "Pulse", "Sin", "PWL", "Exp", "Sffm",
-    "dc", "op_tran", "DCSolution", "tran", "TranSolution",
+    "dc", "op_tran", "DCSolution", "tran", "TranSolution", "vmem_tran",
+    "supported",
     "parse_spice", "models", "dff_netlist",
 ]
 

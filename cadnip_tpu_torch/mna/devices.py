@@ -19,9 +19,9 @@ Every function here is branch-free: `torch.where` instead of `if` on a
 tensor, no `.item()`, and `torch.stack` only over tensors, so that
 `torch.func.jacfwd`, `jacrev` and `vmap` can trace it.
 
-Ported: resistor, capacitor, V and I sources, the diode (no series rs) and
-the level-1 MOSFET. The inductor, mutual inductance, controlled sources,
-BJT, the diode with series rs and the noise/flicker/op-info channels raise
+Ported: resistor, capacitor, V and I sources, the diode (with and without
+series rs) and the level-1 MOSFET. The inductor, mutual inductance,
+controlled sources, BJT and the noise/flicker/op-info channels raise
 `NotImplementedError` (ROADMAP, modules still to port, item 1).
 """
 from __future__ import annotations
@@ -248,6 +248,30 @@ DIODE = DeviceModel(
     defaults=dict(_DIODE_DEFAULTS), limit=_diode_limit)
 
 
+def _diode_rs_residual(u, p, dyn):
+    # u = [vp, vn, vint]; rs between p and the internal anode
+    vp, vn, vi = u[0], u[1], u[2]
+    g = 1.0 / torch.clamp(p["rs"], min=1e-12)
+    ir = g * (vp - vi)
+    i, q = _diode_ivq(vi - vn, p, dyn)
+    f = torch.stack([ir, -i, i - ir])
+    qv = torch.stack([0.0 * q, -q, q])
+    return f, qv
+
+
+def _diode_rs_limit(u, u_prev, p, dyn):
+    # pnjlim on the internal junction (vint - vn)
+    vd = pnjlim(u[2] - u[1], u_prev[2] - u_prev[1], p["n"] * dyn.vt,
+                _vcrit(p, dyn))
+    return torch.stack([u[0], u[1], u[1] + vd])
+
+
+DIODE_RS = DeviceModel(
+    name="diode_rs", terminals=("p", "n"), residual=_diode_rs_residual,
+    internals=(("int", CLASS_V),), defaults=dict(_DIODE_DEFAULTS),
+    limit=_diode_rs_limit)
+
+
 # ---------------------------------------------------------------------------
 # MOSFET level 1 (square law with channel-length modulation), 4-terminal
 # with fixed overlap and junction capacitances
@@ -335,4 +359,4 @@ MOSFET1 = DeviceModel(
 
 
 BUILTINS = {m.name: m for m in (RESISTOR, CAPACITOR, VSOURCE, ISOURCE,
-                                DIODE, MOSFET1)}
+                                DIODE, DIODE_RS, MOSFET1)}

@@ -111,10 +111,9 @@ class Circuit:
                         acmag=float(acmag), acphase=float(acphase))
 
     def D(self, name, anode, cathode, **params):
-        from .devices import DIODE
-        if params.get("rs", 0.0):
-            deferred("the diode with series rs (diode_rs)")
-        return self.add(DIODE, name, (anode, cathode), **params)
+        from .devices import DIODE, DIODE_RS
+        model = DIODE_RS if params.get("rs", 0.0) else DIODE
+        return self.add(model, name, (anode, cathode), **params)
 
     def M(self, name, d, g, s, b="0", **params):
         from .devices import MOSFET1

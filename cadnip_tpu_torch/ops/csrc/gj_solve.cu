@@ -2,7 +2,8 @@
 // pivoting, one thread block per system, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel cadnip_tpu/ops/pallas_solve.py::_gj_kernel (the
-// Pallas Gauss-Jordan solve inside every Newton iteration). Same algorithm:
+// Pallas Gauss-Jordan solve inside every Newton iteration). Same algorithm
+// (the elimination itself is gj::eliminate in gj_core.cuh, shared with K2):
 // for each pivot k, the row of largest |A[i,k]| over i >= k (lowest index on
 // ties, as jax.lax.argmax), a row swap, elimination of column k from every
 // other row; finally X = B / diag(A). It is not a tile-by-tile copy of the
@@ -24,16 +25,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "gj_core.cuh"
 
-// "v at row i" beats "best at row bi": larger magnitude, NaN counts as the
-// largest (jax.lax.argmax semantics), lowest row index on ties.
-template <typename T>
-__device__ __forceinline__ bool beats(T v, int i, T best, int bi) {
-  const bool vn = isnan(v), bn = isnan(best);
-  if (vn || bn) return vn && (!bn || i < bi);
-  return v > best || (v == best && i < bi);
-}
+namespace {
 
 template <typename T>
 __global__ void gj_kernel(const T* __restrict__ A, long long sab,
@@ -43,9 +37,7 @@ __global__ void gj_kernel(const T* __restrict__ A, long long sab,
                           T* __restrict__ X, int n, int k) {
   extern __shared__ unsigned char smem_raw[];
   T* ab = reinterpret_cast<T*>(smem_raw);   // augmented block, [n][n + k]
-  __shared__ T red_v[32];
-  __shared__ int red_i[32];
-  __shared__ int piv_row;
+  __shared__ gj::Scratch<T> scratch;
 
   const int m = n + k;
   const int tid = threadIdx.x;
@@ -63,58 +55,7 @@ __global__ void gj_kernel(const T* __restrict__ A, long long sab,
     }
   }
   __syncthreads();
-
-  for (int kk = 0; kk < n; ++kk) {
-    // ---- pivot: argmax |ab[i, kk]| over rows i >= kk
-    T bv = T(-1);
-    int bi = n;
-    for (int i = kk + tid; i < n; i += blockDim.x) {
-      const T v = fabs(ab[i * m + kk]);
-      if (beats(v, i, bv, bi)) { bv = v; bi = i; }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const T ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
-    if (lane == 0) { red_v[warp] = bv; red_i[warp] = bi; }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : T(-1);
-      bi = lane < nwarps ? red_i[lane] : n;
-      for (int off = 16; off > 0; off >>= 1) {
-        const T ov = __shfl_down_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-      }
-      if (lane == 0) piv_row = bi;
-    }
-    __syncthreads();
-
-    // ---- swap rows kk and p
-    const int p = piv_row;
-    if (p != kk) {
-      for (int j = tid; j < m; j += blockDim.x) {
-        const T t = ab[kk * m + j];
-        ab[kk * m + j] = ab[p * m + j];
-        ab[p * m + j] = t;
-      }
-    }
-    __syncthreads();
-
-    // ---- eliminate column kk from every other row; the pivot row is only
-    // read, so rows proceed independently, one warp per row
-    const T piv = ab[kk * m + kk];
-    for (int i = warp; i < n; i += nwarps) {
-      if (i == kk) continue;
-      const T f = ab[i * m + kk] / piv;
-      __syncwarp();   // every lane holds f before column kk is overwritten
-      for (int j = lane; j < m; j += 32) {
-        ab[i * m + j] = ab[i * m + j] - f * ab[kk * m + j];
-      }
-    }
-    __syncthreads();
-  }
+  gj::eliminate(ab, n, m, scratch);
 
   // ---- X = B-part / diag(A-part), contiguous [n][k] per system
   T* Xb = X + b * (long long)n * k;

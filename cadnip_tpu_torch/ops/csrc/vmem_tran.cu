@@ -1,0 +1,561 @@
+// Kernel K2: the whole adaptive transient of a small dense circuit in one
+// launch, one thread block per circuit, for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel archive/pallas_tran.py::make_kernel.kernel (the
+// Pallas "VMEM integrator"). It computes what that kernel computes; it is
+// not carried over block by block. Per Newton iteration: the device
+// evaluation of every instance (limiter, then the residual on dual numbers
+// for f, q and the local Jacobians; devices.cuh), the assembly of F, Q and
+// A = G + c0*C through gather plans built on the host (a fixed summation
+// order, no atomics, so step decisions replay), the two-sided equilibrated
+// Gauss-Jordan solve of [Dr A Dc | Dr F] (K1's elimination, gj_core.cuh)
+// with the column scaling undone, max_dv damping, the ok_dx | ok_res test,
+// divided-difference LTE control (BE after a breakpoint, then trapezoidal),
+// breakpoint hits, and the linear interpolation of each accepted step onto
+// the save rows in (t, t_new]. The reference kernel's sequential chunk grid
+// is a loop over chunks inside the block: a step never crosses its chunk's
+// last save time, the chunk's rows are first filled with its entry state,
+// and a step writes through a window of win_rows rows.
+//
+// The reference is f32 only because Mosaic has no f64; K2 is f64. Its
+// constants are the reference's, unchanged, so that step decisions remain
+// comparable: RES_EPS = 8e-7, the reltol floor 4e-6 (applied on the host),
+// TRTOL, GROW_MAX, NEWTON_FAIL_CUT, the hold of 3 steps after a reject and
+// the failure after more than 100 rejects in a row. Limiter states start at
+// zeros, as the reference's do.
+//
+// What bounds it on this card: one block's serial Newton chain. Per
+// iteration that is about 4n + 15 block barriers (four per pivot of the
+// solve) and the FP64 latency of the device functions; the bytes are
+// negligible. The design keeps the state vectors and the dense [n][n+1]
+// system in shared memory, the per-instance locals (f, q, J, C, limiter
+// states) in device memory that stays in L1/L2, lets thread 0 run the
+// scalar step control with barriers publishing it, and goes back to the
+// host once per transient. Largest circuit: n = 127 unknowns (149 KB of
+// shared memory), as the reference's n + 1 <= 128.
+//
+// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//             -shared -Xcompiler -fPIC  (plain C interface, bound by ctypes)
+// nvcc contracts products into FMAs and the plain PyTorch twin does not,
+// and the sums run in another order: kernel and twin agree to rounding,
+// and rounding may flip an occasional step decision.
+
+#include <cuda_runtime.h>
+
+#include "devices.cuh"
+#include "gj_core.cuh"
+
+// Scalar configuration; mirrored by _Config in ops/vmem_tran.py (8-byte
+// fields only, so the two layouts agree without padding rules).
+struct VmemConfig {
+  double t0, tstop, h0, hmax, hmin, dt_save, reltol, max_dv, gshunt, gmin,
+      temp, srcfact;
+  long long n, n_groups, n_inst, n_loc, n_bp, max_steps, max_newton, n_save,
+      rows_per_chunk, win_rows, n_chunks;
+};
+
+// Device pointers; mirrored by _Ptrs in ops/vmem_tran.py.
+struct VmemPtrs {
+  const long long* gdesc;   // [n_groups][GD_STRIDE]
+  const int* conn;          // per group [n_inst][n_local] unknown indices
+  const double* par;        // per group [n_inst][n_par]
+  const long long* wkind;   // [n_inst total] waveform kinds
+  const double* wcoef;      // per wave group [n_inst][W]
+  const double* bp;         // [n_bp] breakpoints
+  const double *x0, *q0, *qdot0, *atol, *diff, *vmask;   // [n]
+  const int *fq_ptr, *fq_idx, *jc_ptr, *jc_idx;           // gather plans
+  double *floc, *qloc, *jloc, *cloc, *ueval, *lims, *limacc, *wv, *cdx;
+  double* xs;               // [n_chunks * rows_per_chunk][n]
+  long long* stats;         // naccept, nreject, nnewton, fail, nsteps
+  double* fin;              // [3][n]: x, q, qdot at the end
+};
+
+namespace {
+
+enum { GD_MODEL = 0, GD_NINST, GD_NL, GD_NPAR, GD_CONN, GD_PAR, GD_LOC,
+       GD_JAC, GD_INST, GD_WAVE, GD_W, GD_STRIDE };
+
+constexpr double TRTOL = 7.0;
+constexpr double GROW_MAX = 2.0;
+constexpr double NEWTON_FAIL_CUT = 0.125;
+constexpr double RES_EPS = 8e-7;
+constexpr double TINY = 1e-30;
+constexpr long long HOLD_STEPS = 3;
+constexpr long long MAX_REJECT_RUN = 100;
+constexpr int N_VECTORS = 19;   // state vectors of n + 1 in shared memory
+
+// Scalar step control: written by thread 0 only, read after a barrier.
+struct Ctl {
+  double t, h, t1, t2, h_eff, t_new, c0, chunk_t_last;
+  long long row0, bp_i, si, naccept, nreject, nnewton, nsteps, nrej_run,
+      hold, fail, iord, it;
+  int hit_bp, use_be, run;
+  int nsaved;
+};
+
+// max over the block, NaN ignored (callers test NaN apart)
+__device__ double block_max(double v, double* red) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmax(v, __shfl_xor_sync(0xffffffffu, v, off));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double r = red[0];
+  for (int w = 1; w < nw; ++w) r = fmax(r, red[w]);
+  __syncthreads();
+  return r;
+}
+
+// the device group that global instance idx belongs to
+__device__ __forceinline__ const long long* group_of(const long long* gd,
+                                                    int ng, int idx) {
+  int g = 0;
+  while (g + 1 < ng && gd[(g + 1) * GD_STRIDE + GD_INST] <= idx) ++g;
+  return gd + g * GD_STRIDE;
+}
+
+// thread 0: the next trial step from the accepted state in S
+__device__ void trial_scalars(Ctl& S, const VmemConfig& cfg,
+                              const double* bp) {
+  const long long j = S.bp_i < cfg.n_bp - 1 ? S.bp_i : cfg.n_bp - 1;
+  const double bp_t = bp[j];
+  double h_eff = fmin(fmin(S.h, cfg.hmax), S.chunk_t_last - S.t);
+  const double to_bp = bp_t - S.t;
+  if (to_bp > 0.0 && to_bp < h_eff * 1.5) h_eff = fmin(h_eff, to_bp);
+  h_eff = fmax(h_eff, cfg.hmin);
+  S.h_eff = h_eff;
+  S.t_new = S.t + h_eff;
+  S.hit_bp = S.t_new >= bp_t - 1e-6 * fmax(bp_t, TINY);
+  S.use_be = S.iord == 1;
+  S.c0 = S.use_be ? 1.0 / h_eff : 2.0 / h_eff;
+  S.it = 0;
+}
+
+}  // namespace
+
+__global__ void __launch_bounds__(256)
+    vmem_kernel(const VmemConfig cfg, const VmemPtrs P) {
+  extern __shared__ double sm[];
+  __shared__ Ctl S;
+  __shared__ double red[32];
+  __shared__ gj::Scratch<double> gs;
+
+  const int n = (int)cfg.n, m = n + 1;
+  const int tid = threadIdx.x, bs = blockDim.x;
+  const int ng = (int)cfg.n_groups, n_inst = (int)cfg.n_inst;
+  const long long n_loc = cfg.n_loc;
+  const long long rc = cfg.rows_per_chunk, wr = cfg.win_rows;
+  const long long* gd = P.gdesc;
+  const dev::Dyn dyn = dev::make_dyn(cfg.temp, cfg.gmin, cfg.srcfact);
+
+  double* A = sm;                                  // [n][n + 1]: [A | b]
+  double* x = sm + n * m;                          // vectors of n + 1
+  double *x1 = x + m, *x2 = x1 + m, *q = x2 + m, *q1 = q + m, *qd = q1 + m;
+  double *xi = qd + m, *rq = xi + m, *xn = rq + m, *dx = xn + m;
+  double *F = dx + m, *Q = F + m, *Ft = Q + m, *qc = Ft + m, *qdn = qc + m;
+  double *atol = qdn + m, *diff = atol + m, *vmask = diff + m;
+  double* cinv = vmask + m;                        // N_VECTORS = 19
+
+  // ---- initial state; the ground slot n of xi and dx reads 0
+  for (int i = tid; i < n; i += bs) {
+    x[i] = x1[i] = x2[i] = P.x0[i];
+    q[i] = q1[i] = P.q0[i];
+    qd[i] = P.qdot0[i];
+    atol[i] = P.atol[i];
+    diff[i] = P.diff[i];
+    vmask[i] = P.vmask[i];
+  }
+  for (long long k = tid; k < n_loc; k += bs) P.lims[k] = P.limacc[k] = 0.0;
+  if (tid == 0) {
+    xi[n] = 0.0;
+    dx[n] = 0.0;
+    S.t = cfg.t0;
+    S.h = cfg.h0;
+    S.t1 = cfg.t0 - 1.0;
+    S.t2 = cfg.t0 - 2.0;
+    S.bp_i = 0; S.si = 1; S.naccept = 0; S.nreject = 0; S.nnewton = 0;
+    S.nsteps = 0; S.nrej_run = 0; S.hold = 0; S.fail = 0; S.iord = 1;
+  }
+  __syncthreads();
+
+  // all threads: the trial's vectors and every source's waveform value
+  auto trial_vectors = [&]() {
+    const double c0 = S.c0, h_eff = S.h_eff, t_new = S.t_new;
+    const bool use_be = S.use_be, pred = S.naccept >= 1;
+    const double dt1 = fmax(S.t - S.t1, TINY);
+    for (int i = tid; i < n; i += bs) {
+      rq[i] = c0 * q[i] + (use_be ? 0.0 : qd[i]);
+      xi[i] = pred ? x[i] + (x[i] - x1[i]) / dt1 * h_eff : x[i];
+    }
+    for (int idx = tid; idx < n_inst; idx += bs) {
+      const long long* G = group_of(gd, ng, idx);
+      if (G[GD_WAVE] < 0) continue;
+      const int W = (int)G[GD_W];
+      P.wv[idx] = dev::eval_wave(
+          P.wkind[idx], P.wcoef + G[GD_WAVE] + (idx - G[GD_INST]) * W, W,
+          t_new);
+    }
+  };
+
+  for (long long ci = 0; ci < cfg.n_chunks; ++ci) {
+    if (tid == 0) {
+      const long long last = (ci + 1) * rc - 1 < cfg.n_save - 1
+                                 ? (ci + 1) * rc - 1 : cfg.n_save - 1;
+      S.chunk_t_last = cfg.t0 + (double)last * cfg.dt_save;
+      S.row0 = ci * rc;
+      trial_scalars(S, cfg, P.bp);
+    }
+    __syncthreads();
+    // rows this chunk never crosses keep its entry state
+    for (long long e = tid; e < rc * n; e += bs)
+      P.xs[S.row0 * n + e] = x[e % n];
+    trial_vectors();
+    __syncthreads();
+
+    for (;;) {
+      if (tid == 0)
+        S.run = S.t < S.chunk_t_last - 0.01 * cfg.dt_save && S.fail == 0
+                && S.nsteps < cfg.max_steps && S.si < cfg.n_save;
+      __syncthreads();
+      if (!S.run) break;
+      const double c0 = S.c0;
+
+      // ---- device evaluation, one thread per instance
+      for (int idx = tid; idx < n_inst; idx += bs) {
+        const long long* G = group_of(gd, ng, idx);
+        const int nl = (int)G[GD_NL], li = idx - (int)G[GD_INST];
+        const int* cn = P.conn + G[GD_CONN] + li * nl;
+        const long long lo = G[GD_LOC] + li * nl;
+        const long long jo = G[GD_JAC] + (long long)li * nl * nl;
+        double u[4], up[4];
+        for (int a = 0; a < nl; ++a) {
+          u[a] = xi[cn[a]];
+          up[a] = P.lims[lo + a];
+        }
+        dev::eval_model((int)G[GD_MODEL], u, up,
+                        P.par + G[GD_PAR] + li * G[GD_NPAR],
+                        G[GD_WAVE] >= 0 ? P.wv[idx] : 0.0, dyn,
+                        P.floc + lo, P.qloc + lo, P.jloc + jo, P.cloc + jo,
+                        P.ueval + lo);
+      }
+      __syncthreads();
+
+      // ---- assembly through the gather plans (fixed summation order)
+      for (int r = tid; r < n; r += bs) {
+        double fr = 0.0, qr = 0.0;
+        for (int k = P.fq_ptr[r]; k < P.fq_ptr[r + 1]; ++k) {
+          fr += P.floc[P.fq_idx[k]];
+          qr += P.qloc[P.fq_idx[k]];
+        }
+        fr = fr + cfg.gshunt * xi[r] * vmask[r];
+        F[r] = fr;
+        Q[r] = qr;
+        Ft[r] = fr + c0 * qr - rq[r];
+      }
+      for (int e = tid; e < n * n; e += bs) {
+        const int r = e / n, c = e - r * n;
+        double g = 0.0, cc = 0.0;
+        for (int k = P.jc_ptr[e]; k < P.jc_ptr[e + 1]; ++k) {
+          g += P.jloc[P.jc_idx[k]];
+          cc += P.cloc[P.jc_idx[k]];
+        }
+        if (r == c) g = g + cfg.gshunt * vmask[r];
+        A[r * m + c] = g + c0 * cc;
+      }
+      __syncthreads();
+
+      // ---- two-sided equilibration: rows, then columns; b = Dr Ft
+      for (int r = tid; r < n; r += bs) {
+        double mx = 0.0;
+        for (int c = 0; c < n; ++c) mx = dev::tmax(mx, fabs(A[r * m + c]));
+        const double rinv = 1.0 / clamp_min(mx, TINY);
+        for (int c = 0; c < n; ++c) A[r * m + c] *= rinv;
+        A[r * m + n] = rinv * Ft[r];
+      }
+      __syncthreads();
+      for (int c = tid; c < n; c += bs) {
+        double mx = 0.0;
+        for (int r = 0; r < n; ++r) mx = dev::tmax(mx, fabs(A[r * m + c]));
+        cinv[c] = 1.0 / clamp_min(mx, TINY);
+      }
+      __syncthreads();
+      for (int e = tid; e < n * n; e += bs) {
+        const int r = e / n, c = e - r * n;
+        A[r * m + c] *= cinv[c];
+      }
+      __syncthreads();
+      gj::eliminate(A, n, m, gs);
+
+      // ---- Newton step, damped so no node voltage moves more than max_dv
+      double vloc = 0.0;
+      int vnan = 0;
+      for (int i = tid; i < n; i += bs) {
+        const double d = -((A[i * m + n] / A[i * m + i]) * cinv[i]);
+        dx[i] = d;
+        if (vmask[i] != 0.0) {
+          vloc = fmax(vloc, fabs(d));
+          vnan |= isnan(d);
+        }
+      }
+      const double vstep = block_max(vloc, red);
+      const bool vstep_nan = __syncthreads_or(vnan);
+      const double scale = (cfg.max_dv > 0.0 && !vstep_nan)
+                               ? fmin(1.0, cfg.max_dv / fmax(vstep, TINY))
+                               : 1.0;
+      int okdx = 1, okres = 1, badl = 0;
+      for (int i = tid; i < n; i += bs) {
+        const double d = dx[i] * scale;
+        const double v = xi[i] + d;
+        dx[i] = d;
+        xn[i] = v;
+        const double tol = cfg.reltol * dev::tmax(fabs(v), fabs(xi[i]))
+                           + atol[i];
+        okdx &= fabs(d) <= tol;
+        const double rows = fabs(F[i]) + fabs(c0 * Q[i]) + fabs(rq[i]);
+        okres &= fabs(Ft[i]) <= RES_EPS * rows + atol[i];
+        badl |= !isfinite(v);
+      }
+      const bool ok_dx = __syncthreads_and(okdx);
+      const bool ok_res = __syncthreads_and(okres);
+      const bool bad = __syncthreads_or(badl);
+      if (bad)
+        for (int i = tid; i < n; i += bs) xn[i] = xi[i];
+
+      // ---- LTE on the differential rows
+      const double t = S.t, t1 = S.t1, t2 = S.t2, tn = S.t_new;
+      const double he = S.h_eff;
+      const bool use_be = S.use_be;
+      double rloc = 0.0;
+      int rnan = 0;
+      for (int i = tid; i < n; i += bs) {
+        if (diff[i] == 0.0) continue;
+        const double d1a = (xn[i] - x[i]) / fmax(tn - t, TINY);
+        const double d1b = (x[i] - x1[i]) / fmax(t - t1, TINY);
+        const double d1c = (x1[i] - x2[i]) / fmax(t1 - t2, TINY);
+        const double d2a = (d1a - d1b) / fmax(tn - t1, TINY);
+        const double d2b = (d1b - d1c) / fmax(t - t2, TINY);
+        const double d3 = (d2a - d2b) / fmax(tn - t2, TINY);
+        const double lte = use_be ? he * he * fabs(d2a)
+                                  : 0.5 * pow(he, 3.0) * fabs(d3);
+        const double etol = TRTOL * (cfg.reltol * dev::tmax(fabs(xn[i]),
+                                                            fabs(x[i]))
+                                     + atol[i]);
+        const double ratio = lte / etol;
+        rloc = fmax(rloc, ratio);
+        rnan |= isnan(ratio);
+      }
+      double enorm = block_max(rloc, red);
+      const bool enan = __syncthreads_or(rnan);
+
+      // ---- step decision: every thread computes it from the same values
+      const long long it = S.it + 1;
+      const bool conv = (ok_dx || ok_res) && !bad;
+      const bool newton_done = conv || bad || it >= cfg.max_newton;
+      if (S.naccept < 2) enorm = 0.0;
+      else if (enan) enorm = INFINITY;
+      const bool accept = newton_done && conv
+                          && (enorm <= 1.0 || he <= cfg.hmin * 1.01);
+      const bool reject = newton_done && !accept;
+      double fac = conv ? fmin(fmax(0.9 * pow(fmax(enorm, 1e-10),
+                                              -1.0 / 3.0), 0.02), GROW_MAX)
+                        : NEWTON_FAIL_CUT;
+      if (accept && S.hold > 0) fac = fmin(fac, 1.0);
+      double h_next = fmin(fmax(he * fac, cfg.hmin), cfg.hmax);
+      if (!(isfinite(h_next) && h_next > 0.0)) h_next = cfg.hmin;
+      const bool fail_now = reject && he <= cfg.hmin * 1.01;
+
+      if (accept) {
+        // charge update Qc = Q + C dx from the per-instance C blocks
+        for (int idx = tid; idx < n_inst; idx += bs) {
+          const long long* G = group_of(gd, ng, idx);
+          const int nl = (int)G[GD_NL], li = idx - (int)G[GD_INST];
+          const int* cn = P.conn + G[GD_CONN] + li * nl;
+          const long long lo = G[GD_LOC] + li * nl;
+          const double* Cl = P.cloc + G[GD_JAC] + (long long)li * nl * nl;
+          for (int a = 0; a < nl; ++a) {
+            double s = 0.0;
+            for (int b = 0; b < nl; ++b) s += Cl[a * nl + b] * dx[cn[b]];
+            P.cdx[lo + a] = s;
+          }
+        }
+        if (tid == 0) S.nsaved = 0;
+        __syncthreads();
+        for (int r = tid; r < n; r += bs) {
+          double s = 0.0;
+          for (int k = P.fq_ptr[r]; k < P.fq_ptr[r + 1]; ++k)
+            s += P.cdx[P.fq_idx[k]];
+          qc[r] = Q[r] + s;
+          qdn[r] = c0 * qc[r] - rq[r];
+        }
+        // the save rows in (t, t_new], through the window of wr rows
+        long long k0 = (long long)floor((t - cfg.t0) / cfg.dt_save) + 1
+                       - S.row0;
+        k0 = k0 > 0 ? k0 : 0;
+        k0 = k0 < rc - wr ? k0 : rc - wr;
+        const long long base = S.row0 + k0;
+        int cnt = 0;
+        for (long long w = tid; w < wr; w += bs) {
+          const double wt = cfg.t0 + (double)(base + w) * cfg.dt_save;
+          cnt += (wt > t + 1e-37) && (wt <= tn + 1e-37);
+        }
+        if (cnt) atomicAdd(&S.nsaved, cnt);   // integer: order-free
+        for (long long e = tid; e < wr * n; e += bs) {
+          const long long w = e / n;
+          const int i = (int)(e - w * n);
+          const double wt = cfg.t0 + (double)(base + w) * cfg.dt_save;
+          if (!((wt > t + 1e-37) && (wt <= tn + 1e-37))) continue;
+          const double wf = clip((wt - t) / fmax(tn - t, TINY), 0.0, 1.0);
+          P.xs[(base + w) * n + i] = x[i] + wf * (xn[i] - x[i]);
+        }
+        __syncthreads();
+        for (int i = tid; i < n; i += bs) {
+          x2[i] = x1[i];
+          x1[i] = x[i];
+          x[i] = xn[i];
+          q1[i] = q[i];
+          q[i] = qc[i];
+          qd[i] = qdn[i];
+        }
+      }
+
+      // ---- limiter states: roll back on a bad iterate, commit on accept,
+      // restore the last accepted step's on reject
+      for (long long k = tid; k < n_loc; k += bs) {
+        const double ln = bad ? P.lims[k] : P.ueval[k];
+        if (accept) {
+          P.limacc[k] = ln;
+          P.lims[k] = ln;
+        } else {
+          P.lims[k] = newton_done ? P.limacc[k] : ln;
+        }
+      }
+      __syncthreads();
+
+      if (tid == 0) {
+        if (accept) {
+          S.t2 = S.t1;
+          S.t1 = S.t;
+          S.t = tn;
+          S.iord = S.hit_bp ? 1 : 2;
+          if (S.hit_bp) S.bp_i += 1;
+          S.si += S.nsaved;
+        } else if (reject && !conv) {
+          S.iord = 1;
+        }
+        if (newton_done) S.h = h_next;
+        S.naccept += accept;
+        S.nreject += reject;
+        S.nnewton += 1;
+        S.nsteps += newton_done;
+        if (fail_now || S.nrej_run > MAX_REJECT_RUN) S.fail = 1;
+        S.nrej_run = accept ? 0 : S.nrej_run + reject;
+        S.hold = reject ? HOLD_STEPS
+                        : (accept ? (S.hold > 1 ? S.hold - 1 : 0) : S.hold);
+        if (newton_done) trial_scalars(S, cfg, P.bp);
+        else S.it = it;
+      }
+      __syncthreads();
+      if (newton_done) {
+        trial_vectors();
+      } else {
+        for (int i = tid; i < n; i += bs) xi[i] = xn[i];
+      }
+      __syncthreads();
+    }
+  }
+
+  if (tid == 0) {
+    const bool ran_out = S.nsteps >= cfg.max_steps
+                         && S.t < cfg.tstop * (1.0 - 1e-6);
+    P.stats[0] = S.naccept;
+    P.stats[1] = S.nreject;
+    P.stats[2] = S.nnewton;
+    P.stats[3] = S.fail + (ran_out ? 1 : 0);
+    P.stats[4] = S.nsteps;
+  }
+  for (int i = tid; i < n; i += bs) {
+    P.fin[i] = x[i];
+    P.fin[n + i] = q[i];
+    P.fin[2 * n + i] = qd[i];
+  }
+}
+
+// The device-evaluation entries: the same device functions on given
+// inputs, for holding them against the twin's group evaluation.
+__global__ void eval_group_kernel(int model, int n_inst, int nl,
+                                  const double* u, const double* up,
+                                  const double* par, int npar,
+                                  const double* wv, dev::Dyn d, double* f,
+                                  double* q, double* J, double* C,
+                                  double* ue) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_inst) return;
+  double uu[4], pp[4];
+  for (int a = 0; a < nl; ++a) {
+    uu[a] = u[i * nl + a];
+    pp[a] = up[i * nl + a];
+  }
+  dev::eval_model(model, uu, pp, par + (long long)i * npar, wv[i], d,
+                  f + i * nl, q + i * nl, J + i * nl * nl, C + i * nl * nl,
+                  ue + i * nl);
+}
+
+__global__ void eval_waves_kernel(const long long* kind, const double* coef,
+                                  int W, int n_inst, const double* ts,
+                                  int n_t, double* out) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)n_t * n_inst) return;
+  const int ti = (int)(e / n_inst), i = (int)(e - (long long)ti * n_inst);
+  out[e] = dev::eval_wave(kind[i], coef + (long long)i * W, W, ts[ti]);
+}
+
+extern "C" {
+
+// Runs one transient; returns the cudaError_t of the launch (0 on success).
+int vmem_tran_f64(const VmemConfig* cfg, const VmemPtrs* ptrs, int threads,
+                  void* stream) {
+  const size_t n = (size_t)cfg->n;
+  const size_t smem = sizeof(double) * (n * (n + 1) + N_VECTORS * (n + 1));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        vmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  vmem_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(*cfg, *ptrs);
+  return (int)cudaGetLastError();
+}
+
+int vmem_eval_group_f64(int model, int n_inst, int nl, const void* u,
+                        const void* up, const void* par, int npar,
+                        const void* wv, double temp, double gmin,
+                        double srcfact, void* f, void* q, void* J, void* C,
+                        void* ue, void* stream) {
+  if (n_inst <= 0) return 0;
+  const dev::Dyn d = dev::make_dyn(temp, gmin, srcfact);
+  const int threads = 128;
+  eval_group_kernel<<<(n_inst + threads - 1) / threads, threads, 0,
+                      (cudaStream_t)stream>>>(
+      model, n_inst, nl, static_cast<const double*>(u),
+      static_cast<const double*>(up), static_cast<const double*>(par), npar,
+      static_cast<const double*>(wv), d, static_cast<double*>(f),
+      static_cast<double*>(q), static_cast<double*>(J),
+      static_cast<double*>(C), static_cast<double*>(ue));
+  return (int)cudaGetLastError();
+}
+
+int vmem_eval_waves_f64(const void* kind, const void* coef, int W,
+                        int n_inst, const void* ts, int n_t, void* out,
+                        void* stream) {
+  const long long total = (long long)n_t * n_inst;
+  if (total <= 0) return 0;
+  const int threads = 128;
+  eval_waves_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
+                      0, (cudaStream_t)stream>>>(
+      static_cast<const long long*>(kind), static_cast<const double*>(coef),
+      W, n_inst, static_cast<const double*>(ts), n_t,
+      static_cast<double*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

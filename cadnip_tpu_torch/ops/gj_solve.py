@@ -12,27 +12,18 @@ f64 it is the counterpart of the JAX package's full-f64 Gauss-Jordan
 method "gauss"; in f32 it reproduces `gj_solve_f32`.
 
 The kernel is compiled at first use with nvcc for sm_90a into
-`build/cadnip_tpu_torch/` of the checkout, keyed by a hash of its source,
-and bound with ctypes.
+`build/cadnip_tpu_torch/` of the checkout, keyed by a hash of its sources
+(`ops/nvcc.py`), and bound with ctypes.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from ..config import DTYPE, F32
+from . import nvcc
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "gj_solve.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cadnip_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: dynamic shared memory a block may use on Hopper (227 KB), less the
 #: kernel's static reduction scratch
 MAX_SMEM = 232448 - 1024
@@ -40,37 +31,12 @@ MAX_SMEM = 232448 - 1024
 _lib = None
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: K1 (gj_solve.cu) cannot be "
-                           "built; set CUDA_HOME")
-    return found
-
-
 def load_library():
     """Build (once per source hash) and load the K1 shared library."""
     global _lib
     if _lib is not None:
         return _lib
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"gj_solve_{key[:16]}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed to build {_SRC.name}:\n"
-                               f"{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = nvcc.load("gj_solve")
     ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     for fn in (lib.gj_solve_f64, lib.gj_solve_f32):
         fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, ci,

@@ -56,6 +56,18 @@ def _setup(kind, rng):
         u = rng.uniform(-25.0, 0.9, (NPTS, 2))
         u[:, 1] = rng.uniform(-0.2, 0.2, NPTS)
         return jdv.DIODE, tdv.DIODE, p, u
+    if kind == "diode_rs":
+        # the graetz rectifier's d1n4007, rs varied; u = [p, n, internal]
+        p = {k: np.full(NPTS, float(v))
+             for k, v in jdv.DIODE_RS.defaults.items()}
+        p.update({"is": np.full(NPTS, 76.9e-12)},
+                 rs=rng.uniform(0.01, 10.0, NPTS), bv=np.full(NPTS, 1e3),
+                 ibv=np.full(NPTS, 5e-6), cjo=np.full(NPTS, 26.5e-12),
+                 m=np.full(NPTS, 0.333), n=rng.uniform(1.2, 1.6, NPTS),
+                 tt=np.full(NPTS, 1e-9))
+        u = rng.uniform(-25.0, 1.2, (NPTS, 3))
+        u[:, 1] = rng.uniform(-0.2, 0.2, NPTS)
+        return jdv.DIODE_RS, tdv.DIODE_RS, p, u
     if kind == "capacitor":
         p = {"c": rng.uniform(1e-15, 1e-9, NPTS)}
         return (jdv.CAPACITOR, tdv.CAPACITOR, p,
@@ -70,7 +82,7 @@ def _setup(kind, rng):
 
 
 KINDS = ["nmos_fwd", "nmos_rev", "pmos_fwd", "pmos_rev", "diode",
-         "capacitor", "vsource_pwl", "vsource_dc"]
+         "capacitor", "vsource_pwl", "vsource_dc", "diode_rs"]
 
 
 def _close(a, b):
@@ -108,7 +120,8 @@ def test_residual_and_jacobians_match_jax(kind):
         _close(a.numpy(), np.asarray(b))
 
 
-@pytest.mark.parametrize("kind", ["nmos_fwd", "pmos_rev", "diode"])
+@pytest.mark.parametrize("kind", ["nmos_fwd", "pmos_rev", "diode",
+                                  "diode_rs"])
 def test_limiters_match_jax_exactly(kind):
     rng = np.random.default_rng(100 + len(kind))
     jmodel, tmodel, p, u = _setup(kind, rng)
@@ -177,5 +190,30 @@ def test_deferred_devices_raise():
     cir = ct.Circuit("deferred")
     with pytest.raises(NotImplementedError, match="inductor"):
         cir.L("l1", "a", "0", 1e-9)
-    with pytest.raises(NotImplementedError, match="diode_rs"):
-        cir.D("d1", "a", "0", rs=10.0)
+
+
+@pytest.mark.parametrize("time", [0.0, 5e-3, 1.5e-2])
+def test_diode_rs_operating_point_matches_jax(time):
+    """The graetz rectifier (four diodes with series rs) through the SPICE
+    front end of both packages, at transient source values: at t = 0 the
+    source is 0 V; at 5 ms and 15 ms it is +-20 V and two diodes conduct."""
+    import cadnip_tpu as jct
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu.models.vacask import GRAETZ
+    from cadnip_tpu_torch.mna.spec import MODE_TRANOP
+
+    jcc = jct.parse_spice(GRAETZ)
+    tcc = ct.parse_spice(GRAETZ)
+    assert [g.model.name for g in tcc.groups].count("diode_rs") == 1
+    assert tcc.names == jcc.names
+    jsol = jct.dc(jcc, mode=MODE_TRANOP, time=time)
+    tsol = ct.dc(tcc, params_from_numpy([jax.tree.map(np.array, d)
+                                         for d in jcc.params0()]),
+                 mode=MODE_TRANOP, time=time)
+    assert bool(jsol.converged) and bool(tsol.converged)
+    assert int(tsol.iters) == int(jsol.iters)
+    np.testing.assert_allclose(tsol.x.numpy(), np.asarray(jsol.x),
+                               rtol=1e-9, atol=1e-12)
+    if time:
+        # the load sees the source less two diode drops
+        assert 17.0 < abs(float(tsol.v("outp", "outn"))) < 19.5

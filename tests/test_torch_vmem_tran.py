@@ -1,0 +1,274 @@
+"""Kernel K2 of the port (cadnip_tpu_torch/ops/vmem_tran.py) against the
+reference K2, the JAX package's Pallas integrator kernel
+archive/pallas_tran.py, run in interpret mode on the CPU.
+
+The reference lives outside the JAX package, in archive/. It is loaded as
+a module of that package (so that its relative imports resolve against
+cadnip_tpu) with importlib, without changing either. On the CPU the port's
+`vmem_tran` runs its plain twin; the CUDA kernel is checked against the
+twin by the `gpu` tests here and by chip_smoke.py.
+
+This file: `supported`, rc, the host packer and the kernel's layouts. The
+DFF and graetz cases are in test_torch_vmem_tran_dff.py and
+test_torch_vmem_tran_graetz.py.
+"""
+import contextlib
+import importlib.util
+import os
+import re
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cadnip_tpu as jct
+import cadnip_tpu_torch as tct
+from cadnip_tpu.models.dff import dff_netlist as jax_dff_netlist
+from cadnip_tpu_torch.mna.assemble import make_sorted_scatter
+from cadnip_tpu_torch.models.vacask import GRAETZ, MUL, RC_NETLIST
+from cadnip_tpu_torch.ops import vmem_tran as vt
+
+torch.set_num_threads(1)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "cadnip_tpu_torch", "ops", "csrc")
+
+
+class _NumpyF64:
+    """numpy with float32 meaning float64 (the reference's host packing)."""
+
+    float32 = np.float64
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+
+class _JaxKeepX64:
+    """jax whose enable_x64(False) context leaves x64 on."""
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+    @staticmethod
+    def enable_x64(_):
+        return contextlib.nullcontext()
+
+
+def load_reference(x64=False):
+    """The reference K2 module. With x64, a second copy of it traces the
+    same kernel in f64 (its F32 dtype, host packing and x64 guard
+    redirected): the reference's algorithm without its f32 arithmetic,
+    which is what the f64 port computes."""
+    name = "cadnip_tpu.ops.pallas_tran" + ("_f64" if x64 else "")
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "archive", "pallas_tran.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+        if x64:
+            mod.F32 = jnp.float64
+            mod.np = _NumpyF64()
+            mod.jax = _JaxKeepX64()
+    return sys.modules[name]
+
+
+def counts(stats):
+    return tuple(int(v) for v in (stats.naccept, stats.nreject,
+                                  stats.nnewton))
+
+
+def _ladder(ct):
+    cir = ct.Circuit("big")
+    cir.V("v0", "n0", "0", dc=1.0)
+    for i in range(200):
+        cir.R(f"r{i}", f"n{i}", f"n{i + 1}", 10.0)
+    return cir.compile()
+
+
+CIRCUITS = {"rc": lambda ct: ct.parse_spice(RC_NETLIST),
+            "graetz": lambda ct: ct.parse_spice(GRAETZ),
+            "mul": lambda ct: ct.parse_spice(MUL),
+            "dff": lambda ct: ct.parse_spice(
+                jax_dff_netlist() if ct is jct else ct.dff_netlist()),
+            "ladder": _ladder}
+
+
+@pytest.mark.parametrize("name", list(CIRCUITS))
+def test_supported_matches_reference(name):
+    ref = load_reference()
+    jcc, tcc = CIRCUITS[name](jct), CIRCUITS[name](tct)
+    assert vt.supported(tcc) == ref.supported(jcc)
+    assert vt.supported(tcc) == (name != "ladder")     # 201 unknowns > 127
+    if name == "ladder":
+        with pytest.raises(ValueError, match="not supported"):
+            tct.vmem_tran(tcc, (0, 1e-6), dt=1e-8)
+        with pytest.raises(ValueError):
+            ref.vmem_tran(jcc, (0, 1e-6), dt=1e-8, interpret=True)
+
+
+def test_model_without_device_function_is_refused():
+    cir = tct.Circuit("custom")
+    model = tct.DeviceModel(name="resistor", terminals=("p", "n"),
+                            residual=tct.RESISTOR.residual,
+                            defaults={"r": 1e3})
+    cir.add(model, "r1", ("a", "0"), r=1e3)
+    cir.V("v1", "a", "0", dc=1.0)
+    assert not vt.supported(cir.compile())
+
+
+def test_rc_twin_meets_reference_bars():
+    """rc, 0-8 ms: the twin holds the reference kernel's own bars against
+    the JAX f64 runner (archive/test_vmem_tran.py: RMSE < 2e-3, max
+    < 1e-2), and agrees with the reference K2 to 1e-5 V at every save
+    point: the reference is f32 (about 1e-7 relative per operation), the
+    port f64, and this linear circuit takes the same steps in both."""
+    jcc = jct.parse_spice(RC_NETLIST)
+    ref = jct.tran(jcc, (0, 8e-3), dt=8e-6)
+    k2 = load_reference().vmem_tran(jcc, (0, 8e-3), dt=8e-6,
+                                    interpret=True)
+    sol = tct.vmem_tran(tct.parse_spice(RC_NETLIST), (0, 8e-3), dt=8e-6)
+    assert bool(sol.converged)
+    assert sol.xs.shape == (1001, 3)
+    v = sol["2"].numpy()
+    vr = np.asarray(ref["2"])
+    assert np.sqrt(np.mean((v - vr) ** 2)) < 2e-3
+    assert np.abs(v - vr).max() < 1e-2
+    assert np.abs(v - np.asarray(k2["2"])).max() < 1e-5
+    assert counts(sol.stats)[:2] == counts(k2.stats)[:2]
+
+
+@pytest.mark.parametrize("name", ["dff", "graetz"])
+def test_pack_reproduces_the_assembly(name):
+    """The host packer's gather plans (K2's assembly) give the same F and
+    J as the port's sorted scatter (the twin's assembly) for random local
+    contributions, and its parameter rows hold each group's parameters in
+    the order csrc/devices.cuh reads them."""
+    cc = CIRCUITS[name](tct)
+    S = vt.prepare(cc, (0, 1e-9 if name == "dff" else 1e-3),
+                   dt=1e-10 if name == "dff" else 1e-4)
+    pk = vt.pack(S)
+    n = cc.n
+    rng = np.random.default_rng(3)
+    floc = rng.standard_normal(pk["n_loc"])
+    jloc = rng.standard_normal(pk["n_jac"])
+    F = np.array([floc[pk["fq_idx"][pk["fq_ptr"][r]:pk["fq_ptr"][r + 1]]]
+                  .sum() for r in range(n)])
+    J = np.array([jloc[pk["jc_idx"][pk["jc_ptr"][e]:pk["jc_ptr"][e + 1]]]
+                  .sum() for e in range(n * n)]).reshape(n, n)
+    fq = make_sorted_scatter([g.conn for g in cc.groups], n + 1, "cpu")
+    jc = make_sorted_scatter([g.conn[:, :, None] * (n + 1)
+                              + g.conn[:, None, :] for g in cc.groups],
+                             (n + 1) ** 2, "cpu")
+    F_ref = fq([torch.as_tensor(floc)[None]])[0, :n].numpy()
+    J_ref = jc([torch.as_tensor(jloc)[None]])[0].reshape(n + 1, n + 1)
+    np.testing.assert_allclose(F, F_ref, rtol=1e-14, atol=1e-14)
+    np.testing.assert_allclose(J, J_ref[:n, :n].numpy(), rtol=1e-14,
+                               atol=1e-14)
+    for gd, g in zip(pk["gdesc"], cc.groups):
+        mid, pnames = vt.KERNEL_MODELS[g.model]
+        assert list(gd[:4]) == [mid, g.n_inst, g.model.n_local, len(pnames)]
+        rows = pk["par"][gd[5]:gd[5] + g.n_inst * len(pnames)]
+        for j, k in enumerate(pnames):
+            np.testing.assert_array_equal(rows[j::len(pnames)], g.params[k])
+        conn = pk["conn"][gd[4]:gd[4] + g.conn.size]
+        np.testing.assert_array_equal(conn, g.conn.reshape(-1))
+
+
+def _fields(src, struct):
+    body = re.search(r"struct %s \{(.*?)\};" % struct, src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in body.split(";"):
+        decl = decl.replace("*", " ").replace("const", " ").strip()
+        if decl:
+            names += [w.strip().split()[-1] for w in decl.split(",")]
+    return names
+
+
+def test_kernel_layouts_match_the_host():
+    """The ctypes mirrors of VmemConfig and VmemPtrs, the parameter order
+    of every model and the model ids agree with the CUDA sources."""
+    cu = open(os.path.join(CSRC, "vmem_tran.cu")).read()
+    cuh = open(os.path.join(CSRC, "devices.cuh")).read()
+    assert _fields(cu, "VmemConfig") == [f[0] for f in vt._Config._fields_]
+    assert _fields(cu, "VmemPtrs") == [f[0] for f in vt._Ptrs._fields_]
+    assert all(t in ("double", "long long") for t in re.findall(
+        r"(double|long long|int)\b", re.search(
+            r"struct VmemConfig \{(.*?)\};", cu, re.S).group(1)))
+
+    def enum(first):
+        body = re.search(r"enum \{ (%s = 0[^}]*)\}" % first, cuh).group(1)
+        return [w.split("=")[0].strip() for w in body.split(",")]
+
+    prefix = {"diode": "D_", "mos1": "M_"}
+    for model, (mid, pnames) in vt.KERNEL_MODELS.items():
+        name = {"diode_rs": "DIODE_RS", "mos1": "MOS1"}.get(
+            model.name, model.name.upper())
+        assert re.search(r"\b%s = %d\b" % (name, mid), cuh), model.name
+        key = prefix.get("diode" if model.name.startswith("diode")
+                         else model.name)
+        if key:
+            assert enum(key + pnames[0].upper()) == [
+                key + p.upper() for p in pnames]
+    assert vt.smem_bytes(vt.MAX_UNKNOWNS) <= 232448 - 2048
+
+
+def test_cuda_circuit_needs_the_kernel():
+    """A circuit on a device the kernel does not serve is refused, not
+    handed to the twin."""
+    cc = tct.parse_spice(RC_NETLIST)
+    S = vt.prepare(cc, (0, 1e-4), dt=1e-5)
+    S.cc = tct.parse_spice(RC_NETLIST, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        vt.integrate(S)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (kernel K2 has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rc", "dff"])
+def test_k2_matches_twin_on_gpu(cuda, name):
+    span, dt = {"rc": ((0, 8e-3), 8e-6), "dff": ((0, 6e-8), 3.333e-10)}[name]
+    net = RC_NETLIST if name == "rc" else tct.dff_netlist()
+    S = vt.prepare(tct.parse_spice(net, device=cuda), span, dt=dt)
+    before = tct.vmem_tran.launches
+    rk = vt.integrate(S)
+    rp = vt.integrate_plain(S)
+    assert tct.vmem_tran.launches == before + 1
+    assert not rk.stats[3]
+    # rounding (FMA contraction, summation order, forward against reverse
+    # mode derivatives) may flip a step decision: then the waveforms are
+    # two step sequences of one integrator, held to its reltol
+    assert all(abs(a - b) <= max(1, 0.02 * b)
+               for a, b in zip(rk.stats[:3], rp.stats[:3]))
+    rmse = float((rk.xs - rp.xs).pow(2).mean().sqrt())
+    tol = 1e-7 if rk.stats[:3] == rp.stats[:3] else 1e-4
+    assert rmse <= tol * (1.0 if name == "rc" else 5.0)
+
+
+@pytest.mark.gpu
+def test_device_functions_match_twin_on_gpu(cuda):
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from cadnip_tpu_torch.mna.spec import MODE_TRAN, make_dynspec
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=cuda)
+
+    dyn = make_dynspec(gmin=vt.GMIN, mode=MODE_TRAN, device=cuda)
+    for name, (model, u, up, p, wv) in chip_smoke.eval_inputs(
+            np.random.default_rng(4)).items():
+        args = (t(u), t(up), {k: t(v) for k, v in p.items()},
+                None if wv is None else t(wv), dyn)
+        for a, b in zip(vt.eval_group(model, *args),
+                        vt.eval_group_plain(model, *args)):
+            assert float((a - b).abs().max()) <= 1e-10 * max(
+                float(b.abs().max()), 1e-300), name
