@@ -10,11 +10,21 @@ gather / torch.func.jacrev / scatter assembly -> dense Gauss-Jordan solve
 trapezoidal transient. `vmem_tran` runs the whole transient of a small
 circuit (n <= 127) in one launch of kernel K2 instead.
 
+Sweeps and Monte Carlo run every point as one lane of a batch: a table
+{"inst.param": values} (from `Sweep` and its combinators, or
+`montecarlo_table`) goes through `dcsweep` or `transweep`, and on a CUDA
+circuit each Newton iteration of all lanes is one K1 launch over a grid of
+B systems. K1 is differentiable, so `torch.func` transforms run through
+`tran` and `dc`; `dc_sensitivity` gives DC sensitivities by the implicit
+function theorem with one K1 solve.
+
 A circuit is compiled for an explicit torch device:
 
     cc = parse_spice(dff_netlist(), device="cuda")
     sol = tran(cc, (0, 6e-7), dt=3.333e-10)        # host loop, K1 solves
     sol = vmem_tran(cc, (0, 6e-7), dt=3.333e-10)   # one K2 launch
+    tab = montecarlo_table(cc, {"cq.c": 0.1, "mno1.w": 0.1}, 4096, seed=42)
+    sol = transweep(cc, tab, (0, 6e-7), dt=3.333e-10, n_save=61)
 
 This package imports torch and numpy, never jax or cadnip_tpu.
 """
@@ -28,6 +38,10 @@ from .mna.waveforms import (  # noqa: F401
     DC as DCWave, Pulse, Sin, PWL, Exp, Sffm)
 from .analyses.dc import dc, op_tran, DCSolution  # noqa: F401
 from .analyses.tran import tran, TranSolution  # noqa: F401
+from .analyses.sweeps import (  # noqa: F401
+    Sweep, ProductSweep, TandemSweep, SerialSweep, dcsweep, transweep,
+    montecarlo_table)
+from .analyses.sensitivity import dc_sensitivity  # noqa: F401
 from .ops.vmem_tran import supported, vmem_tran  # noqa: F401
 from .frontend.elaborate import parse_spice  # noqa: F401
 from . import models  # noqa: F401
@@ -40,6 +54,8 @@ __all__ = [
     "DCWave", "Pulse", "Sin", "PWL", "Exp", "Sffm",
     "dc", "op_tran", "DCSolution", "tran", "TranSolution", "vmem_tran",
     "supported",
+    "Sweep", "ProductSweep", "TandemSweep", "SerialSweep",
+    "dcsweep", "transweep", "montecarlo_table", "dc_sensitivity",
     "parse_spice", "models", "dff_netlist",
 ]
 

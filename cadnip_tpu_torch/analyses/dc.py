@@ -2,9 +2,12 @@
 `cadnip_tpu/analyses/dc.py`).
 
 The chain is Newton -> gmin stepping -> source stepping
-(`mna/newton.py::make_dc_solver`). The JAX package's rescue tiers
-(pseudo-transient continuation, Levenberg-Marquardt) are not ported yet:
-where the chain fails, `dc` returns `converged=False`; it does not guess.
+(`mna/newton.py::make_dc_solver`). Where it fails on some lane, `dc` runs
+the rescue tiers of the JAX package in its order: pseudo-transient
+continuation, then Levenberg-Marquardt. Where they fail too, `dc` returns
+`converged=False`; it does not guess. The JAX package's host-driven
+pseudo-transient tier for Verilog-A circuits (`_ptran_rescue_host`) is
+not ported: the port has no Verilog-A models yet.
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ import torch
 from ..config import DTYPE
 from ..mna.assemble import pad_state
 from ..mna.devices import deferred
-from ..mna.newton import make_dc_solver
+from ..mna.newton import (NewtonResult, make_dc_solver, make_lm_rescue,
+                          make_ptran_rescue)
 from ..mna.spec import MODE_DCOP, MODE_TRANOP
 from ..mna.structure import CompiledCircuit
 
@@ -101,15 +105,39 @@ class DCSolution:
         return "\n".join(lines)
 
 
+def _cached(cc: CompiledCircuit, key, make):
+    if key not in cc.cache:
+        cc.cache[key] = make(cc)
+    return cc.cache[key]
+
+
 def _get_dc_solver(cc: CompiledCircuit):
-    if "dc_solver" not in cc.cache:
-        cc.cache["dc_solver"] = make_dc_solver(cc)
-    return cc.cache["dc_solver"]
+    return _cached(cc, "dc_solver", make_dc_solver)
+
+
+def _take(r: NewtonResult, r2: NewtonResult, take=None) -> NewtonResult:
+    """r2's lanes where `take` holds. Without a mask: wherever r2
+    converged, with r2's iterations counted on every lane (the JAX
+    package's merge of a rescue tier, `dc.py:141-145`). With one: r2's
+    iterations count only on the taken lanes (the JAX package's dcsweep
+    rescue, `sweeps.py:188-193`)."""
+    if take is None:
+        take, extra = r2.converged, r2.iters
+    else:
+        extra = torch.where(take, r2.iters, 0)
+    return NewtonResult(x=torch.where(take[:, None], r2.x, r.x),
+                        converged=r.converged | r2.converged,
+                        iters=r.iters + extra,
+                        resnorm=torch.where(take, r2.resnorm, r.resnorm))
 
 
 def dc(cc: CompiledCircuit, params=None, x0=None, *, mode: int = MODE_DCOP,
-       time: float = 0.0, nodeset: dict | None = None) -> DCSolution:
-    """DC operating point through the homotopy chain.
+       time: float = 0.0, nodeset: dict | None = None,
+       rescue: bool = True) -> DCSolution:
+    """DC operating point through the homotopy chain, then, only where a
+    lane failed and `rescue` is set, the pseudo-transient tier from the
+    initial guess and the Levenberg-Marquardt tier from the chain's point.
+    A tier runs on every lane; its result is taken wherever it converged.
 
     Parameters with a lane axis ([B, n_inst] leaves, e.g. from `alter`
     with an array) give a batched solution with x [B, n]; otherwise x is
@@ -124,6 +152,15 @@ def dc(cc: CompiledCircuit, params=None, x0=None, *, mode: int = MODE_DCOP,
         x[:, cc.index_of(str(node))] = float(v)
     dyn = cc.spec.dyn(cc.device, mode=mode, time=time)
     r = _get_dc_solver(cc)(x, params, dyn)
+    if rescue and not bool(r.converged.all()):
+        r = _take(r, _cached(cc, "dc_ptran_rescue", make_ptran_rescue)(
+            x, params, dyn))
+    if rescue and not bool(r.converged.all()):
+        # LM after pseudo-transient: ptran's charge damping selects the
+        # physically reachable basin on bistable circuits, while LM handles
+        # the near-singular Jacobians of charge-free circuits
+        r = _take(r, _cached(cc, "dc_lm_rescue", make_lm_rescue)(
+            r.x, params, dyn))
     if B is None:
         return DCSolution(cc, r.x[0], r.converged[0], r.iters[0],
                           r.resnorm[0], params=params)

@@ -20,6 +20,7 @@ to the host once per pass: one sync per Newton iteration, counted in
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -48,10 +49,13 @@ class TranStats(NamedTuple):
 
 class TranSolution:
     """Waveforms on the save grid; name-addressable like DCSolution.
-    sol['out'] -> values over the save times; sol.ts -> the grid."""
+    sol['out'] -> values over the save times; sol.ts -> the grid.
+    `timings` holds the host wall seconds of the operating point ("op")
+    and of the transient loop with its set-up ("transient"); each ends on
+    a host sync, so on a CUDA circuit they include the device work."""
 
     def __init__(self, cc, ts, xs, stats: TranStats, op_converged=True,
-                 host_syncs: int = 0, op_iters=0):
+                 host_syncs: int = 0, op_iters=0, timings=None):
         self.cc = cc
         self.ts = ts
         self.xs = xs
@@ -59,6 +63,7 @@ class TranSolution:
         self.op_converged = op_converged
         self.host_syncs = host_syncs
         self.op_iters = op_iters
+        self.timings = timings or {}
 
     def __getitem__(self, name):
         return self.xs[..., self.cc.index_of(str(name))]
@@ -331,10 +336,15 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     dt: output resolution (SPICE .tran tstep); dtmax: max internal step
     (SPICE tmax). Output is interpolated onto a uniform grid of n_save
     points (default from dt). Parameters with a lane axis give batched
-    waveforms xs [B, n_save, n]; otherwise xs is [n_save, n]."""
+    waveforms xs [B, n_save, n]; otherwise xs is [n_save, n].
+
+    As in the JAX package's vmapped transient (`transweep`), a batched
+    call takes its operating point from the bare DC chain, without the
+    rescue tiers, and does not run the `uic` warmup."""
     t0, tstop = float(tspan[0]), float(tspan[1])
     if tstop <= t0:
         raise ValueError(f"tran needs tstop > t0, got tspan=({t0}, {tstop})")
+    wall0 = time.perf_counter()
     dev = cc.device
     if params is None:
         params = cc.params0()
@@ -359,14 +369,15 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     if x0 is None and uic:
         x0 = torch.zeros((B, cc.n), dtype=DTYPE, device=dev)
     if x0 is None:
-        op = dc(cc, params, mode=MODE_TRANOP, time=t0)
+        op = dc(cc, params, mode=MODE_TRANOP, time=t0,
+                rescue=lanes is None)
         x0 = op.x.reshape(B, cc.n)
         op_conv = op.converged.reshape(B)
         op_iters = op.iters.reshape(B)
     x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev).expand(B, cc.n).clone()
     for node, v in (ic or {}).items():
         x0[:, cc.index_of(str(node))] = float(v)
-    if uic:
+    if uic and lanes is None:
         # consistency projection: a few tiny implicit-Euler steps settle
         # the algebraic unknowns while the differential states stay put
         h_w = max((tstop - t0) * 1e-12, dt * 1e-6)
@@ -375,6 +386,7 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
         for node, v in (ic or {}).items():
             x0[:, cc.index_of(str(node))] = float(v)
 
+    wall_op = time.perf_counter()
     bp = collect_breakpoints(cc, tstop)
     bp = bp[bp > t0]
     # a step crosses at most ceil(dtmax / save_dt) + 1 grid points
@@ -404,5 +416,8 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
         xs = xs[0]
         stats = TranStats(*(v[0] for v in stats))
         op_conv, op_iters = op_conv[0], op_iters[0]
+    timings = {"op": wall_op - wall0,
+               "transient": time.perf_counter() - wall_op}
     return TranSolution(cc, save_np, xs, stats, op_converged=op_conv,
-                        host_syncs=passes, op_iters=op_iters)
+                        host_syncs=passes, op_iters=op_iters,
+                        timings=timings)

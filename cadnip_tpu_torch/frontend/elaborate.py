@@ -13,7 +13,12 @@ the JAX package.
 Not ported yet, and raising NotImplementedError with the feature's name:
 Verilog-A (`.hdl`, N/Y instances, tier-1 VA models), the Spectre dialect,
 behavioral B-sources, the elements whose devices are deferred (L, K, E,
-G, F, H, Q), Monte Carlo elaboration and the `simulate` analyses runner.
+G, F, H, Q) and the `simulate` analyses runner.
+
+`montecarlo_elaborate` elaborates a netlist once per sample with its
+statistical functions (agauss, gauss, aunif, unif) drawing from a seeded
+numpy generator, in the JAX package's draw order, and stacks the
+parameters on a leading lane axis.
 """
 from __future__ import annotations
 
@@ -21,6 +26,9 @@ import dataclasses
 import os
 import re
 from typing import Optional
+
+import numpy as np
+import torch
 
 from ..mna import devices as dv
 from ..mna import waveforms as wf
@@ -136,16 +144,25 @@ class Analysis:
 
 
 class Elaborator:
-    def __init__(self, *, include_dirs=(), section=None):
+    def __init__(self, *, include_dirs=(), section=None, rng=None):
         self.include_dirs = list(include_dirs)
         self.section = section          # .lib section selection
-        # statistical netlist functions evaluate to their nominal values
-        # (Monte Carlo elaboration is not ported yet)
+        # Monte Carlo hook: the statistical netlist functions sample from
+        # this numpy Generator; None gives their nominal values
+        self.rng = rng
         self.expr_funcs = {
-            "agauss": lambda nom, avar, sig=1.0: nom,
-            "gauss": lambda nom, rvar, sig=1.0: nom,
-            "aunif": lambda nom, avar: nom,
-            "unif": lambda nom, rvar: nom,
+            "agauss": lambda nom, avar, sig=1.0:
+                nom + (self.rng.normal(0.0, avar / sig)
+                       if self.rng is not None else 0.0),
+            "gauss": lambda nom, rvar, sig=1.0:
+                nom * (1.0 + (self.rng.normal(0.0, rvar / sig)
+                              if self.rng is not None else 0.0)),
+            "aunif": lambda nom, avar:
+                nom + (self.rng.uniform(-avar, avar)
+                       if self.rng is not None else 0.0),
+            "unif": lambda nom, rvar:
+                nom * (1.0 + (self.rng.uniform(-rvar, rvar)
+                              if self.rng is not None else 0.0)),
             "temper": lambda: self.temp if self.temp is not None else 27.0,
         }
         self.analyses: list[Analysis] = []
@@ -678,16 +695,19 @@ def _looks_like_spectre(text: str) -> bool:
 # ---------------------------------------------------------------------------
 # public entry points
 
-def elaborate_netlist(source, *, include_dirs=(), section=None, title=None):
+def elaborate_netlist(source, *, include_dirs=(), section=None, title=None,
+                      rng=None):
     """SPICE text (or a parsed Netlist) -> (Circuit, Elaborator). The
-    Elaborator carries the parsed analysis cards, .options and .temp."""
+    Elaborator carries the parsed analysis cards, .options and .temp.
+    rng: a numpy Generator the statistical functions sample from (None:
+    nominal values)."""
     if isinstance(source, Netlist):
         nl = source
     else:
         if _looks_like_spectre(source):
             _not_ported("the Spectre dialect", "item 9")
         nl = parse_netlist(source)
-    el = Elaborator(include_dirs=include_dirs, section=section)
+    el = Elaborator(include_dirs=include_dirs, section=section, rng=rng)
     root = Scope()
     elements = el.collect(nl.cards, root)
     el.eval_params(root)
@@ -727,5 +747,32 @@ def simulate(source, **kw):
     _not_ported("the netlist analyses runner (simulate)", "item 9")
 
 
-def montecarlo_elaborate(source, n: int, seed: int = 0, **kw):
-    _not_ported("Monte Carlo elaboration", "item 4")
+def montecarlo_elaborate(source, n: int, seed: int = 0, *,
+                         include_dirs=(), section=None,
+                         spec: SimSpec | None = None, device="cpu"):
+    """Monte Carlo over the netlist's statistical expressions: elaborate
+    it n times, sample k drawing from `np.random.default_rng([seed, k])`
+    (so the samples are the JAX package's, bit for bit), and stack the
+    parameter lists on a leading lane axis.
+
+    Returns (cc, batched_params): cc is the nominal compiled circuit, and
+    every leaf of batched_params is [n, ...]. The JAX package also returns
+    vmap in_axes; the port reads the lane axis from the leaves
+    (`analyses.dc.param_lanes`)."""
+    kw = dict(include_dirs=include_dirs, section=section)
+    cir0, el0 = elaborate_netlist(source, **kw)
+    spec = spice_spec(el0, spec)
+    cc = cir0.compile(spec, device=device)
+    plist = []
+    for k in range(n):
+        cir, _ = elaborate_netlist(source, rng=np.random.default_rng(
+            [seed, k]), **kw)
+        plist.append(cir.compile(spec, device=device).params0())
+
+    def stack(leaves):
+        if isinstance(leaves[0], dict):
+            return {key: stack([d[key] for d in leaves])
+                    for key in leaves[0]}
+        return torch.stack(leaves)
+
+    return cc, [stack([p[gi] for p in plist]) for gi in range(len(cc.groups))]

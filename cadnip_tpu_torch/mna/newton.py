@@ -1,5 +1,5 @@
-"""Newton–Raphson with the SPICE DC robustness chain (PyTorch port of
-`cadnip_tpu/mna/newton.py`, dense path).
+"""Newton–Raphson with the SPICE DC robustness chain and its rescue tiers
+(PyTorch port of `cadnip_tpu/mna/newton.py`, dense path).
 
 Batch-first: the state is [B, n] with per-lane done masks, B = 1 being the
 serial case. The JAX package's `lax.while_loop`s become Python loops that
@@ -32,9 +32,10 @@ def abstol_vector(cc: CompiledCircuit) -> torch.Tensor:
 
 def damp_step(dx, is_v, max_dv):
     """Scale each lane's WHOLE step so no voltage moves more than max_dv
-    (scaling, not clipping, preserves the Newton direction)."""
+    (scaling, not clipping, preserves the Newton direction). The scale
+    carries no derivative, as under the JAX package's stop_gradient."""
     vstep = torch.amax(torch.where(is_v, dx.abs(), 0.0), dim=-1,
-                       keepdim=True)
+                       keepdim=True).detach()
     return dx * torch.clamp(max_dv / torch.clamp(vstep, min=1e-300),
                             max=1.0)
 
@@ -72,9 +73,9 @@ def _make_assemble_solve(cc: CompiledCircuit, assemble, method):
 
 
 def make_newton(cc: CompiledCircuit, assemble=None, method: str | None = None):
-    """Build newton(x0 [B, n], params, dyn, active=None) -> NewtonResult.
-    The limiter state starts from x0; lanes outside `active` do not
-    iterate."""
+    """Build newton(x0 [B, n], params, dyn, active=None, lim0=None) ->
+    NewtonResult. The limiter state starts from lim0, or from x0 if none
+    is given; lanes outside `active` do not iterate."""
     spec = cc.spec
     assemble, solve_J, _ = _make_assemble_solve(cc, assemble, method)
     atol = abstol_vector(cc)
@@ -91,10 +92,11 @@ def make_newton(cc: CompiledCircuit, assemble=None, method: str | None = None):
                                                         x.abs()) + atol
         return x_new, lim_new, ok_dx.all(-1), F.abs().amax(-1)
 
-    def newton(x0, params, dyn: DynSpec, active=None) -> NewtonResult:
+    def newton(x0, params, dyn: DynSpec, active=None,
+               lim0=None) -> NewtonResult:
         x = torch.as_tensor(x0, dtype=DTYPE, device=cc.device)
         B = x.shape[0]
-        lim = assemble.init_lim(pad_state(x))
+        lim = assemble.init_lim(pad_state(x)) if lim0 is None else lim0
         it = torch.zeros(B, dtype=ITYPE, device=x.device)
         done = torch.zeros(B, dtype=torch.bool, device=x.device)
         resnorm = torch.full((B,), float("inf"), dtype=DTYPE,
@@ -177,29 +179,127 @@ def make_tran_newton(cc: CompiledCircuit, assemble=None,
     return newton_t
 
 
+def _make_be_march(cc: CompiledCircuit, method: str | None):
+    """Build march(x0 [B, n], params, dyn, hs) -> (x, lim): one implicit
+    Euler step of size h from the previous state for each h in hs, every
+    lane at once. A lane whose step fails to converge keeps its state."""
+    assemble = make_assembler(cc)
+    newton_t = make_tran_newton(cc, assemble=assemble, method=method)
+    rhs = make_rhs_assembler(cc)
+
+    def march(x0, params, dyn: DynSpec, hs):
+        x = torch.as_tensor(x0, dtype=DTYPE, device=cc.device)
+        lim = assemble.init_lim(pad_state(x))
+        _, q = rhs(pad_state(x), params, dyn)
+        for h in hs:
+            r = newton_t(x, lim, params, dyn, 1.0 / h, q / h)
+            ok = (r.converged & torch.isfinite(r.x).all(-1))[:, None]
+            x = torch.where(ok, r.x, x)
+            lim = torch.where(ok, r.lim, lim)
+            q = torch.where(ok, r.q, q)
+        return x, lim
+
+    return march
+
+
 def make_uic_warmup(cc: CompiledCircuit, method: str | None = None,
                     n_steps: int = 8):
     """Fixed small-step implicit-Euler warmup from a UIC initial state
     (reference CedarUICOp, `src/mna/dcop.jl:311-411`): projects the
     algebraic unknowns onto the constraint manifold while the tiny step
     freezes every differential state at its .ic value."""
-    assemble = make_assembler(cc)
-    newton_t = make_tran_newton(cc, assemble=assemble, method=method)
-    rhs = make_rhs_assembler(cc)
+    march = _make_be_march(cc, method)
 
     def warmup(x0, params, dyn: DynSpec, h):
-        x = torch.as_tensor(x0, dtype=DTYPE, device=cc.device)
-        lim = assemble.init_lim(pad_state(x))
-        _, q = rhs(pad_state(x), params, dyn)
-        for _ in range(n_steps):
-            r = newton_t(x, lim, params, dyn, 1.0 / h, q / h)
-            ok = (r.converged & torch.isfinite(r.x).all(-1))[:, None]
-            x = torch.where(ok, r.x, x)
-            lim = torch.where(ok, r.lim, lim)
-            q = torch.where(ok, r.q, q)
-        return x
+        return march(x0, params, dyn, [h] * n_steps)[0]
 
     return warmup
+
+
+# The rescue tiers' schedules, as the JAX package's builders default them
+# (`cadnip_tpu/mna/newton.py:196-198, 216, 266-267`).
+PTRAN_STEPS = [float(h) for h in np.geomspace(1e-12, 1e3, 15)]
+LM_LAM0 = 1e-3
+LM_ITERS_PER_NEWTON = 4          # LM's cap is 4 * spec.max_newton_iters
+
+
+def make_ptran_rescue(cc: CompiledCircuit):
+    """Pseudo-transient continuation rescue (the reference's
+    PseudoTransient tier in CedarRobustNLSolve, `src/mna/solve.jl:463-527`):
+    march backward-Euler steps with geometrically growing h, so that the
+    circuit's own charges damp the iteration (as h -> inf the fixed point
+    is the DC solution), then confirm with a plain Newton at the target
+    conditions from the marched state and limiter state. Every lane
+    marches; the result's iteration count is the confirming Newton's, as
+    in the JAX package."""
+    march = _make_be_march(cc, None)
+    newton = make_newton(cc)
+
+    def rescue(x0, params, dyn: DynSpec) -> NewtonResult:
+        x, lim = march(x0, params, dyn, PTRAN_STEPS)
+        return newton(x, params, dyn, lim0=lim)
+
+    return rescue
+
+
+def make_lm_rescue(cc: CompiledCircuit):
+    """Levenberg-Marquardt damped Newton, the LM member of the reference's
+    `CedarRobustNLSolve` polyalgorithm (`src/mna/solve.jl:463-472`).
+
+    Solves (G + lam*diag(d)) dx = -F per lane, with d the Jacobian's row
+    scales. A step that reduces ||F||_2 is accepted and shrinks that lane's
+    lam toward plain Newton; a rejected step grows it toward steepest
+    descent. A lane converges on an accepted, nearly undamped step
+    (lam < 1e-6) that passes the usual dx test."""
+    spec = cc.spec
+    assemble, solve_J, _ = _make_assemble_solve(cc, None, None)
+    atol = abstol_vector(cc)
+    is_v = torch.as_tensor(cc.classes == CLASS_V, device=cc.device)
+    max_iters = LM_ITERS_PER_NEWTON * spec.max_newton_iters
+
+    def lm(x0, params, dyn: DynSpec) -> NewtonResult:
+        x = torch.as_tensor(x0, dtype=DTYPE, device=cc.device)
+        B = x.shape[0]
+        lim = assemble.init_lim(pad_state(x))
+        lam = torch.full((B,), LM_LAM0, dtype=DTYPE, device=x.device)
+        it = torch.zeros(B, dtype=ITYPE, device=x.device)
+        done = torch.zeros(B, dtype=torch.bool, device=x.device)
+        rn = torch.full((B,), float("inf"), dtype=DTYPE, device=x.device)
+        while True:
+            run = ~done & (it < max_iters)
+            if not bool(run.any()):      # one host sync per iteration
+                break
+            F, _, G, _, lim_new = assemble(pad_state(x), lim, params, dyn)
+            d = torch.clamp(G.abs().amax(-1), min=1e-12)
+            dx = solve_J(G, torch.diag_embed(d), lam, -F)
+            if spec.max_dv > 0:
+                dx = damp_step(dx, is_v, spec.max_dv)
+            x_t = x + dx
+            F_t, _, _, _, lim_t = assemble(pad_state(x_t), lim_new, params,
+                                           dyn)
+            f0 = (F * F).sum(-1)
+            f1 = (F_t * F_t).sum(-1)
+            better = ((f1 < f0) & torch.isfinite(x_t).all(-1)
+                      & torch.isfinite(f1))
+            small = (dx.abs() <= spec.reltol * torch.maximum(
+                x_t.abs(), x.abs()) + atol).all(-1)
+            ok = better & (lam < 1e-6) & small
+            r, b = run[:, None], better[:, None]
+            x = torch.where(r & b, x_t, x)
+            # the limiter anchor ALWAYS advances (SPICE practice): a frozen
+            # anchor makes the companion-limited residual look converged at
+            # a false solution, deadlocking the accept test
+            lim = torch.where(r, torch.where(b, lim_t, lim_new), lim)
+            lam = torch.where(run, torch.where(
+                better, torch.clamp(lam * 0.25, min=1e-12),
+                torch.clamp(lam * 8.0, max=1e10)), lam)
+            rn = torch.where(run, torch.where(better, F_t.abs().amax(-1),
+                                              F.abs().amax(-1)), rn)
+            it = it + run.to(ITYPE)
+            done = torch.where(run, ok, done)
+        return NewtonResult(x=x, converged=done, iters=it, resnorm=rn)
+
+    return lm
 
 
 def make_dc_solver(cc: CompiledCircuit, assemble=None,

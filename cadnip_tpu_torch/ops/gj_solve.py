@@ -7,6 +7,14 @@ shared memory); on a CPU tensor it runs `gj_solve_plain`, the same
 algorithm in torch ops. There is no fallback between the two: a CUDA
 tensor launches the kernel or raises.
 
+`gj_solve` is differentiable, forward and reverse, through `GJSolve`
+(a `torch.autograd.Function` that `torch.func` transforms accept). Each
+derivative rule is one more K1 solve: the tangent dX = A^-1 (dB - dA X),
+the cotangents gB = A^-T gX and gA = -gB X^T. Under `vmap` the mapped
+axis folds into the kernel's right-hand-side columns (when A is shared)
+or into its batch grid, so a `jacfwd` over several parameters is still
+one launch per solve.
+
 Replaces the TPU kernel `cadnip_tpu/ops/pallas_solve.py::_gj_kernel`. In
 f64 it is the counterpart of the JAX package's full-f64 Gauss-Jordan
 method "gauss"; in f32 it reproduces `gj_solve_f32`.
@@ -20,6 +28,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd import forward_ad
 
 from ..config import DTYPE, F32
 from . import nvcc
@@ -91,10 +100,72 @@ def _launch(A, B):
     return X
 
 
+class GJSolve(torch.autograd.Function):
+    """X = A^-1 B for A [b, n, n] and B [b, n, k], contiguous, with
+    derivative rules that are K1 solves themselves."""
+
+    @staticmethod
+    def forward(A, B):
+        if A.device.type == "cuda":
+            return _launch(A, B)
+        if A.device.type == "cpu":
+            with torch.no_grad():
+                return gj_solve_plain(A, B)
+        raise ValueError(f"gj_solve: unsupported device {A.device}")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, _ = inputs
+        ctx.save_for_backward(A, output)
+        ctx.save_for_forward(A, output)
+
+    @staticmethod
+    def jvp(ctx, dA, dB):
+        A, X = ctx.saved_tensors
+        rhs = torch.zeros_like(X) if dB is None else dB
+        if dA is not None:
+            rhs = rhs - dA @ X
+        return GJSolve.apply(A, rhs.contiguous())
+
+    @staticmethod
+    def backward(ctx, gX):
+        A, X = ctx.saved_tensors
+        gB = GJSolve.apply(A.transpose(-1, -2).contiguous(), gX.contiguous())
+        return -gB @ X.transpose(-1, -2), gB
+
+    @staticmethod
+    def vmap(info, in_dims, A, B):
+        dA, dB = in_dims
+        V = info.batch_size
+        if dA is None:
+            # shared systems: the V mapped right-hand sides become columns
+            Bv = B.movedim(dB, -1)
+            b, n, k = Bv.shape[:3]
+            X = GJSolve.apply(A, Bv.reshape(b, n, k * V).contiguous())
+            return X.reshape(b, n, k, V).movedim(-1, 0), 0
+        A = A.movedim(dA, 0)
+        B = B.expand((V,) + B.shape) if dB is None else B.movedim(dB, 0)
+        X = GJSolve.apply(A.reshape((-1,) + A.shape[2:]).contiguous(),
+                          B.reshape((-1,) + B.shape[2:]).contiguous())
+        return X.reshape(B.shape), 0
+
+
+def _derivative_may_flow(A, B):
+    """Whether a derivative can pass through this solve: a torch.func
+    transform is active, a forward-AD level is open, or reverse-mode grad
+    is on with an input that requires it. Otherwise `gj_solve` calls
+    `GJSolve.forward` itself, which saves the ~20 us of host time that
+    `Function.apply` costs on every plain Newton solve."""
+    return (torch._C._are_functorch_transforms_active()
+            or forward_ad._current_level >= 0
+            or (torch.is_grad_enabled()
+                and (A.requires_grad or B.requires_grad)))
+
+
 def gj_solve(A, B):
     """Solve A X = B. A: [n, n] or [b, n, n]; B: [n], [n, k] or [b, n],
     [b, n, k] (a vector right-hand side per system comes back as a vector).
-    Both f64 or both f32, contiguous, on one device."""
+    Both f64 or both f32, contiguous, on one device. Differentiable."""
     if A.ndim not in (2, 3) or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"gj_solve: A must be [n, n] or [b, n, n], got "
                          f"{tuple(A.shape)}")
@@ -112,15 +183,12 @@ def gj_solve(A, B):
         raise ValueError(f"gj_solve: A on {A.device}, B on {B.device}")
     if not (A.is_contiguous() and B.is_contiguous()):
         raise ValueError("gj_solve: A and B must be contiguous")
-    if A.device.type == "cuda":
-        X = _launch(A3, B3)
-    elif A.device.type == "cpu":
-        X = gj_solve_plain(A3, B3)
-    else:
-        raise ValueError(f"gj_solve: unsupported device {A.device}")
+    X = GJSolve.apply(A3, B3) if _derivative_may_flow(A3, B3) \
+        else GJSolve.forward(A3, B3)
     X = X if A.ndim == 3 else X[0]
     return X[..., 0] if vec else X
 
 
-#: kernel launches since the last reset (plain-twin calls do not count)
+#: kernel launches since the last reset, derivative rules included
+#: (plain-twin calls do not count)
 gj_solve.launches = 0

@@ -10,7 +10,9 @@ Phases, each of which raises (exit code != 0) on failure:
      with nvcc for sm_90a, one nvcc each, started together;
   3. K1 against its plain PyTorch twin on the card, at the DFF's shape and
      at a batch, an inverse, a larger system, a forced pivot and in f32,
-     with kernel and plain times from CUDA events;
+     with kernel and plain times from CUDA events; then K1's derivative
+     rules (jvp, vjp) against torch.func autodiff of the twin, at the
+     Newton, sensitivity and 4096-lane shapes;
   4. the host-loop path: parse_spice(dff_netlist(), device="cuda") then
      tran() over 0-600 ns, checked against the f64 golden
      tests/goldens/dff.npz, with K1's launch count proving that every
@@ -24,7 +26,19 @@ Phases, each of which raises (exit code != 0) on failure:
      the operating point; then once at the reference's 512-row chunks;
   8. vmem_tran() of the full VACASK graetz span (0-1 s at 1 us, 1,000,001
      save rows) within bench.py's gates;
-  9. a JSON line of the kernels, the card's name and power limit, and the
+  9. the sweep path: bench.py's 4096-way DFF Monte Carlo (montecarlo_table
+     over cq.c, mno1.w and mpo1.w, seed 42) through transweep() over
+     0-600 ns, unchunked, every Newton iteration of all lanes one K1
+     launch; four lanes held against the same rows run on the host CPU,
+     a torch.profiler run of the operating point and the first 30 ns, and
+     K1's jvp and vjp rules on every lane's Jacobian at its operating
+     point, held to a bound scaled by cond(G);
+ 10. dcsweep() with its neighbour-seeded rescue on a crippled 5-diode
+     chain, against the CPU;
+ 11. derivatives through K1: dc_sensitivity() of the DFF operating point
+     (mno1.w, cq.c, vvdd.dc) and torch.func.jacfwd through tran() of an
+     RC, against the CPU;
+ 12. a JSON line of the kernels, the card's name and power limit, and the
      last line {"ok": true, "device": {...}}.
 """
 import json
@@ -44,6 +58,25 @@ TWIN_RMSE_TOL = 1e-7   # K2 vs twin waveform RMSE, relative to the scale
 TWIN_FLIP_TOL = 1e-4   # the same after a flipped step decision (reltol)
 TWIN_COUNT_TOL = 0.02  # K2 vs twin accepted / rejected / Newton counts
 GRAETZ_TOL = 2e-3      # bench.py's golden gate for graetz (scale 20 V)
+DERIV_TOL = 1e-12      # K1 jvp / vjp vs autodiff of the twin, relative
+JAC_DERIV_FACTOR = 4   # the same on DFF Jacobians: / (n cond(G) eps)
+MC_SPREADS = {"cq.c": 0.1, "mno1.w": 0.1, "mpo1.w": 0.1}   # bench.py:381
+MC_LANES = 4096
+MC_CHECK = [0, 1, 2047, 4095]   # lanes rerun on the host CPU
+MC_KW = dict(dt=3.333e-10, max_steps=20000, n_save=61)
+MC_TOL = 1e-9          # check lanes, card vs CPU: max |dx| / 5 V
+CPU_TOL = 1e-9         # DC sweep, sensitivities, jacfwd: card vs CPU
+DIODE_CHAIN = """diode chain
+.model dd d is=1e-15 n=1
+vs in 0 dc 0
+r1 in a 10
+d1 a b dd
+d2 b c dd
+d3 c d dd
+d4 d e dd
+d5 e 0 dd
+.end
+"""
 
 
 def nvidia_smi(query):
@@ -139,6 +172,112 @@ def kernel_cases(card):
     return results
 
 
+def rel_err(a, b):
+    """max |a - b| / max |b| (0 where both are 0)."""
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    return err / scale if scale > 0 else err
+
+
+def k1_derivative_cases(card):
+    """Phase 3b: K1's jvp and vjp rules on the card against torch.func
+    autodiff of the plain twin on the same inputs."""
+    import torch
+    from torch.func import jvp, vjp
+    from cadnip_tpu_torch.ops.gj_solve import GJSolve, gj_solve_plain
+
+    rng = np.random.default_rng(5)
+    out = {}
+    for b, n, k in ((1, 19, 1), (1, 19, 3), (4096, 19, 1)):
+        # well-conditioned (eigenvalues within ~1 of 2), with rows 5 and 6
+        # swapped to force a pivot: the bound tests the rules, not the
+        # matrix (a zeroed diagonal leaves some of 4096 systems nearly
+        # singular)
+        A = rng.standard_normal((b, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+        A[:, [5, 6]] = A[:, [6, 5]]
+        At, dAt = (torch.as_tensor(a, device="cuda")
+                   for a in (A, rng.standard_normal((b, n, n))))
+        Bt, dBt, gXt = (torch.as_tensor(rng.standard_normal((b, n, k)),
+                                        device="cuda") for _ in range(3))
+        runs = {
+            "jvp": (lambda: jvp(GJSolve.apply, (At, Bt), (dAt, dBt))[1],
+                    lambda: jvp(gj_solve_plain, (At, Bt), (dAt, dBt))[1]),
+            "vjp": (lambda: vjp(GJSolve.apply, At, Bt)[1](gXt),
+                    lambda: vjp(gj_solve_plain, At, Bt)[1](gXt))}
+        name = f"n={n} k={k} b={b}"
+        for rule, (kern, plain) in runs.items():
+            got, ref = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = max(rel_err(a, c) for a, c in zip(got, ref))
+            reps = 20 if b > 1 else 100
+            ms = cuda_time_ms(kern, reps)
+            plain_ms = cuda_time_ms(plain, reps)
+            print(f"K1 {rule} {name}: max relative error {err:.3e}; kernel "
+                  f"{ms * 1e3:.1f} us, twin {plain_ms * 1e3:.1f} us [{card}]",
+                  flush=True)
+            if not err <= DERIV_TOL:
+                raise RuntimeError(f"K1 {rule} {name}: {err:.3e} > "
+                                   f"{DERIV_TOL:.0e}")
+            out[f"{rule} {name}"] = dict(max_rel_err=err, ms=ms,
+                                         plain_ms=plain_ms)
+    return out
+
+
+def k1_dff_jacobian_cases(card, cc, sol, tab):
+    """Phase 9c: K1's jvp and vjp rules on the Jacobians the rules meet on
+    the path: G of every Monte Carlo lane at its own operating point (the
+    transweep's t = 0 row), with dG the Jacobian's tangent along mno1.w.
+    Each lane is held to JAC_DERIV_FACTOR * n * cond(G) * eps, the forward
+    error bound of a pivoted elimination, so that the ill-conditioned
+    systems stay under test."""
+    import torch
+    from torch.func import jvp, vjp
+    from cadnip_tpu_torch.analyses.sweeps import batch_params
+    from cadnip_tpu_torch.mna.assemble import make_assembler, pad_state
+    from cadnip_tpu_torch.mna.spec import MODE_TRANOP
+    from cadnip_tpu_torch.ops.gj_solve import GJSolve, gj_solve_plain
+
+    assemble = make_assembler(cc)
+    bp = batch_params(cc, tab)
+    xp = pad_state(sol.xs[:, 0].contiguous())
+    lim = assemble.init_lim(xp)
+    dyn = cc.spec.dyn(cc.device, mode=MODE_TRANOP, time=0.0)
+    w = torch.as_tensor(tab["mno1.w"], dtype=torch.float64, device=cc.device)
+    A, dA = jvp(lambda v: assemble(xp, lim, cc.alter(bp, **{"mno1.w": v}),
+                                   dyn)[2], (w,), (torch.ones_like(w),))
+    A, dA = A.contiguous(), dA.contiguous()
+    b, n, _ = A.shape
+    rng = np.random.default_rng(9)
+    Bt, dBt, gXt = (torch.as_tensor(rng.standard_normal((b, n, 1)),
+                                    device=cc.device) for _ in range(3))
+    cond = np.linalg.cond(A.cpu().numpy())
+    bound = JAC_DERIV_FACTOR * n * cond * np.finfo(np.float64).eps
+    got = {"jvp": (jvp(GJSolve.apply, (A, Bt), (dA, dBt))[1],),
+           "vjp": vjp(GJSolve.apply, A, Bt)[1](gXt)}
+    ref = {"jvp": (jvp(gj_solve_plain, (A, Bt), (dA, dBt))[1],),
+           "vjp": vjp(gj_solve_plain, A, Bt)[1](gXt)}
+    out = {}
+    for rule in ("jvp", "vjp"):
+        err = np.zeros(b)
+        for g, r in zip(got[rule], ref[rule]):
+            lane_err = ((g - r).abs().amax((1, 2))
+                        / r.abs().amax((1, 2)).clamp(min=1e-300))
+            err = np.maximum(err, lane_err.cpu().numpy())
+        worst = int(np.argmax(err / bound))
+        print(f"K1 {rule} on {b} DFF Monte Carlo Jacobians (dG along "
+              f"mno1.w): cond(G) {cond.min():.3e}-{cond.max():.3e}, max "
+              f"relative error {err.max():.3e}, worst error / bound "
+              f"{err[worst] / bound[worst]:.3e} (lane {worst}: error "
+              f"{err[worst]:.3e}, cond {cond[worst]:.3e}) [{card}]",
+              flush=True)
+        if not (err <= bound).all():
+            raise RuntimeError(f"K1 {rule} on DFF Jacobians: lane {worst} "
+                               f"error {err[worst]:.3e} > {bound[worst]:.3e}")
+        out[rule] = float(err.max())
+    return out
+
+
 def run_dff(card):
     """Phase 4: the DFF transient on the card through tran(), through K1."""
     import torch
@@ -147,7 +286,7 @@ def run_dff(card):
 
     g = np.load(os.path.join(GOLDENS, "dff.npz"))
     out = {}
-    for label in ("cold", "warm"):
+    for label in ("cold",):
         cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
         torch.cuda.synchronize()
         gj_solve.launches = 0
@@ -428,6 +567,230 @@ def k2_graetz(card):
         raise RuntimeError(f"graetz K2: {ct.vmem_tran.launches} launches")
 
 
+def dff_montecarlo(card, serial_wall):
+    """Phase 9: bench.py's 4096-way DFF Monte Carlo through transweep(),
+    cold and warm, each on a fresh circuit; the cold run's check lanes
+    are held against the host CPU."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    runs = {}
+    for label in ("cold", "warm"):
+        cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
+        tab = ct.montecarlo_table(cc, MC_SPREADS, MC_LANES, seed=42)
+        torch.cuda.synchronize()
+        gj_solve.launches = 0
+        t = time.perf_counter()
+        sol = ct.transweep(cc, tab, (0, 6e-7), **MC_KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = gj_solve.launches
+        runs[label] = (sol, wall, launches, cc)
+        st = sol.stats
+        op_iters, nnewton = sol.op_iters.cpu(), st.nnewton.cpu()
+        tran_passes = sol.host_syncs - 1   # the last pass only reads the mask
+        op_passes = launches - tran_passes  # one K1 launch per Newton pass
+        q = sol["q"].cpu().numpy()
+        ts = np.asarray(sol.ts)
+        latch = ((q[:, np.argmin(np.abs(ts - 350e-9))] < 1.0)
+                 & (q[:, np.argmin(np.abs(ts - 550e-9))] > 4.0))
+        newton_sum = int(op_iters.sum()) + int(nnewton.sum())
+        tm = sol.timings
+        print(f"DFF Monte Carlo {MC_LANES} lanes {label}, transweep() 0-600 "
+              f"ns: wall {wall:.3f} s (operating point {tm['op']:.3f} s, "
+              f"transient {tm['transient']:.3f} s), "
+              f"{wall / MC_LANES * 1e3:.3f} ms per circuit (serial DFF "
+              f"tran() {serial_wall:.3f} s); K1 launches {launches} "
+              f"(operating point {op_passes}, transient {tran_passes}); "
+              f"transient host syncs {sol.host_syncs}; Newton iterations "
+              f"over lanes {newton_sum} (DC {int(op_iters.sum())}), "
+              f"{newton_sum / wall:.0f} per s; per lane DC "
+              f"{int(op_iters.min())}-{int(op_iters.max())}, transient "
+              f"{int(nnewton.min())}-{int(nnewton.max())}, accepted "
+              f"{int(st.naccept.min())}-{int(st.naccept.max())}, rejected "
+              f"{int(st.nreject.min())}-{int(st.nreject.max())}; latched "
+              f"{latch.mean():.4f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]",
+              flush=True)
+        if sol.xs.shape != (MC_LANES, MC_KW["n_save"], cc.n) or \
+                not bool(torch.isfinite(sol.xs).all()):
+            raise RuntimeError(f"DFF Monte Carlo: bad xs "
+                               f"{tuple(sol.xs.shape)}")
+        if not bool(sol.op_converged.all()) or bool(st.fail.any()):
+            raise RuntimeError(
+                f"DFF Monte Carlo: {int((~sol.op_converged).sum())} "
+                f"operating points failed, {int(st.fail.sum())} transients "
+                f"failed")
+        if launches < int(op_iters.max()) + tran_passes:
+            raise RuntimeError(f"DFF Monte Carlo: {launches} K1 launches < "
+                               f"{int(op_iters.max())} DC + {tran_passes} "
+                               f"transient passes")
+    sol, wall, launches, cold_cc = runs["cold"]
+    st, ts = sol.stats, np.asarray(sol.ts)
+    print(f"DFF Monte Carlo warm vs cold: max |dx| "
+          f"{float((runs['warm'][0].xs - sol.xs).abs().max()):.3e}",
+          flush=True)
+    # the check lanes again on the host CPU, as one B = 4 transweep
+    cpu = ct.parse_spice(ct.dff_netlist())
+    t = time.perf_counter()
+    ref = ct.transweep(cpu, {k: v[MC_CHECK] for k, v in tab.items()},
+                       (0, 6e-7), **MC_KW)
+    cpu_wall = time.perf_counter() - t
+    xs = sol.xs[MC_CHECK].cpu()
+    for j, lane in enumerate(MC_CHECK):
+        got = tuple(int(v[lane]) for v in st[:3])
+        want = tuple(int(v[j]) for v in ref.stats[:3])
+        err = float((xs[j] - ref.xs[j]).abs().max()) / 5.0
+        line = (f"DFF Monte Carlo lane {lane}: card / CPU accepted, rejected,"
+                f" newton {got} / {want}, max |dx| / 5 V {err:.3e}")
+        if got == want:
+            print(line, flush=True)
+            if not err <= MC_TOL:
+                raise RuntimeError(f"{line} > {MC_TOL:.0e}")
+            continue
+        # a flipped step decision: report where the two part, then hold the
+        # lane to the integrator's reltol (as phase 6 holds graetz)
+        apart = (xs[j] - ref.xs[j]).abs().amax(-1) > MC_TOL * 5.0
+        rmse = float((xs[j] - ref.xs[j]).pow(2).mean().sqrt()) / 5.0
+        print(f"{line}; counts differ, waveforms first part at "
+              f"{ts[int(np.argmax(apart.numpy()))]:.4e} s, RMSE / 5 V "
+              f"{rmse:.3e}", flush=True)
+        if not rmse <= TWIN_FLIP_TOL:
+            raise RuntimeError(f"{line}: RMSE {rmse:.3e} > "
+                               f"{TWIN_FLIP_TOL:.0e}")
+    print(f"DFF Monte Carlo check lanes {MC_CHECK} on the host CPU: "
+          f"{cpu_wall:.3f} s", flush=True)
+    return dict(wall=wall, launches=launches, tab=tab, sol=sol, cc=cold_cc)
+
+
+def profile_montecarlo(card, tab):
+    """Phase 9b: torch.profiler over the 4096-lane operating point and the
+    first 30 ns (the full run's maximum step, 12 ns, kept)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    import cadnip_tpu_torch as ct
+
+    cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        sol = ct.transweep(cc, tab, (0, 3e-8), dt=3.333e-10, n_save=4,
+                           dtmax=6e-7 / 50)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    n_launch = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
+    print(f"profiled DFF Monte Carlo {MC_LANES} lanes, 0-30 ns: wall "
+          f"{wall:.3f} s (operating point {sol.timings['op']:.3f} s, "
+          f"transient {sol.timings['transient']:.3f} s, host syncs "
+          f"{sol.host_syncs}), device busy {busy:.3f} s = "
+          f"{busy / wall * 100:.1f} %, cudaLaunchKernel {n_launch} [{card}]",
+          flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"   {e.key[:60]:60s} count {e.count:7d} device "
+              f"{e.self_device_time_total / 1e3:10.3f} ms", flush=True)
+
+
+def dc_sweep_rescue(card):
+    """Phase 10: dcsweep()'s neighbour-seeded rescue on the card."""
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.analyses.sweeps import batch_params
+
+    spec = ct.SimSpec(max_newton_iters=5, gmin_steps=2, src_steps=2)
+    vals = np.linspace(0.0, 100.0, 21)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        cc = ct.parse_spice(DIODE_CHAIN, spec=spec, device=dev)
+        t = time.perf_counter()
+        cold = ct.dc(cc, batch_params(cc, {"vs.dc": vals}), rescue=False)
+        sol = ct.dcsweep(cc, {"vs.dc": vals})
+        res[dev] = (cold.converged.cpu(), sol.converged.cpu(), sol.x.cpu(),
+                    time.perf_counter() - t)
+    cold, conv, x, wall = res["cuda"]
+    err = float(((x - res["cpu"][2]).abs()
+                 / res["cpu"][2].abs().clamp(min=1e-12)).max())
+    print(f"dcsweep() 5-diode chain, 21 lanes to 100 V: cold chain "
+          f"converged {int(cold.sum())}/21, after the neighbour rescue "
+          f"{int(conv.sum())}/21; max relative |card - CPU| {err:.3e}; "
+          f"{wall:.3f} s [{card}]", flush=True)
+    if not (cold.any() and not cold.all() and conv.all()):
+        raise RuntimeError("dcsweep rescue: the cold solve must fail some "
+                           "lanes and the rescue converge all")
+    if not bool((cold == res["cpu"][0]).all()) or not err <= CPU_TOL:
+        raise RuntimeError(f"dcsweep rescue: card differs from CPU ({err})")
+
+
+def derivatives(card):
+    """Phase 11: dc_sensitivity() and torch.func.jacfwd through tran() on
+    the card, through K1, against the same on the CPU."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    # a capacitor does not move the operating point: cq.c's column is
+    # exactly zero, and the other two carry the comparison
+    names = ["mno1.w", "cq.c", "vvdd.dc"]
+    sens = {}
+    for dev in ("cuda", "cpu"):
+        cc = ct.parse_spice(ct.dff_netlist(), device=dev)
+        sol = ct.dc(cc)
+        gj_solve.launches = 0
+        sens[dev] = {k: v.cpu() for k, v in ct.dc_sensitivity(
+            cc, names, sol=sol).items()}
+        if dev == "cuda":
+            launches = gj_solve.launches
+    errs = {k: rel_err(sens["cuda"][k], sens["cpu"][k]) for k in names}
+    peak = {k: float(sens["cuda"][k].abs().max()) for k in names}
+    print(f"dc_sensitivity() DFF w.r.t. {', '.join(names)}: max |dx/dp| "
+          f"{', '.join(f'{v:.4e}' for v in peak.values())}; relative |card "
+          f"- CPU| {', '.join(f'{e:.3e}' for e in errs.values())}; K1 "
+          f"launches {launches} [{card}]", flush=True)
+    if launches != 1 or not max(errs.values()) <= CPU_TOL:
+        raise RuntimeError(f"dc_sensitivity: {launches} K1 launches (want "
+                           f"1), errors {errs}")
+    if not (peak["cq.c"] == 0.0 and peak["mno1.w"] > 0.0
+            and peak["vvdd.dc"] > 0.0):
+        raise RuntimeError(f"dc_sensitivity: columns {peak}: want cq.c "
+                           f"zero and the others non-zero")
+
+    def rc(dev):
+        cir = ct.Circuit("sens")
+        cir.V("vs", "in", "0", wave=ct.Pulse(0.0, 1.0, tr=1e-9))
+        cir.R("r1", "in", "out", 1e3)
+        cir.C("c1", "out", "0", 1e-6)
+        return cir.compile(device=dev)
+
+    d = {}
+    for dev in ("cuda", "cpu"):
+        cc = rc(dev)
+
+        def vout(r):
+            p = cc.alter(cc.params0(), **{"r1.r": r})
+            sol = ct.tran(cc, (0, 1e-3), params=p, dt=1e-5, n_save=11)
+            return sol.xs[-1, cc.index_of("out")]
+
+        gj_solve.launches = 0
+        t = time.perf_counter()
+        d[dev] = float(torch.func.jacfwd(vout)(
+            torch.tensor(1e3, dtype=torch.float64, device=dev)))
+        if dev == "cuda":
+            launches, wall = gj_solve.launches, time.perf_counter() - t
+    exact = -1e-3 / (1e3 ** 2 * 1e-6) * np.exp(-1.0)
+    err = abs(d["cuda"] - d["cpu"]) / abs(d["cpu"])
+    print(f"jacfwd through tran() RC, dv(out, 1 ms)/dR: card {d['cuda']:.10e}"
+          f", CPU {d['cpu']:.10e}, analytic {exact:.10e}; relative |card - "
+          f"CPU| {err:.3e}; K1 launches {launches}, {wall:.3f} s [{card}]",
+          flush=True)
+    if not (launches > 0 and err <= CPU_TOL
+            and abs(d["cuda"] - exact) <= 5e-2 * abs(exact)):
+        raise RuntimeError("jacfwd through tran: card result off")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -450,16 +813,22 @@ def main():
     print(f"K1 + K2 build+load (parallel nvcc) "
           f"{time.perf_counter() - t:.2f} s", flush=True)
     cases = kernel_cases(card)
+    k1_derivative_cases(card)
     dff = run_dff(card)
     device_eval(card)
     twin = k2_vs_twin(card)
     k2 = k2_dff(card)
     k2_graetz(card)
-    main_case = cases["f64 n=19 k=1 b=1"]
-    kernels = [{"name": "K1 gj_solve", "route": "cuda",
+    mc = dff_montecarlo(card, dff["cold"]["wall"])
+    profile_montecarlo(card, mc["tab"])
+    k1_dff_jacobian_cases(card, mc["cc"], mc["sol"], mc["tab"])
+    dc_sweep_rescue(card)
+    derivatives(card)
+    main_case = cases["f64 n=19 k=1 b=4096"]
+    kernels = [{"name": "K1 gj_solve (jvp, vjp)", "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/gj_solve.cu",
                 "replaces": "cadnip_tpu/ops/pallas_solve.py:35",
-                "launches": dff["cold"]["launches"],
+                "launches": mc["launches"],
                 "max_abs_err": main_case["max_abs_err"],
                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]},
                {"name": "K2 vmem_tran", "route": "cuda",

@@ -1,15 +1,19 @@
 """Kernel K1 (cadnip_tpu_torch/ops/gj_solve.py): the plain twin against the
 JAX package's Pallas Gauss-Jordan kernel (interpret mode) in f32 and its
-full-f64 `gauss_solve`, plus the wrapper's argument checks. The CUDA kernel
-itself runs only on the card (the `gpu` marker)."""
+full-f64 `gauss_solve`, the wrapper's argument checks, and the derivative
+rules of `GJSolve` (jvp, vjp, vmap) against autodiff of the twin and of
+`jnp.linalg.solve`. The CUDA kernel itself runs only on the card (the `gpu`
+marker)."""
+import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
+from torch.func import jacfwd, jvp, vjp
 
 from cadnip_tpu.ops.linalg import gauss_solve
 from cadnip_tpu.ops.pallas_solve import gj_solve_f32
-from cadnip_tpu_torch.ops.gj_solve import gj_solve, gj_solve_plain
+from cadnip_tpu_torch.ops.gj_solve import GJSolve, gj_solve, gj_solve_plain
 
 torch.set_num_threads(1)
 
@@ -110,3 +114,112 @@ def test_cuda_kernel_matches_plain_twin():
         # FMA contraction in the kernel: rounding-level differences
         torch.testing.assert_close(X, gj_solve_plain(At, Bt), rtol=tol,
                                    atol=tol)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _rule_inputs(shape, seed, device="cpu"):
+    b, n, k = shape
+    rng = np.random.default_rng(seed)
+    # well-conditioned, with rows 0 and 1 swapped to force a pivot (a zeroed
+    # diagonal would leave some of 4096 systems nearly singular)
+    A = rng.standard_normal((b, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+    A[:, [0, 1]] = A[:, [1, 0]]
+    arrs = (A, rng.standard_normal((b, n, k)),
+            rng.standard_normal((b, n, n)), rng.standard_normal((b, n, k)),
+            rng.standard_normal((b, n, k)))
+    return arrs, [torch.as_tensor(a, device=device) for a in arrs]
+
+
+#: the Newton solve, the sensitivity solve (k = parameters), 4096 lanes
+RULE_SHAPES = [(1, 19, 1), (1, 19, 3), (4096, 19, 1)]
+
+
+@pytest.mark.parametrize("shape", RULE_SHAPES[:2] + [(64, 19, 1)])
+def test_derivative_rules_match_autodiff(shape):
+    (A, B, dA, dB, gX), (At, Bt, dAt, dBt, gXt) = _rule_inputs(shape, 7)
+    X, dX = jvp(GJSolve.apply, (At, Bt), (dAt, dBt))
+    Xp, dXp = jvp(gj_solve_plain, (At, Bt), (dAt, dBt))
+    assert _rel(X, Xp) <= 1e-12 and _rel(dX, dXp) <= 1e-12
+    grads = vjp(GJSolve.apply, At, Bt)[1](gXt)
+    grads_p = vjp(gj_solve_plain, At, Bt)[1](gXt)
+    for g, gp in zip(grads, grads_p):
+        assert _rel(g, gp) <= 1e-12
+    _, dXj = jax.jvp(jnp.linalg.solve, (A, B), (dA, dB))
+    assert _rel(dX, torch.as_tensor(np.array(dXj))) <= 1e-12
+    _, pull = jax.vjp(jnp.linalg.solve, A, B)
+    for g, gj in zip(grads, pull(gX)):
+        assert _rel(g, torch.as_tensor(np.array(gj))) <= 1e-12
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_jacfwd_folds_the_mapped_axis(shared):
+    # jacfwd over three parameters vmaps the jvp rule: a shared A takes the
+    # three tangent systems as extra right-hand-side columns, a mapped A
+    # as more systems in the batch
+    (A, B, dA, dB, _), (At, Bt, dAt, dBt, _) = _rule_inputs((2, 6, 2), 11)
+    p0 = np.array([0.3, -0.2, 0.5])
+
+    def f(p, solve, A, B, dA, dB):
+        if shared:          # p moves only the right-hand side
+            return solve(A, B * p[0] + dB * p[1] + dB * dB * p[2])
+        return solve(A + dA * p[0] + dA * dA * p[1], B * (1.0 + p[2]))
+
+    pt = torch.as_tensor(p0)
+    J = jacfwd(lambda p: f(p, gj_solve, At, Bt, dAt, dBt))(pt)
+    Jp = jacfwd(lambda p: f(p, gj_solve_plain, At, Bt, dAt, dBt))(pt)
+    Jj = jax.jacfwd(lambda p: f(p, jnp.linalg.solve, A, B, dA, dB))(
+        jnp.asarray(p0))
+    assert J.shape == (2, 6, 2, 3)
+    assert _rel(J, Jp) <= 1e-12
+    assert _rel(J, torch.as_tensor(np.array(Jj))) <= 1e-12
+
+
+@pytest.mark.parametrize("route", ["plain", "forward_ad", "autograd"])
+def test_gj_solve_keeps_derivatives_on_every_route(route, monkeypatch):
+    # gj_solve skips Function.apply only where no derivative can flow; the
+    # tangent of a forward-AD level and the gradient of torch.autograd
+    # must still come through the rules (on the card, the kernel's forward
+    # alone would drop the tangent)
+    (A, B, dA, dB, gX), (At, Bt, dAt, dBt, gXt) = _rule_inputs((3, 7, 2), 5)
+    rule_calls = []
+    jvp_rule = GJSolve.jvp
+    monkeypatch.setattr(GJSolve, "jvp", staticmethod(
+        lambda *a: rule_calls.append(1) or jvp_rule(*a)))
+    _, dXp = jvp(gj_solve_plain, (At, Bt), (dAt, dBt))
+    if route == "plain":
+        with torch.no_grad():
+            X = gj_solve(At, Bt)
+        assert not X.requires_grad
+        assert _rel(X, gj_solve_plain(At, Bt)) <= 1e-12
+    elif route == "forward_ad":
+        from torch.autograd import forward_ad as fwad
+        with fwad.dual_level():
+            X = gj_solve(fwad.make_dual(At, dAt), fwad.make_dual(Bt, dBt))
+            dX = fwad.unpack_dual(X).tangent
+        assert rule_calls and dX is not None and _rel(dX, dXp) <= 1e-12
+    else:
+        Ar, Br = At.clone().requires_grad_(), Bt.clone().requires_grad_()
+        gA, gB = torch.autograd.grad(gj_solve(Ar, Br), (Ar, Br), gXt)
+        for g, gp in zip((gA, gB), vjp(gj_solve_plain, At, Bt)[1](gXt)):
+            assert _rel(g, gp) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_cuda_derivative_rules_match_plain_twin():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    for shape in RULE_SHAPES:
+        _, (At, Bt, dAt, dBt, gXt) = _rule_inputs(shape, 7, "cuda")
+        before = gj_solve.launches
+        X, dX = jvp(GJSolve.apply, (At, Bt), (dAt, dBt))
+        grads = vjp(GJSolve.apply, At, Bt)[1](gXt)
+        # forward, its tangent, forward again and the cotangent solve
+        assert gj_solve.launches == before + 4
+        Xp, dXp = jvp(gj_solve_plain, (At, Bt), (dAt, dBt))
+        grads_p = vjp(gj_solve_plain, At, Bt)[1](gXt)
+        assert _rel(dX, dXp) <= 1e-12
+        for g, gp in zip(grads, grads_p):
+            assert _rel(g, gp) <= 1e-12
