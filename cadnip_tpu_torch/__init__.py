@@ -18,9 +18,11 @@ B systems. K1 is differentiable, so `torch.func` transforms run through
 `tran` and `dc`; `dc_sensitivity` gives DC sensitivities by the implicit
 function theorem with one K1 solve.
 
-A circuit is compiled for an explicit torch device:
+A circuit is compiled for the card unless the caller asks for the host
+(`device="cpu"`); without a card the default raises:
 
-    cc = parse_spice(dff_netlist(), device="cuda")
+    cc = parse_spice(dff_netlist())                # on "cuda"
+    ref = parse_spice(dff_netlist(), device="cpu")  # the plain twins
     sol = tran(cc, (0, 6e-7), dt=3.333e-10)        # host loop, K1 solves
     sol = vmem_tran(cc, (0, 6e-7), dt=3.333e-10)   # one K2 launch
     tab = montecarlo_table(cc, {"cq.c": 0.1, "mno1.w": 0.1}, 4096, seed=42)

@@ -19,3 +19,18 @@ DTYPE = torch.float64
 F32 = torch.float32
 #: dtype of index tensors (gathers, scatter plans, waveform kinds)
 ITYPE = torch.int64
+
+#: the device the public entry points build on unless told otherwise
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point was asked for. A CUDA device on a
+    machine without a card raises: the entry points default to the card,
+    and a CPU circuit is built only where the caller passes "cpu"."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"cadnip_tpu_torch: device {str(dev)!r} requested but no CUDA "
+            f"device is available; pass device=\"cpu\" to run on the host")
+    return dev

@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config import DEFAULT_DEVICE
 from ..mna import devices as dv
 from ..mna import waveforms as wf
 from ..mna.spec import SimSpec
@@ -733,9 +734,11 @@ def spice_spec(el: Elaborator, base: SimSpec | None = None) -> SimSpec:
 
 
 def parse_spice(source, *, include_dirs=(), section=None,
-                spec: SimSpec | None = None, compile=True, device="cpu"):
-    """SPICE netlist text -> CompiledCircuit on `device` (or the Circuit if
-    compile=False)."""
+                spec: SimSpec | None = None, compile=True,
+                device=DEFAULT_DEVICE):
+    """SPICE netlist text -> CompiledCircuit on `device`: the card by
+    default (raises where there is none), "cpu" for the host; or the
+    Circuit if compile=False."""
     cir, el = elaborate_netlist(source, include_dirs=include_dirs,
                                 section=section)
     if not compile:
@@ -749,7 +752,8 @@ def simulate(source, **kw):
 
 def montecarlo_elaborate(source, n: int, seed: int = 0, *,
                          include_dirs=(), section=None,
-                         spec: SimSpec | None = None, device="cpu"):
+                         spec: SimSpec | None = None,
+                         device=DEFAULT_DEVICE):
     """Monte Carlo over the netlist's statistical expressions: elaborate
     it n times, sample k drawing from `np.random.default_rng([seed, k])`
     (so the samples are the JAX package's, bit for bit), and stack the

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import DTYPE, ITYPE
+from .config import DEFAULT_DEVICE, DTYPE, ITYPE, resolve_device
 
 
 def _leaf_to_torch(v, device):
@@ -21,9 +21,11 @@ def _leaf_to_torch(v, device):
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def params_from_numpy(params_np, device="cpu"):
+def params_from_numpy(params_np, device=DEFAULT_DEVICE):
     """[{name: array | {name: array}}] (e.g. the JAX `cc.params0()` after
-    np.asarray on every leaf) -> the port's parameters on `device`."""
+    np.asarray on every leaf) -> the port's parameters on `device` (the
+    card by default, "cpu" for the host)."""
+    device = resolve_device(device)
     def conv(d):
         return {k: conv(v) if isinstance(v, dict)
                 else _leaf_to_torch(v, device) for k, v in d.items()}

@@ -45,8 +45,8 @@ MODE_AC = 3       # small-signal linearization
 
 def make_dynspec(temp_c: float = 27.0, time: float = 0.0,
                  gmin: float = 1e-12, gshunt: float = 0.0,
-                 srcfact: float = 1.0, mode: int = MODE_DCOP,
-                 device="cpu") -> DynSpec:
+                 srcfact: float = 1.0, mode: int = MODE_DCOP, *,
+                 device) -> DynSpec:
     def f(v):
         return torch.as_tensor(v, dtype=DTYPE, device=device)
 
@@ -80,7 +80,7 @@ class SimSpec:
     # Newton voltage-step clamp (helps exp nonlinearities; 0 disables)
     max_dv: float = 5.0
 
-    def dyn(self, device="cpu", **kw) -> DynSpec:
+    def dyn(self, device, **kw) -> DynSpec:
         base = dict(temp_c=self.temp_c, gmin=self.gmin, gshunt=self.gshunt)
         base.update(kw)
         return make_dynspec(device=device, **base)

@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import DTYPE
+from ..config import DEFAULT_DEVICE, DTYPE, resolve_device
 from .devices import CLASS_V, DeviceModel, deferred
 from .spec import SimSpec
 from .waveforms import DC, Waveform, pack_waveforms
@@ -120,9 +120,11 @@ class Circuit:
         return self.add(MOSFET1, name, (d, g, s, b), **params)
 
     def compile(self, spec: SimSpec | None = None, *,
-                device="cpu") -> "CompiledCircuit":
-        """Elaborate for one explicit torch device ("cpu" or "cuda")."""
-        return elaborate(self, spec or SimSpec(), device=torch.device(device))
+                device=DEFAULT_DEVICE) -> "CompiledCircuit":
+        """Elaborate for one torch device: the card by default (raises
+        where there is none), "cpu" for the host."""
+        return elaborate(self, spec or SimSpec(),
+                         device=resolve_device(device))
 
 
 @dataclasses.dataclass
@@ -138,7 +140,7 @@ class CompiledCircuit:
     spec: SimSpec
     param_slots: dict                   # "inst.param" -> (gi, pname, slot)
     inst_group: dict                    # inst name -> (gi, slot)
-    device: torch.device = torch.device("cpu")
+    device: torch.device
     cache: dict = dataclasses.field(default_factory=dict)
     # block-bordered-diagonal partition: a later slice; always None here
     bbd: object = None
@@ -195,7 +197,7 @@ class CompiledCircuit:
 
 
 def elaborate(cir: Circuit, spec: SimSpec,
-              device=torch.device("cpu")) -> CompiledCircuit:
+              device: torch.device) -> CompiledCircuit:
     # ---- node table (ground excluded; padding slot == n_unknowns)
     node_names: dict[str, int] = {}
     for inst in cir.instances:

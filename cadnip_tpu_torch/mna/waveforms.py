@@ -83,7 +83,7 @@ def Sffm(vo, va, fc, mdi=0.0, fs=0.0) -> Waveform:
 # ---------------------------------------------------------------------------
 # packing: list of Waveforms -> {kind [n], coeffs [n, width], ncoef, dc}
 
-def pack_waveforms(waves: Sequence[Waveform], device="cpu"):
+def pack_waveforms(waves: Sequence[Waveform], *, device):
     width = max(_MIN_COEFFS, max((len(w.coeffs) for w in waves), default=0))
     width += width % 2  # keep even so PWL (t,v) pairs split cleanly
     kinds = np.array([w.kind for w in waves], np.int64)

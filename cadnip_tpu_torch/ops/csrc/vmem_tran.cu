@@ -24,15 +24,23 @@
 // the failure after more than 100 rejects in a row. Limiter states start at
 // zeros, as the reference's do.
 //
-// What bounds it on this card: one block's serial Newton chain. Per
-// iteration that is about 4n + 15 block barriers (four per pivot of the
-// solve) and the FP64 latency of the device functions; the bytes are
-// negligible. The design keeps the state vectors and the dense [n][n+1]
-// system in shared memory, the per-instance locals (f, q, J, C, limiter
-// states) in device memory that stays in L1/L2, lets thread 0 run the
-// scalar step control with barriers publishing it, and goes back to the
-// host once per transient. Largest circuit: n = 127 unknowns (149 KB of
-// shared memory), as the reference's n + 1 <= 128.
+// What bounds it on this card: one block's serial Newton chain, a string
+// of block barriers and the FP64 latency of the device functions; the
+// bytes are negligible. The design keeps the state vectors, the dense
+// [n][n+1] system and, where they fit, the per-instance locals (f, q, J,
+// C, limiter states) in shared memory (else in device memory that stays in
+// L1/L2), runs each device group on warps of its own (slots built on the
+// host, so no warp diverges over two models), lets thread 0 run the scalar
+// step control with barriers publishing it, and goes back to the host once
+// per transient. For n <= 32 the Newton solve (equilibration,
+// elimination, the step and its max_dv maximum) runs inside warp 0 with
+// the system in registers (gj::eliminate_warp), while the other warps wait
+// at one barrier: about 15 block barriers per iteration instead of
+// 4n + 15. Larger circuits keep the block elimination, up to n = 127
+// unknowns (149 KB of shared memory), as the reference's n + 1 <= 128.
+//
+// Thread 0 reads clock64() at each phase boundary of an iteration and adds
+// the cycles to stats[PHASE0 + p] (always on; a few cycles a phase).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (plain C interface, bound by ctypes)
@@ -52,6 +60,11 @@ struct VmemConfig {
       temp, srcfact;
   long long n, n_groups, n_inst, n_loc, n_bp, max_steps, max_newton, n_save,
       rows_per_chunk, win_rows, n_chunks;
+  // per-instance locals: n_jac Jacobian entries (n_loc local values); the
+  // instance slots (each group starts at a warp); the lengths of the F/Q
+  // and J/C gather plans; whether the locals and the plans live in shared
+  // memory after the vectors (else in device memory)
+  long long n_jac, n_slots, n_fq, n_jc, locals_in_smem;
 };
 
 // Device pointers; mirrored by _Ptrs in ops/vmem_tran.py.
@@ -66,14 +79,24 @@ struct VmemPtrs {
   const int *fq_ptr, *fq_idx, *jc_ptr, *jc_idx;           // gather plans
   double *floc, *qloc, *jloc, *cloc, *ueval, *lims, *limacc, *wv, *cdx;
   double* xs;               // [n_chunks * rows_per_chunk][n]
-  long long* stats;         // naccept, nreject, nnewton, fail, nsteps
+  long long* stats;         // [N_STATS]: naccept, nreject, nnewton, fail,
+                            // nsteps; [PHASE0 + p]: cycles of phase p
   double* fin;              // [3][n]: x, q, qdot at the end
+  const int* slot_inst;     // [n_slots] global instance index, or -1
+  const int* slot_group;    // [n_slots] its device group
+  double* gat;              // [2 (n_fq + n_jc)] contributions in plan order
 };
 
 namespace {
 
 enum { GD_MODEL = 0, GD_NINST, GD_NL, GD_NPAR, GD_CONN, GD_PAR, GD_LOC,
        GD_JAC, GD_INST, GD_WAVE, GD_W, GD_STRIDE };
+
+// An instance's local vectors (nl values) and local Jacobians (nl * nl)
+// sit at odd strides, so the lanes of a warp, one instance each, reach
+// distinct shared-memory banks; mirrored by loc_strides in ops/vmem_tran.py.
+__device__ __forceinline__ int loc_stride(int nl) { return nl | 1; }
+__device__ __forceinline__ int jac_stride(int nl) { return (nl * nl) | 1; }
 
 constexpr double TRTOL = 7.0;
 constexpr double GROW_MAX = 2.0;
@@ -83,6 +106,16 @@ constexpr double TINY = 1e-30;
 constexpr long long HOLD_STEPS = 3;
 constexpr long long MAX_REJECT_RUN = 100;
 constexpr int N_VECTORS = 19;   // state vectors of n + 1 in shared memory
+constexpr int WARP_SOLVE_MAX = 32;   // largest n solved inside one warp
+
+// Phases of a Newton iteration timed by thread 0: device evaluation;
+// assembly; equilibration + solve (with the step's max_dv maximum);
+// damping, convergence and LTE; accept and save (with the limiter states);
+// step control (with the chunk set-up).
+enum { PH_EVAL, PH_ASSEMBLE, PH_SOLVE, PH_CHECK, PH_ACCEPT, PH_STEP,
+       N_PHASES };
+constexpr int PHASE0 = 8;        // stats slot of the first phase
+constexpr int N_STATS = 16;      // mirrored by N_STATS in ops/vmem_tran.py
 
 // Scalar step control: written by thread 0 only, read after a barrier.
 struct Ctl {
@@ -107,12 +140,79 @@ __device__ double block_max(double v, double* red) {
   return r;
 }
 
-// the device group that global instance idx belongs to
-__device__ __forceinline__ const long long* group_of(const long long* gd,
-                                                    int ng, int idx) {
-  int g = 0;
-  while (g + 1 < ng && gd[(g + 1) * GD_STRIDE + GD_INST] <= idx) ++g;
-  return gd + g * GD_STRIDE;
+// Warp 0's Newton solve for n <= 32, n + 1 <= MC: lane i loads row i of
+// [A | Ft] into registers; the two-sided equilibration, the elimination and
+// the step with its column scaling undone, in the block form's arithmetic.
+// Row maxima are in-lane; lane c takes column c's maximum over the
+// row-scaled rows from A in shared memory, in the block form's row order.
+// rs (n doubles of shared memory) carries the row factors, then the column
+// factors. Writes dx (undamped) and, from lane 0, the maximum of |dx| over
+// the node-voltage rows and whether one of them is NaN.
+template <int MC>
+__device__ __noinline__ void warp_newton(const double* A, const double* Ft,
+                                         const double* vmask, int n,
+                                         double* rs, double* dx,
+                                         double* vstep, int* vnan) {
+  const int lane = threadIdx.x & 31, m = n + 1;
+  const bool live = lane < n;
+  double a[MC];
+#pragma unroll
+  for (int j = 0; j < MC; ++j) a[j] = live && j < n ? A[lane * m + j] : 0.0;
+  // the columns from n hold zeros, which change no maximum
+  double mx = 0.0;
+#pragma unroll
+  for (int j = 0; j < MC; ++j) mx = dev::tmax(mx, fabs(a[j]));
+  const double rinv = 1.0 / clamp_min(mx, TINY);
+  const double bv = live ? rinv * Ft[lane] : 0.0;
+#pragma unroll
+  for (int j = 0; j < MC; ++j) a[j] = j == n ? bv : a[j] * rinv;
+  if (live) rs[lane] = rinv;
+  __syncwarp();
+  double cmx = 0.0;
+  if (live)
+    for (int i = 0; i < n; ++i)
+      cmx = dev::tmax(cmx, fabs(A[i * m + lane] * rs[i]));
+  const double cinv = 1.0 / clamp_min(cmx, TINY);
+  __syncwarp();
+  if (live) rs[lane] = cinv;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < MC; ++j)
+    if (j < n) a[j] *= rs[j];
+  int r = lane;
+  gj::eliminate_warp<double, MC>(a, r, n);
+  const double ci = __shfl_sync(gj::FULL, cinv, r & 31);
+  double vl = 0.0;
+  int vn = 0;
+  if (live) {
+    // column n (the right-hand side) is in slot 0
+    const double d = -((a[0] / gj::column(a, gj::rotated<MC>(r, n))) * ci);
+    dx[r] = d;
+    if (vmask[r] != 0.0) {
+      vl = fmax(vl, fabs(d));
+      vn = isnan(d);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    vl = fmax(vl, __shfl_xor_sync(gj::FULL, vl, off));
+  vn = __any_sync(gj::FULL, vn);
+  if (lane == 0) {
+    *vstep = vl;
+    *vnan = vn;
+  }
+}
+
+// warp_newton with the column bound n + 1 rounded up to 8
+__device__ void warp_newton_n(const double* A, const double* Ft,
+                              const double* vmask, int n, double* rs,
+                              double* dx, double* vstep, int* vnan) {
+  switch ((n + 8) / 8) {
+    case 1: warp_newton<8>(A, Ft, vmask, n, rs, dx, vstep, vnan); break;
+    case 2: warp_newton<16>(A, Ft, vmask, n, rs, dx, vstep, vnan); break;
+    case 3: warp_newton<24>(A, Ft, vmask, n, rs, dx, vstep, vnan); break;
+    case 4: warp_newton<32>(A, Ft, vmask, n, rs, dx, vstep, vnan); break;
+    default: warp_newton<40>(A, Ft, vmask, n, rs, dx, vstep, vnan); break;
+  }
 }
 
 // thread 0: the next trial step from the accepted state in S
@@ -140,14 +240,25 @@ __global__ void __launch_bounds__(256)
   __shared__ Ctl S;
   __shared__ double red[32];
   __shared__ gj::Scratch<double> gs;
+  __shared__ int vnan_s;
 
   const int n = (int)cfg.n, m = n + 1;
   const int tid = threadIdx.x, bs = blockDim.x;
-  const int ng = (int)cfg.n_groups, n_inst = (int)cfg.n_inst;
   const long long n_loc = cfg.n_loc;
   const long long rc = cfg.rows_per_chunk, wr = cfg.win_rows;
   const long long* gd = P.gdesc;
   const dev::Dyn dyn = dev::make_dyn(cfg.temp, cfg.gmin, cfg.srcfact);
+  const bool warp_solve = n <= WARP_SOLVE_MAX;
+  // thread 0's phase clocks
+  long long ph[N_PHASES] = {};
+  long long tick0 = clock64();
+  auto tick = [&](int p) {
+    if (tid == 0) {
+      const long long now = clock64();
+      ph[p] += now - tick0;
+      tick0 = now;
+    }
+  };
 
   double* A = sm;                                  // [n][n + 1]: [A | b]
   double* x = sm + n * m;                          // vectors of n + 1
@@ -156,6 +267,41 @@ __global__ void __launch_bounds__(256)
   double *F = dx + m, *Q = F + m, *Ft = Q + m, *qc = Ft + m, *qdn = qc + m;
   double *atol = qdn + m, *diff = atol + m, *vmask = diff + m;
   double* cinv = vmask + m;                        // N_VECTORS = 19
+
+  // the per-instance locals, in shared memory where they fit
+  double *floc = P.floc, *qloc = P.qloc, *ueval = P.ueval, *lims = P.lims;
+  double *limacc = P.limacc, *cdx = P.cdx, *jloc = P.jloc, *cloc = P.cloc;
+  double* wv = P.wv;
+  double* gat = P.gat;
+  const int *fq_ptr = P.fq_ptr, *fq_idx = P.fq_idx;
+  const int *jc_ptr = P.jc_ptr, *jc_idx = P.jc_idx;
+  if (cfg.locals_in_smem) {
+    floc = cinv + m;
+    qloc = floc + n_loc;
+    ueval = qloc + n_loc;
+    lims = ueval + n_loc;
+    limacc = lims + n_loc;
+    cdx = limacc + n_loc;
+    jloc = cdx + n_loc;
+    cloc = jloc + cfg.n_jac;
+    wv = cloc + cfg.n_jac;
+    gat = wv + cfg.n_inst;
+    int* ip = reinterpret_cast<int*>(gat + 2 * (cfg.n_fq + cfg.n_jc));
+    const long long len[4] = {n + 1, cfg.n_fq, (long long)n * n + 1,
+                              cfg.n_jc};
+    const int* src[4] = {P.fq_ptr, P.fq_idx, P.jc_ptr, P.jc_idx};
+    const int* dst[4];
+    for (int q = 0; q < 4; ++q) {
+      for (long long k = tid; k < len[q]; k += bs) ip[k] = src[q][k];
+      dst[q] = ip;
+      ip += len[q];
+    }
+    fq_ptr = dst[0];
+    fq_idx = dst[1];
+    jc_ptr = dst[2];
+    jc_idx = dst[3];
+  }
+  const int n_slots = (int)cfg.n_slots;
 
   // ---- initial state; the ground slot n of xi and dx reads 0
   for (int i = tid; i < n; i += bs) {
@@ -166,7 +312,7 @@ __global__ void __launch_bounds__(256)
     diff[i] = P.diff[i];
     vmask[i] = P.vmask[i];
   }
-  for (long long k = tid; k < n_loc; k += bs) P.lims[k] = P.limacc[k] = 0.0;
+  for (long long k = tid; k < n_loc; k += bs) lims[k] = limacc[k] = 0.0;
   if (tid == 0) {
     xi[n] = 0.0;
     dx[n] = 0.0;
@@ -188,11 +334,13 @@ __global__ void __launch_bounds__(256)
       rq[i] = c0 * q[i] + (use_be ? 0.0 : qd[i]);
       xi[i] = pred ? x[i] + (x[i] - x1[i]) / dt1 * h_eff : x[i];
     }
-    for (int idx = tid; idx < n_inst; idx += bs) {
-      const long long* G = group_of(gd, ng, idx);
+    for (int s = tid; s < n_slots; s += bs) {
+      const int idx = P.slot_inst[s];
+      if (idx < 0) continue;
+      const long long* G = gd + P.slot_group[s] * GD_STRIDE;
       if (G[GD_WAVE] < 0) continue;
       const int W = (int)G[GD_W];
-      P.wv[idx] = dev::eval_wave(
+      wv[idx] = dev::eval_wave(
           P.wkind[idx], P.wcoef + G[GD_WAVE] + (idx - G[GD_INST]) * W, W,
           t_new);
     }
@@ -219,34 +367,57 @@ __global__ void __launch_bounds__(256)
                 && S.nsteps < cfg.max_steps && S.si < cfg.n_save;
       __syncthreads();
       if (!S.run) break;
+      tick(PH_STEP);
       const double c0 = S.c0;
 
-      // ---- device evaluation, one thread per instance
-      for (int idx = tid; idx < n_inst; idx += bs) {
-        const long long* G = group_of(gd, ng, idx);
+      // ---- device evaluation, one thread per instance slot (each group
+      // on warps of its own, so the models do not diverge in a warp)
+      for (int s = tid; s < n_slots; s += bs) {
+        const int idx = P.slot_inst[s];
+        if (idx < 0) continue;
+        const long long* G = gd + P.slot_group[s] * GD_STRIDE;
         const int nl = (int)G[GD_NL], li = idx - (int)G[GD_INST];
         const int* cn = P.conn + G[GD_CONN] + li * nl;
-        const long long lo = G[GD_LOC] + li * nl;
-        const long long jo = G[GD_JAC] + (long long)li * nl * nl;
+        const long long lo = G[GD_LOC] + li * loc_stride(nl);
+        const long long jo = G[GD_JAC] + (long long)li * jac_stride(nl);
         double u[4], up[4];
         for (int a = 0; a < nl; ++a) {
           u[a] = xi[cn[a]];
-          up[a] = P.lims[lo + a];
+          up[a] = lims[lo + a];
         }
         dev::eval_model((int)G[GD_MODEL], u, up,
                         P.par + G[GD_PAR] + li * G[GD_NPAR],
-                        G[GD_WAVE] >= 0 ? P.wv[idx] : 0.0, dyn,
-                        P.floc + lo, P.qloc + lo, P.jloc + jo, P.cloc + jo,
-                        P.ueval + lo);
+                        G[GD_WAVE] >= 0 ? wv[idx] : 0.0, dyn, floc + lo,
+                        qloc + lo, jloc + jo, cloc + jo, ueval + lo);
       }
       __syncthreads();
+      tick(PH_EVAL);
 
-      // ---- assembly through the gather plans (fixed summation order)
+      // ---- assembly through the gather plans (fixed summation order):
+      // one parallel pass lays every contribution out in plan order, then
+      // each row and entry sums its contiguous run, loads ahead of the sums
+      {
+        const int nfq = (int)cfg.n_fq, njc = (int)cfg.n_jc;
+        for (int k = tid; k < nfq; k += bs) {
+          const int i = fq_idx[k];
+          gat[k] = floc[i];
+          gat[nfq + k] = qloc[i];
+        }
+        double* gj = gat + 2 * nfq;
+        for (int k = tid; k < njc; k += bs) {
+          const int i = jc_idx[k];
+          gj[k] = jloc[i];
+          gj[njc + k] = cloc[i];
+        }
+      }
+      __syncthreads();
       for (int r = tid; r < n; r += bs) {
+        const double* gf = gat;
+        const double* gq = gat + cfg.n_fq;
         double fr = 0.0, qr = 0.0;
-        for (int k = P.fq_ptr[r]; k < P.fq_ptr[r + 1]; ++k) {
-          fr += P.floc[P.fq_idx[k]];
-          qr += P.qloc[P.fq_idx[k]];
+        for (int k = fq_ptr[r]; k < fq_ptr[r + 1]; ++k) {
+          fr += gf[k];
+          qr += gq[k];
         }
         fr = fr + cfg.gshunt * xi[r] * vmask[r];
         F[r] = fr;
@@ -255,51 +426,67 @@ __global__ void __launch_bounds__(256)
       }
       for (int e = tid; e < n * n; e += bs) {
         const int r = e / n, c = e - r * n;
+        const double* gj = gat + 2 * cfg.n_fq;
+        const double* gc = gj + cfg.n_jc;
         double g = 0.0, cc = 0.0;
-        for (int k = P.jc_ptr[e]; k < P.jc_ptr[e + 1]; ++k) {
-          g += P.jloc[P.jc_idx[k]];
-          cc += P.cloc[P.jc_idx[k]];
+        for (int k = jc_ptr[e]; k < jc_ptr[e + 1]; ++k) {
+          g += gj[k];
+          cc += gc[k];
         }
         if (r == c) g = g + cfg.gshunt * vmask[r];
         A[r * m + c] = g + c0 * cc;
       }
       __syncthreads();
+      tick(PH_ASSEMBLE);
 
-      // ---- two-sided equilibration: rows, then columns; b = Dr Ft
-      for (int r = tid; r < n; r += bs) {
-        double mx = 0.0;
-        for (int c = 0; c < n; ++c) mx = dev::tmax(mx, fabs(A[r * m + c]));
-        const double rinv = 1.0 / clamp_min(mx, TINY);
-        for (int c = 0; c < n; ++c) A[r * m + c] *= rinv;
-        A[r * m + n] = rinv * Ft[r];
-      }
-      __syncthreads();
-      for (int c = tid; c < n; c += bs) {
-        double mx = 0.0;
-        for (int r = 0; r < n; ++r) mx = dev::tmax(mx, fabs(A[r * m + c]));
-        cinv[c] = 1.0 / clamp_min(mx, TINY);
-      }
-      __syncthreads();
-      for (int e = tid; e < n * n; e += bs) {
-        const int r = e / n, c = e - r * n;
-        A[r * m + c] *= cinv[c];
-      }
-      __syncthreads();
-      gj::eliminate(A, n, m, gs);
-
-      // ---- Newton step, damped so no node voltage moves more than max_dv
-      double vloc = 0.0;
-      int vnan = 0;
-      for (int i = tid; i < n; i += bs) {
-        const double d = -((A[i * m + n] / A[i * m + i]) * cinv[i]);
-        dx[i] = d;
-        if (vmask[i] != 0.0) {
-          vloc = fmax(vloc, fabs(d));
-          vnan |= isnan(d);
+      // ---- the Newton step of the equilibrated system, and the largest
+      // node-voltage move for the max_dv damping
+      double vstep;
+      bool vstep_nan;
+      if (warp_solve) {
+        if (tid < 32)
+          warp_newton_n(A, Ft, vmask, n, cinv, dx, &red[0], &vnan_s);
+        __syncthreads();
+        vstep = red[0];
+        vstep_nan = vnan_s != 0;
+      } else {
+        // two-sided equilibration: rows, then columns; b = Dr Ft
+        for (int r = tid; r < n; r += bs) {
+          double mx = 0.0;
+          for (int c = 0; c < n; ++c) mx = dev::tmax(mx, fabs(A[r * m + c]));
+          const double rinv = 1.0 / clamp_min(mx, TINY);
+          for (int c = 0; c < n; ++c) A[r * m + c] *= rinv;
+          A[r * m + n] = rinv * Ft[r];
         }
+        __syncthreads();
+        for (int c = tid; c < n; c += bs) {
+          double mx = 0.0;
+          for (int r = 0; r < n; ++r) mx = dev::tmax(mx, fabs(A[r * m + c]));
+          cinv[c] = 1.0 / clamp_min(mx, TINY);
+        }
+        __syncthreads();
+        for (int e = tid; e < n * n; e += bs) {
+          const int r = e / n, c = e - r * n;
+          A[r * m + c] *= cinv[c];
+        }
+        __syncthreads();
+        gj::eliminate(A, n, m, gs);
+        // the step with its column scaling undone
+        double vloc = 0.0;
+        int vnan = 0;
+        for (int i = tid; i < n; i += bs) {
+          const double d = -((A[i * m + n] / A[i * m + i]) * cinv[i]);
+          dx[i] = d;
+          if (vmask[i] != 0.0) {
+            vloc = fmax(vloc, fabs(d));
+            vnan |= isnan(d);
+          }
+        }
+        vstep = block_max(vloc, red);
+        vstep_nan = __syncthreads_or(vnan);
       }
-      const double vstep = block_max(vloc, red);
-      const bool vstep_nan = __syncthreads_or(vnan);
+      tick(PH_SOLVE);
+      // ---- damped so no node voltage moves more than max_dv
       const double scale = (cfg.max_dv > 0.0 && !vstep_nan)
                                ? fmin(1.0, cfg.max_dv / fmax(vstep, TINY))
                                : 1.0;
@@ -348,6 +535,8 @@ __global__ void __launch_bounds__(256)
       double enorm = block_max(rloc, red);
       const bool enan = __syncthreads_or(rnan);
 
+      tick(PH_CHECK);
+
       // ---- step decision: every thread computes it from the same values
       const long long it = S.it + 1;
       const bool conv = (ok_dx || ok_res) && !bad;
@@ -367,24 +556,27 @@ __global__ void __launch_bounds__(256)
 
       if (accept) {
         // charge update Qc = Q + C dx from the per-instance C blocks
-        for (int idx = tid; idx < n_inst; idx += bs) {
-          const long long* G = group_of(gd, ng, idx);
+        for (int s = tid; s < n_slots; s += bs) {
+          const int idx = P.slot_inst[s];
+          if (idx < 0) continue;
+          const long long* G = gd + P.slot_group[s] * GD_STRIDE;
           const int nl = (int)G[GD_NL], li = idx - (int)G[GD_INST];
           const int* cn = P.conn + G[GD_CONN] + li * nl;
-          const long long lo = G[GD_LOC] + li * nl;
-          const double* Cl = P.cloc + G[GD_JAC] + (long long)li * nl * nl;
+          const long long lo = G[GD_LOC] + li * loc_stride(nl);
+          const double* Cl = cloc + G[GD_JAC]
+                             + (long long)li * jac_stride(nl);
           for (int a = 0; a < nl; ++a) {
-            double s = 0.0;
-            for (int b = 0; b < nl; ++b) s += Cl[a * nl + b] * dx[cn[b]];
-            P.cdx[lo + a] = s;
+            double acc = 0.0;
+            for (int b = 0; b < nl; ++b) acc += Cl[a * nl + b] * dx[cn[b]];
+            cdx[lo + a] = acc;
           }
         }
         if (tid == 0) S.nsaved = 0;
         __syncthreads();
         for (int r = tid; r < n; r += bs) {
           double s = 0.0;
-          for (int k = P.fq_ptr[r]; k < P.fq_ptr[r + 1]; ++k)
-            s += P.cdx[P.fq_idx[k]];
+          for (int k = fq_ptr[r]; k < fq_ptr[r + 1]; ++k)
+            s += cdx[fq_idx[k]];
           qc[r] = Q[r] + s;
           qdn[r] = c0 * qc[r] - rq[r];
         }
@@ -422,15 +614,16 @@ __global__ void __launch_bounds__(256)
       // ---- limiter states: roll back on a bad iterate, commit on accept,
       // restore the last accepted step's on reject
       for (long long k = tid; k < n_loc; k += bs) {
-        const double ln = bad ? P.lims[k] : P.ueval[k];
+        const double ln = bad ? lims[k] : ueval[k];
         if (accept) {
-          P.limacc[k] = ln;
-          P.lims[k] = ln;
+          limacc[k] = ln;
+          lims[k] = ln;
         } else {
-          P.lims[k] = newton_done ? P.limacc[k] : ln;
+          lims[k] = newton_done ? limacc[k] : ln;
         }
       }
       __syncthreads();
+      tick(PH_ACCEPT);
 
       if (tid == 0) {
         if (accept) {
@@ -473,6 +666,7 @@ __global__ void __launch_bounds__(256)
     P.stats[2] = S.nnewton;
     P.stats[3] = S.fail + (ran_out ? 1 : 0);
     P.stats[4] = S.nsteps;
+    for (int p = 0; p < N_PHASES; ++p) P.stats[PHASE0 + p] = ph[p];
   }
   for (int i = tid; i < n; i += bs) {
     P.fin[i] = x[i];
@@ -516,7 +710,13 @@ extern "C" {
 int vmem_tran_f64(const VmemConfig* cfg, const VmemPtrs* ptrs, int threads,
                   void* stream) {
   const size_t n = (size_t)cfg->n;
-  const size_t smem = sizeof(double) * (n * (n + 1) + N_VECTORS * (n + 1));
+  size_t smem = sizeof(double) * (n * (n + 1) + N_VECTORS * (n + 1));
+  if (cfg->locals_in_smem)
+    smem += sizeof(double) * (size_t)(6 * cfg->n_loc + 2 * cfg->n_jac
+                                      + cfg->n_inst
+                                      + 2 * (cfg->n_fq + cfg->n_jc))
+            + sizeof(int) * (size_t)(n + 1 + cfg->n_fq + n * n + 1
+                                     + cfg->n_jc);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         vmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

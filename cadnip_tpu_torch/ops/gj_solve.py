@@ -2,10 +2,13 @@
 
 `gj_solve(A, B)` solves A X = B for a batch of small dense systems. On a
 CUDA tensor it launches the hand-written Hopper kernel in
-`csrc/gj_solve.cu` (one thread block per system, the augmented block in
-shared memory); on a CPU tensor it runs `gj_solve_plain`, the same
+`csrc/gj_solve.cu`; on a CPU tensor it runs `gj_solve_plain`, the same
 algorithm in torch ops. There is no fallback between the two: a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. The kernel has two variants with
+one arithmetic (`variant(n, k)` picks): "warp", one warp per system with
+the rows in registers, for the circuit-sized systems (n <= 32,
+n + k <= 64); "block", one thread block per system with the augmented
+block in shared memory, for the rest.
 
 `gj_solve` is differentiable, forward and reverse, through `GJSolve`
 (a `torch.autograd.Function` that `torch.func` transforms accept). Each
@@ -51,6 +54,9 @@ def load_library():
         fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, ci,
                        vp]
         fn.restype = ci
+    for fn in (lib.gj_solve_warp_f64, lib.gj_solve_warp_f32):
+        fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, vp]
+        fn.restype = ci
     _lib = lib
     return lib
 
@@ -79,21 +85,43 @@ def gj_solve_plain(A, B):
     return ab[:, :, n:] / diag[:, :, None]
 
 
-def _launch(A, B):
+#: largest system of the warp variant: one row per lane, and the
+#: augmented row in at most 64 registers of each lane
+WARP_ROWS, WARP_COLS = 32, 64
+
+
+def variant(n: int, k: int) -> str:
+    """The kernel variant for an [n, n] system with k right-hand sides."""
+    return "warp" if n <= WARP_ROWS and n + k <= WARP_COLS else "block"
+
+
+def launch(A, B, which=None):
+    """One kernel launch on CUDA tensors A [b, n, n], B [b, n, k]; `which`
+    forces "warp" or "block" (default `variant(n, k)`)."""
     lib = load_library()
     batch, n, _ = A.shape
     k = B.shape[-1]
+    which = which or variant(n, k)
     itemsize = A.element_size()
-    if itemsize * n * (n + k) > MAX_SMEM:
+    if which == "block" and itemsize * n * (n + k) > MAX_SMEM:
         raise ValueError(
             f"gj_solve: [{n}, {n}+{k}] does not fit one block's shared "
             f"memory ({MAX_SMEM} bytes); larger systems are later work")
+    if which == "warp" and variant(n, k) != "warp":
+        raise ValueError(f"gj_solve: the warp variant takes n <= "
+                         f"{WARP_ROWS} and n + k <= {WARP_COLS}, got "
+                         f"[{n}, {n}+{k}]")
     X = torch.empty((batch, n, k), dtype=A.dtype, device=A.device)
-    fn = lib.gj_solve_f64 if A.dtype == DTYPE else lib.gj_solve_f32
-    threads = 32 * min(8, n)
+    f64 = A.dtype == DTYPE
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    err = fn(A.data_ptr(), *A.stride(), B.data_ptr(), *B.stride(),
-             X.data_ptr(), batch, n, k, threads, stream)
+    args = (A.data_ptr(), *A.stride(), B.data_ptr(), *B.stride(),
+            X.data_ptr(), batch, n, k)
+    if which == "warp":
+        fn = lib.gj_solve_warp_f64 if f64 else lib.gj_solve_warp_f32
+        err = fn(*args, stream)
+    else:
+        fn = lib.gj_solve_f64 if f64 else lib.gj_solve_f32
+        err = fn(*args, 32 * min(8, n), stream)
     if err != 0:
         raise RuntimeError(f"gj_solve kernel launch failed: cudaError {err}")
     gj_solve.launches += 1
@@ -107,7 +135,7 @@ class GJSolve(torch.autograd.Function):
     @staticmethod
     def forward(A, B):
         if A.device.type == "cuda":
-            return _launch(A, B)
+            return launch(A, B)
         if A.device.type == "cpu":
             with torch.no_grad():
                 return gj_solve_plain(A, B)
@@ -189,6 +217,6 @@ def gj_solve(A, B):
     return X[..., 0] if vec else X
 
 
-#: kernel launches since the last reset, derivative rules included
-#: (plain-twin calls do not count)
+#: kernel launches since the last reset, both variants and the derivative
+#: rules included (plain-twin calls do not count)
 gj_solve.launches = 0

@@ -29,13 +29,18 @@ hmin and h0. The reference is f32 because Mosaic has no f64; K2 and its
 twin are f64 throughout.
 
 What bounds K2 on the H100 is one thread block's serial Newton chain: per
-iteration a few dozen block barriers (four per pivot of the solve) and the
-FP64 latency of the device functions, not bytes. The design keeps the
-whole Newton state, the dense system and the scalar step control on chip
-(shared memory, one thread deciding, barriers publishing), touches device
-memory only for the per-instance locals and the save rows, and returns to
-the host once per transient. Lane batching, warp-level pivoting, TMA and
-wgmma are later work.
+iteration a string of block barriers and the FP64 latency of the device
+functions, not bytes. The design keeps the whole Newton state, the dense
+system, the per-instance locals and the gather plans where they fit
+(`locals_bytes`) and the scalar step control on chip (shared memory, one
+thread deciding, barriers publishing), touches device memory only for the
+save rows, and returns to the host once per transient. Each device
+group's instances run on warps of their own (host-built slots), so no
+warp holds two models. For n <= 32 (`WARP_SOLVE_MAX`) the Newton solve
+runs inside one warp with the system in registers, as K1's warp variant.
+Thread 0 times each phase of an iteration with clock64(); `integrate`
+returns the cycles per phase (`PHASES`). Lane batching, TMA and wgmma are
+later work.
 """
 from __future__ import annotations
 
@@ -78,6 +83,13 @@ MAX_INST = 128
 #: state vectors of length n + 1 that the kernel keeps in shared memory
 _N_VECTORS = 19
 _THREADS = 256
+#: largest circuit whose Newton solve runs inside one warp
+WARP_SOLVE_MAX = 32
+#: the kernel's statistics slots (csrc/vmem_tran.cu: N_STATS, PHASE0)
+_N_STATS, _PHASE0 = 16, 8
+#: phases of a Newton iteration that K2's thread 0 times, in slot order
+PHASES = ("device evaluation", "assembly", "equilibration + solve",
+          "damping, convergence, LTE", "accept and save", "step control")
 
 _DIODE_P = ("is", "n", "cjo", "vj", "m", "fc", "tt", "bv", "ibv", "area",
             "rs")
@@ -108,9 +120,26 @@ def supported(cc) -> bool:
     return True
 
 
+#: dynamic shared memory one K2 block may use (227 KB less the kernel's
+#: static scratch)
+SMEM_MAX = 232448 - 2048
+
+
 def smem_bytes(n: int) -> int:
     """Dynamic shared memory of one K2 launch: [n, n+1] plus the vectors."""
     return 8 * (n * (n + 1) + _N_VECTORS * (n + 1))
+
+
+def locals_bytes(n: int, pk: dict) -> int:
+    """What K2 keeps in shared memory besides `smem_bytes` where it fits:
+    the per-instance locals (f, q, the limited point, two limiter states
+    and C dx, n_loc each; the local Jacobians J and C, n_jac each; the
+    source values), the contributions laid out in plan order (f, q, J, C)
+    and the F/Q and J/C gather plans (int32)."""
+    n_fq, n_jc = len(pk["fq_idx"]), len(pk["jc_idx"])
+    return (8 * (6 * pk["n_loc"] + 2 * pk["n_jac"] + pk["n_inst"]
+                 + 2 * (n_fq + n_jc))
+            + 4 * (n + 1 + n_fq + n * n + 1 + n_jc))
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +293,7 @@ class _Result:
     stats: tuple              # naccept, nreject, nnewton, fail (ints)
     final: torch.Tensor       # [3, n]: x, q, qdot at the end
     host_syncs: int
+    phases: dict = None       # K2 only: {phase: clock64 cycles}
 
 
 def integrate_plain(S: Setup) -> _Result:
@@ -482,11 +512,13 @@ _CFG_DOUBLES = ("t0", "tstop", "h0", "hmax", "hmin", "dt_save", "reltol",
                 "max_dv", "gshunt", "gmin", "temp", "srcfact")
 _CFG_INTS = ("n", "n_groups", "n_inst", "n_loc", "n_bp", "max_steps",
              "max_newton", "n_save", "rows_per_chunk", "win_rows",
-             "n_chunks")
+             "n_chunks", "n_jac", "n_slots", "n_fq", "n_jc",
+             "locals_in_smem")
 _PTRS = ("gdesc", "conn", "par", "wkind", "wcoef", "bp", "x0", "q0",
          "qdot0", "atol", "diff", "vmask", "fq_ptr", "fq_idx", "jc_ptr",
          "jc_idx", "floc", "qloc", "jloc", "cloc", "ueval", "lims",
-         "limacc", "wv", "cdx", "xs", "stats", "fin")
+         "limacc", "wv", "cdx", "xs", "stats", "fin", "slot_inst",
+         "slot_group", "gat")
 
 
 class _Config(ctypes.Structure):
@@ -532,6 +564,14 @@ def _csr(dest, n_rows):
     return ptr, order.astype(np.int32)
 
 
+def loc_strides(nl: int):
+    """The strides of one instance's local vectors (nl values) and local
+    Jacobians (nl * nl) in K2's scratch: odd, so that the lanes of a warp,
+    one instance each, reach distinct shared-memory banks (csrc:
+    loc_stride, jac_stride)."""
+    return nl | 1, (nl * nl) | 1
+
+
 def pack(S: Setup) -> dict:
     """The host packer: per-group descriptors, connection tables,
     parameter rows, packed waveforms and the F/Q and J/C gather plans, as
@@ -540,11 +580,18 @@ def pack(S: Setup) -> dict:
     gdesc [NG, 11] int64 per group: model id, n_inst, n_local, n_par,
     offsets into conn, par, the local vectors (f, q, u_eval, limiter
     states), the local Jacobians, the instance list, the waveform
-    coefficients (-1 without), and the coefficient width."""
+    coefficients (-1 without), and the coefficient width. An instance's
+    local vectors and Jacobians sit at the strides of `loc_strides`; the
+    slots between are padding that no plan reads.
+
+    slot_inst, slot_group [n_slots] int32: the thread slots of the
+    per-instance loops, each group padded to whole warps so that no warp
+    runs two models; a slot's global instance index (-1 for padding) and
+    its group."""
     cc = S.cc
     n = cc.n
     gdesc, conn, par, wkind, wcoef = [], [], [], [], []
-    fq_dest, jc_dest = [], []
+    fq_dest, jc_dest, slot_inst, slot_group = [], [], [], []
     off = dict(conn=0, par=0, loc=0, jac=0, inst=0, wave=0)
     for g, p in zip(cc.groups, S.params):
         mid, pnames = KERNEL_MODELS[g.model]
@@ -552,7 +599,7 @@ def pack(S: Setup) -> dict:
         wave_off, W = -1, 0
         kinds = np.zeros(I, np.int64)
         if g.waves is not None:
-            w = pack_waveforms(g.waves)
+            w = pack_waveforms(g.waves, device="cpu")
             W = int(w["coeffs"].shape[1])
             kinds = w["kind"].numpy()
             wcoef.append(w["coeffs"].numpy().reshape(-1))
@@ -565,15 +612,24 @@ def pack(S: Setup) -> dict:
         if pnames:
             par.append(np.stack([np.asarray(g.params[k], np.float64)
                                  for k in pnames], 1).reshape(-1))
-        fq_dest.append(g.conn.reshape(-1))
-        jc_dest.append(np.where((g.conn[:, :, None] < n)
-                                & (g.conn[:, None, :] < n),
-                                g.conn[:, :, None] * n + g.conn[:, None, :],
-                                -1).reshape(-1))
+        ls, js = loc_strides(L)
+        fq = np.full((I, ls), -1, np.int64)
+        fq[:, :L] = g.conn
+        fq_dest.append(fq.reshape(-1))
+        jc = np.full((I, js), -1, np.int64)
+        jc[:, :L * L] = np.where((g.conn[:, :, None] < n)
+                                 & (g.conn[:, None, :] < n),
+                                 g.conn[:, :, None] * n
+                                 + g.conn[:, None, :], -1).reshape(I, -1)
+        jc_dest.append(jc.reshape(-1))
+        pad = -I % 32
+        slot_inst.append(np.concatenate([off["inst"] + np.arange(I),
+                                         np.full(pad, -1)]))
+        slot_group.append(np.full(I + pad, len(gdesc) - 1))
         off["conn"] += I * L
         off["par"] += I * len(pnames)
-        off["loc"] += I * L
-        off["jac"] += I * L * L
+        off["loc"] += I * ls
+        off["jac"] += I * js
         off["inst"] += I
     fq_ptr, fq_idx = _csr(np.concatenate(fq_dest), n)
     jc_ptr, jc_idx = _csr(np.concatenate(jc_dest), n * n)
@@ -586,6 +642,8 @@ def pack(S: Setup) -> dict:
                 conn=cat(conn, np.int32), par=cat(par, np.float64),
                 wkind=cat(wkind, np.int64), wcoef=cat(wcoef, np.float64),
                 fq_ptr=fq_ptr, fq_idx=fq_idx, jc_ptr=jc_ptr, jc_idx=jc_idx,
+                slot_inst=cat(slot_inst, np.int32),
+                slot_group=cat(slot_group, np.int32),
                 n_loc=off["loc"], n_jac=off["jac"], n_inst=off["inst"])
 
 
@@ -607,15 +665,17 @@ def _kernel_args(S: Setup):
              vmask=S.vmask.to(DTYPE).contiguous(),
              fq_ptr=dv(pk["fq_ptr"]), fq_idx=dv(pk["fq_idx"]),
              jc_ptr=dv(pk["jc_ptr"]), jc_idx=dv(pk["jc_idx"]),
+             slot_inst=dv(pk["slot_inst"]), slot_group=dv(pk["slot_group"]),
              xs=torch.empty((S.n_chunks * S.rows_per_chunk, n), dtype=DTYPE,
                             device=dev),
-             stats=torch.zeros(8, dtype=torch.int64, device=dev),
+             stats=torch.zeros(_N_STATS, dtype=torch.int64, device=dev),
              fin=torch.empty((3, n), dtype=DTYPE, device=dev))
     n_loc, n_jac = max(pk["n_loc"], 1), max(pk["n_jac"], 1)
     for k, size in (("floc", n_loc), ("qloc", n_loc), ("jloc", n_jac),
                     ("cloc", n_jac), ("ueval", n_loc), ("lims", n_loc),
                     ("limacc", n_loc), ("wv", max(pk["n_inst"], 1)),
-                    ("cdx", n_loc)):
+                    ("cdx", n_loc),
+                    ("gat", 2 * (len(pk["fq_idx"]) + len(pk["jc_idx"])))):
         t[k] = torch.empty(size, dtype=DTYPE, device=dev)
     cfg = _Config(
         t0=S.t0, tstop=S.tstop, h0=S.h0, hmax=S.hmax, hmin=S.hmin,
@@ -625,7 +685,10 @@ def _kernel_args(S: Setup):
         n_loc=pk["n_loc"], n_bp=len(S.bp), max_steps=S.max_steps,
         max_newton=int(spec.max_newton_iters), n_save=S.n_save,
         rows_per_chunk=S.rows_per_chunk, win_rows=S.win_rows,
-        n_chunks=S.n_chunks)
+        n_chunks=S.n_chunks, n_jac=pk["n_jac"],
+        n_slots=len(pk["slot_inst"]), n_fq=len(pk["fq_idx"]),
+        n_jc=len(pk["jc_idx"]),
+        locals_in_smem=int(smem_bytes(n) + locals_bytes(n, pk) <= SMEM_MAX))
     return cfg, t
 
 
@@ -647,7 +710,8 @@ def integrate(S: Setup) -> _Result:
     vmem_tran.launches += 1
     stats = t["stats"].tolist()       # the one host sync of the transient
     return _Result(xs=t["xs"][:S.n_save], stats=tuple(stats[:4]),
-                   final=t["fin"], host_syncs=1)
+                   final=t["fin"], host_syncs=1,
+                   phases=dict(zip(PHASES, stats[_PHASE0:])))
 
 
 def eval_group(model, u, u_prev, params, wv, dyn: DynSpec):
@@ -716,6 +780,9 @@ def _solution(S: Setup, r: _Result):
                        op_converged=S.op_converged, host_syncs=r.host_syncs,
                        op_iters=S.op_iters)
     sol.final = r.final
+    #: K2's clock64 cycles per phase of its Newton iterations (None for
+    #: the twin)
+    sol.phase_cycles = r.phases
     return sol
 
 

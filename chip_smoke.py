@@ -9,10 +9,14 @@ Phases, each of which raises (exit code != 0) on failure:
   2. builds kernels K1 (ops/csrc/gj_solve.cu) and K2 (ops/csrc/vmem_tran.cu)
      with nvcc for sm_90a, one nvcc each, started together;
   3. K1 against its plain PyTorch twin on the card, at the DFF's shape and
-     at a batch, an inverse, a larger system, a forced pivot and in f32,
-     with kernel and plain times from CUDA events; then K1's derivative
-     rules (jvp, vjp) against torch.func autodiff of the twin, at the
-     Newton, sensitivity and 4096-lane shapes;
+     at a batch, an inverse, a larger system, a forced pivot and in f32;
+     where the warp variant takes the shape, it against the block variant
+     (the same bits expected); kernel, block, plain and
+     torch.linalg.solve_ex times from CUDA events beside the bound from the
+     shape (bytes over 3.35 TB/s, or the operations of an LU solve over 67
+     TFLOP/s, FP64 or FP32);
+     then K1's derivative rules (jvp, vjp) against torch.func autodiff of
+     the twin, at the Newton, sensitivity and 4096-lane shapes;
   4. the host-loop path: parse_spice(dff_netlist(), device="cuda") then
      tran() over 0-600 ns, checked against the f64 golden
      tests/goldens/dff.npz, with K1's launch count proving that every
@@ -20,17 +24,21 @@ Phases, each of which raises (exit code != 0) on failure:
   5. K2's device functions (every model, limiter branches included, and
      every waveform kind) against the twin's group evaluation;
   6. K2 against its twin vmem_tran_plain on the card: rc, the DFF over
-     0-60 ns and graetz over 0-20 ms, on the same operating point;
+     0-60 ns, graetz over 0-20 ms and a 125-section RC ladder over 0-5 us
+     (n = 127: the block solve, and the locals in device memory), on the
+     same operating point, with K2's share of cycles per phase;
   7. the K2 path: vmem_tran() of the full DFF (0-600 ns), cold and warm,
      against the golden, one K2 launch per transient and K1 launches for
      the operating point; then once at the reference's 512-row chunks;
+     with K2's share of cycles per phase of a Newton iteration;
   8. vmem_tran() of the full VACASK graetz span (0-1 s at 1 us, 1,000,001
-     save rows) within bench.py's gates;
+     save rows) within bench.py's gates, with its phase shares;
   9. the sweep path: bench.py's 4096-way DFF Monte Carlo (montecarlo_table
-     over cq.c, mno1.w and mpo1.w, seed 42) through transweep() over
+     over cq.c, mno1.w and mpo1.w, seed 42), once, through transweep() over
      0-600 ns, unchunked, every Newton iteration of all lanes one K1
      launch; four lanes held against the same rows run on the host CPU,
-     a torch.profiler run of the operating point and the first 30 ns, and
+     a torch.profiler run of the operating point and the first 30 ns (which
+     must repeat the operating points bit for bit), and
      K1's jvp and vjp rules on every lane's Jacobian at its operating
      point, held to a bound scaled by cond(G);
  10. dcsweep() with its neighbour-seeded rescue on a crippled 5-diode
@@ -38,8 +46,9 @@ Phases, each of which raises (exit code != 0) on failure:
  11. derivatives through K1: dc_sensitivity() of the DFF operating point
      (mno1.w, cq.c, vvdd.dc) and torch.func.jacfwd through tran() of an
      RC, against the CPU;
- 12. a JSON line of the kernels, the card's name and power limit, and the
-     last line {"ok": true, "device": {...}}.
+ 12. the wall time of every phase and of the whole run, a JSON line of the
+     kernels, the card's name and power limit, and the last line
+     {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -59,7 +68,17 @@ TWIN_FLIP_TOL = 1e-4   # the same after a flipped step decision (reltol)
 TWIN_COUNT_TOL = 0.02  # K2 vs twin accepted / rejected / Newton counts
 GRAETZ_TOL = 2e-3      # bench.py's golden gate for graetz (scale 20 V)
 DERIV_TOL = 1e-12      # K1 jvp / vjp vs autodiff of the twin, relative
+VARIANT_TOL = 1e-14    # K1 warp vs block variant, relative (0 expected)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (on-chip guide)
+#: peak rates of the H100 SXM (NVIDIA data sheet): FP64 on the tensor
+#: cores, FP32 outside them
+PEAK_FLOPS = {8: 67e12, 4: 67e12}
 JAC_DERIV_FACTOR = 4   # the same on DFF Jacobians: / (n cond(G) eps)
+#: the DFF's step counts (accepted, rejected, Newton) and DC Newton
+#: iterations through tran(), as the JAX package takes them; and through
+#: K2 (one 2048-row chunk), as every earlier K2 took them
+DFF_TRAN_COUNTS, DFF_DC_ITERS = (995, 143, 2062), 111
+DFF_K2_COUNTS = (995, 143, 2060)
 MC_SPREADS = {"cq.c": 0.1, "mno1.w": 0.1, "mpo1.w": 0.1}   # bench.py:381
 MC_LANES = 4096
 MC_CHECK = [0, 1, 2047, 4095]   # lanes rerun on the host CPU
@@ -101,6 +120,31 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_time_ms(fn, reps):
+    """Mean device time of fn() over reps calls captured in one CUDA graph:
+    the launches run back to back, without the host's time between them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def golden_rmse(sol, name, node_a, node_b=None, scale=1.0):
     """Relative RMSE of a waveform against tests/goldens/<name>.npz at the
     golden's save instants (bench.py's golden_rmse)."""
@@ -113,10 +157,31 @@ def golden_rmse(sol, name, node_a, node_b=None, scale=1.0):
     return float(np.sqrt(np.mean((vi - gv) ** 2))) / scale
 
 
+def roofline(bytes_, flops, itemsize):
+    """The least time of a kernel: the larger of its bytes over the memory
+    rate and its operations over the peak rate of their type."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[itemsize]
+    return dict(bytes=bytes_, flops=flops, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def solve_flops(n, k):
+    """Operations that solving A X = B needs, A [n, n] and B [n, k]: an LU
+    factorisation (2n^3/3) and two triangular solves per column (2n^2 k).
+    The Gauss-Jordan elimination does about three times as many; the
+    bound does not charge them."""
+    return 2 * n ** 3 // 3 + 2 * n * n * k
+
+
 def kernel_cases(card):
-    """Phase 3: K1 against gj_solve_plain on the card."""
+    """Phase 3: K1 against gj_solve_plain on the card; the warp variant
+    against the block variant where it takes the shape; times beside the
+    bound and torch.linalg.solve_ex (timed only: the port never calls
+    it)."""
     import torch
-    from cadnip_tpu_torch.ops.gj_solve import gj_solve, gj_solve_plain
+    from cadnip_tpu_torch.ops.gj_solve import (gj_solve, gj_solve_plain,
+                                               launch, variant)
 
     rng = np.random.default_rng(0)
     cases = [("f64 n=19 k=1 b=1", 19, 1, 1, torch.float64, False),
@@ -145,14 +210,15 @@ def kernel_cases(card):
         if X.shape != (b, n, k) or not bool(torch.isfinite(X).all()):
             raise RuntimeError(f"K1 {name}: bad output {tuple(X.shape)}")
         err = float((X - Xp).abs().max())
-        # nvcc contracts a - f*b into an FMA and the plain twin does not:
+        # the kernel rounds a - f*b as one FMA and the plain twin does not:
         # the two agree to rounding, scaled by the solution's size
         tol = (1e-10 if dtype == torch.float64 else 1e-4) \
             * max(1.0, float(Xp.abs().max()))
         if not err <= tol:
             raise RuntimeError(f"K1 {name}: max |kernel - plain| {err:.3e} "
                                f"> {tol:.1e}")
-        line = f"K1 {name}: max_abs_err {err:.3e} (tol {tol:.1e})"
+        which = variant(n, k)
+        line = f"K1 {name} ({which}): max_abs_err {err:.3e} (tol {tol:.1e})"
         if dtype == torch.float64:
             x64 = X.cpu().numpy()
             res = np.abs(A @ x64 - Bm).max(axis=(1, 2))
@@ -164,11 +230,36 @@ def kernel_cases(card):
                                    f"{RESID_TOL:.0e}")
             line += f", residual {rel:.3e}"
         reps = 20 if b * n > 10000 else 200
+        block_ms = None
+        if which == "warp":
+            Xb = launch(At, Bt, "block")
+            vdiff = rel_err(X, Xb)
+            line += f", warp vs block {vdiff:.3e}"
+            if not vdiff <= VARIANT_TOL:
+                raise RuntimeError(f"K1 {name}: warp vs block {vdiff:.3e} "
+                                   f"> {VARIANT_TOL:.0e}")
+            block_ms = cuda_time_ms(lambda: launch(At, Bt, "block"), reps)
         ms = cuda_time_ms(lambda: gj_solve(At, Bt), reps)
+        # one system: a loop of launches times the host's launch rate; a
+        # graph replay times the device
+        graph_ms = graph_time_ms(lambda: gj_solve(At, Bt), reps) \
+            if b == 1 else None
         plain_ms = cuda_time_ms(lambda: gj_solve_plain(At, Bt), reps)
-        print(f"{line}; kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f}"
-              f" us [{card}]", flush=True)
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        library_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(At, Bt),
+                                  reps)
+        bound = roofline(At.element_size() * b * (n * n + 2 * n * k),
+                         b * solve_flops(n, k), At.element_size())
+        blk = "" if block_ms is None else f", block {block_ms * 1e3:.1f} us"
+        if graph_ms is not None:
+            blk += f", graph replay {graph_ms * 1e3:.1f} us"
+        print(f"{line}; kernel {ms * 1e3:.1f} us{blk}, plain "
+              f"{plain_ms * 1e3:.1f} us, torch.linalg.solve_ex "
+              f"{library_ms * 1e3:.1f} us; {bound['bytes']} bytes, "
+              f"{bound['flops']} FLOP, bound {bound['bound_ms'] * 1e3:.2f} "
+              f"us ({bound['bound_by']}) [{card}]", flush=True)
+        results[name] = dict(max_abs_err=err, ms=ms, block_ms=block_ms,
+                             graph_ms=graph_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, **bound)
     return results
 
 
@@ -307,6 +398,11 @@ def run_dff(card):
         if not rmse <= RMSE_TOL:
             raise RuntimeError(f"DFF {label}: q relative RMSE {rmse:.3e} > "
                                f"{RMSE_TOL:.0e}")
+        counts = (int(st.naccept), int(st.nreject), nnewton)
+        if counts != DFF_TRAN_COUNTS or op_iters != DFF_DC_ITERS:
+            raise RuntimeError(f"DFF {label}: counts {counts} and DC "
+                               f"{op_iters}, want {DFF_TRAN_COUNTS} and "
+                               f"{DFF_DC_ITERS}")
         if launches < op_iters + nnewton:
             raise RuntimeError(f"DFF {label}: {launches} K1 launches < "
                                f"{op_iters} DC + {nnewton} transient Newton "
@@ -418,21 +514,75 @@ def device_eval(card):
     return max(worst, err)
 
 
+def k2_bound(S, nnewton):
+    """The least time of one K2 transient: its inputs read once and its
+    save grid written once, or the operations of one LU solve per Newton
+    iteration this run took (the device functions and the step control
+    not counted), whichever is larger."""
+    from cadnip_tpu_torch.ops import vmem_tran as vt
+
+    _, t = vt._kernel_args(S)
+    ins = ("gdesc", "conn", "par", "wkind", "wcoef", "bp", "x0", "q0",
+           "qdot0", "atol", "diff", "vmask", "fq_ptr", "fq_idx", "jc_ptr",
+           "jc_idx")
+    n = S.cc.n
+    bytes_ = sum(t[k].numel() * t[k].element_size() for k in ins) \
+        + 8 * (S.n_save * n + 3 * n)
+    return roofline(bytes_, nnewton * solve_flops(n, 1), 8)
+
+
+def phase_shares(cyc, nnewton):
+    """K2's clock64 cycles per phase of a Newton iteration, as shares."""
+    total = sum(cyc.values())
+    per_it = total / max(int(nnewton), 1)
+    return (f"{per_it:.0f} cycles per Newton iteration: " + ", ".join(
+        f"{k} {v / total * 100:.1f} %" for k, v in cyc.items()))
+
+
+def rc_ladder(sections):
+    """A netlist of an RC ladder driven by a pulse: n = sections + 2."""
+    lines = [f"rc ladder of {sections} sections",
+             "vs n0 0 dc 0 pulse 0 1 1u 0.1u 0.1u 5u 12u"]
+    for i in range(sections):
+        lines += [f"r{i} n{i} n{i + 1} 100", f"c{i} n{i + 1} 0 1n"]
+    return "\n".join(lines + [".end", ""])
+
+
+def k2_layout(vt, S):
+    """Which side of K2's two size selections a set-up takes: the Newton
+    solve in one warp (n <= WARP_SOLVE_MAX) or the block, and the
+    per-instance locals in shared or device memory."""
+    n = S.cc.n
+    in_smem = vt.smem_bytes(n) + vt.locals_bytes(n, vt.pack(S)) <= vt.SMEM_MAX
+    return ("warp" if n <= vt.WARP_SOLVE_MAX else "block",
+            "shared" if in_smem else "device")
+
+
 def k2_vs_twin(card):
-    """Phase 6: one K2 launch against the twin on the same set-up."""
+    """Phase 6: one K2 launch against the twin on the same set-up. The
+    ladder is the largest circuit K2 takes (n = 127): it runs the block
+    solve with its locals in device memory, the other cases the warp
+    solve with them in shared memory."""
     import torch
     import cadnip_tpu_torch as ct
     from cadnip_tpu_torch.models.vacask import GRAETZ, RC_NETLIST
     from cadnip_tpu_torch.ops import vmem_tran as vt
 
-    cases = [("rc", RC_NETLIST, (0, 8e-3), 8e-6, ("2", None), 1.0),
+    cases = [("rc", RC_NETLIST, (0, 8e-3), 8e-6, ("2", None), 1.0,
+              ("warp", "shared")),
              ("dff", ct.dff_netlist(), (0, 6e-8), 3.333e-10, ("q", None),
-              5.0),
-             ("graetz", GRAETZ, (0, 2e-2), 1e-4, ("outp", "outn"), 20.0)]
+              5.0, ("warp", "shared")),
+             ("graetz", GRAETZ, (0, 2e-2), 1e-4, ("outp", "outn"), 20.0,
+              ("warp", "shared")),
+             ("ladder", rc_ladder(125), (0, 5e-6), 2e-7, ("n125", None), 1.0,
+              ("block", "device"))]
     out = {}
-    for name, net, span, dt, (na, nb), scale in cases:
+    for name, net, span, dt, (na, nb), scale, layout in cases:
         cc = ct.parse_spice(net, device="cuda")
         S = vt.prepare(cc, span, dt=dt)
+        if k2_layout(vt, S) != layout:
+            raise RuntimeError(f"K2 vs twin {name} (n = {cc.n}): takes "
+                               f"{k2_layout(vt, S)}, want {layout}")
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -451,14 +601,20 @@ def k2_vs_twin(card):
 
         rmse = float((wave(rk) - wave(rp)).pow(2).mean().sqrt()) / scale
         err = float((rk.xs - rp.xs).abs().max())
+        bound = k2_bound(S, rk.stats[2])
         # within 2 %, and at least one count apart (2 % of the 5 rejects of
         # rc is a tenth of a step)
         counts_ok = all(abs(a - b) <= max(1.0, TWIN_COUNT_TOL * b)
                         for a, b in zip(rk.stats[:3], rp.stats[:3]))
-        print(f"K2 vs twin {name} {span[1]:g} s: kernel {ms:.3f} ms, twin "
-              f"{plain_ms:.1f} ms; kernel / twin accepted, rejected, newton "
-              f"{rk.stats[:3]} / {rp.stats[:3]}; waveform RMSE/scale "
-              f"{rmse:.2e}, max |dx| {err:.2e} [{card}]", flush=True)
+        print(f"K2 vs twin {name} {span[1]:g} s (n = {cc.n}, {layout[0]} "
+              f"solve, locals in {layout[1]} memory): kernel {ms:.3f} ms, "
+              f"twin {plain_ms:.1f} ms; kernel / twin accepted, rejected, "
+              f"newton {rk.stats[:3]} / {rp.stats[:3]}; waveform RMSE/scale "
+              f"{rmse:.2e}, max |dx| {err:.2e}; bound "
+              f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) "
+              f"[{card}]", flush=True)
+        print(f"   K2 phases: {phase_shares(rk.phases, rk.stats[2])}",
+              flush=True)
         if rk.stats[3] or rp.stats[3]:
             raise RuntimeError(f"K2 vs twin {name}: the integrator failed")
         # the bar holds while both take the same steps. Last-bit
@@ -475,7 +631,7 @@ def k2_vs_twin(card):
         if not counts_ok:
             raise RuntimeError(f"K2 vs twin {name}: counts {rk.stats[:3]} vs"
                                f" {rp.stats[:3]} differ by more than 2 %")
-        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **bound)
     return out
 
 
@@ -516,6 +672,10 @@ def k2_dff(card):
         if not rmse <= tol:
             raise RuntimeError(f"DFF K2 {label}: q relative RMSE {rmse:.3e}"
                                f" > {tol:.0e}")
+        counts = (int(st.naccept), int(st.nreject), nnewton)
+        if rc == 2048 and counts != DFF_K2_COUNTS:
+            raise RuntimeError(f"DFF K2 {label}: counts {counts}, want "
+                               f"{DFF_K2_COUNTS}")
         if k2 != 1 or k1 < op_iters or op_iters == 0:
             raise RuntimeError(f"DFF K2 {label}: {k2} K2 launches (want 1), "
                                f"{k1} K1 launches for {op_iters} DC Newton "
@@ -529,6 +689,8 @@ def k2_dff(card):
               f" it/s, {(nnewton + op_iters) / wall:.1f} Newton it/s overall,"
               f" K2 launches {k2}, K1 launches {k1}, q rel RMSE {rmse:.3e} "
               f"[{card}]", flush=True)
+        print(f"   K2 phases: {phase_shares(sol.phase_cycles, nnewton)}",
+              flush=True)
         out[label] = dict(k1=k1, k2=k2, wall=wall)
     return out
 
@@ -558,6 +720,8 @@ def k2_graetz(card):
           f"{ct.vmem_tran.launches}, v(outp,outn) after 0.06 s in "
           f"[{v[late].min():.4f}, {v[late].max():.4f}] V, golden rel RMSE "
           f"{rmse:.3e} [{card}]", flush=True)
+    print(f"   K2 phases: {phase_shares(sol.phase_cycles, st.nnewton)}",
+          flush=True)
     if not bool(sol.converged) or not np.isfinite(v).all():
         raise RuntimeError("graetz K2: transient failed")
     if not (ripple_ok and rmse <= GRAETZ_TOL):
@@ -569,70 +733,62 @@ def k2_graetz(card):
 
 def dff_montecarlo(card, serial_wall):
     """Phase 9: bench.py's 4096-way DFF Monte Carlo through transweep(),
-    cold and warm, each on a fresh circuit; the cold run's check lanes
-    are held against the host CPU."""
+    on a fresh circuit; its check lanes are held against the host CPU."""
     import torch
     import cadnip_tpu_torch as ct
     from cadnip_tpu_torch.ops.gj_solve import gj_solve
 
-    runs = {}
-    for label in ("cold", "warm"):
-        cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
-        tab = ct.montecarlo_table(cc, MC_SPREADS, MC_LANES, seed=42)
-        torch.cuda.synchronize()
-        gj_solve.launches = 0
-        t = time.perf_counter()
-        sol = ct.transweep(cc, tab, (0, 6e-7), **MC_KW)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = gj_solve.launches
-        runs[label] = (sol, wall, launches, cc)
-        st = sol.stats
-        op_iters, nnewton = sol.op_iters.cpu(), st.nnewton.cpu()
-        tran_passes = sol.host_syncs - 1   # the last pass only reads the mask
-        op_passes = launches - tran_passes  # one K1 launch per Newton pass
-        q = sol["q"].cpu().numpy()
-        ts = np.asarray(sol.ts)
-        latch = ((q[:, np.argmin(np.abs(ts - 350e-9))] < 1.0)
-                 & (q[:, np.argmin(np.abs(ts - 550e-9))] > 4.0))
-        newton_sum = int(op_iters.sum()) + int(nnewton.sum())
-        tm = sol.timings
-        print(f"DFF Monte Carlo {MC_LANES} lanes {label}, transweep() 0-600 "
-              f"ns: wall {wall:.3f} s (operating point {tm['op']:.3f} s, "
-              f"transient {tm['transient']:.3f} s), "
-              f"{wall / MC_LANES * 1e3:.3f} ms per circuit (serial DFF "
-              f"tran() {serial_wall:.3f} s); K1 launches {launches} "
-              f"(operating point {op_passes}, transient {tran_passes}); "
-              f"transient host syncs {sol.host_syncs}; Newton iterations "
-              f"over lanes {newton_sum} (DC {int(op_iters.sum())}), "
-              f"{newton_sum / wall:.0f} per s; per lane DC "
-              f"{int(op_iters.min())}-{int(op_iters.max())}, transient "
-              f"{int(nnewton.min())}-{int(nnewton.max())}, accepted "
-              f"{int(st.naccept.min())}-{int(st.naccept.max())}, rejected "
-              f"{int(st.nreject.min())}-{int(st.nreject.max())}; latched "
-              f"{latch.mean():.4f}; peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]",
-              flush=True)
-        if sol.xs.shape != (MC_LANES, MC_KW["n_save"], cc.n) or \
-                not bool(torch.isfinite(sol.xs).all()):
-            raise RuntimeError(f"DFF Monte Carlo: bad xs "
-                               f"{tuple(sol.xs.shape)}")
-        if not bool(sol.op_converged.all()) or bool(st.fail.any()):
-            raise RuntimeError(
-                f"DFF Monte Carlo: {int((~sol.op_converged).sum())} "
-                f"operating points failed, {int(st.fail.sum())} transients "
-                f"failed")
-        if launches < int(op_iters.max()) + tran_passes:
-            raise RuntimeError(f"DFF Monte Carlo: {launches} K1 launches < "
-                               f"{int(op_iters.max())} DC + {tran_passes} "
-                               f"transient passes")
-    sol, wall, launches, cold_cc = runs["cold"]
-    st, ts = sol.stats, np.asarray(sol.ts)
-    print(f"DFF Monte Carlo warm vs cold: max |dx| "
-          f"{float((runs['warm'][0].xs - sol.xs).abs().max()):.3e}",
+    # one run: a second ("warm") one repeated it bit for bit in every run
+    # of PR 3, and the script's time goes to the other phases
+    cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
+    tab = ct.montecarlo_table(cc, MC_SPREADS, MC_LANES, seed=42)
+    torch.cuda.synchronize()
+    gj_solve.launches = 0
+    t = time.perf_counter()
+    sol = ct.transweep(cc, tab, (0, 6e-7), **MC_KW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = gj_solve.launches
+    st = sol.stats
+    op_iters, nnewton = sol.op_iters.cpu(), st.nnewton.cpu()
+    tran_passes = sol.host_syncs - 1   # the last pass only reads the mask
+    op_passes = launches - tran_passes  # one K1 launch per Newton pass
+    q = sol["q"].cpu().numpy()
+    ts = np.asarray(sol.ts)
+    latch = ((q[:, np.argmin(np.abs(ts - 350e-9))] < 1.0)
+             & (q[:, np.argmin(np.abs(ts - 550e-9))] > 4.0))
+    newton_sum = int(op_iters.sum()) + int(nnewton.sum())
+    tm = sol.timings
+    print(f"DFF Monte Carlo {MC_LANES} lanes, transweep() 0-600 ns: "
+          f"wall {wall:.3f} s (operating point {tm['op']:.3f} s, "
+          f"transient {tm['transient']:.3f} s), "
+          f"{wall / MC_LANES * 1e3:.3f} ms per circuit (serial DFF "
+          f"tran() {serial_wall:.3f} s); K1 launches {launches} "
+          f"(operating point {op_passes}, transient {tran_passes}); "
+          f"transient host syncs {sol.host_syncs}; Newton iterations "
+          f"over lanes {newton_sum} (DC {int(op_iters.sum())}), "
+          f"{newton_sum / wall:.0f} per s; per lane DC "
+          f"{int(op_iters.min())}-{int(op_iters.max())}, transient "
+          f"{int(nnewton.min())}-{int(nnewton.max())}, accepted "
+          f"{int(st.naccept.min())}-{int(st.naccept.max())}, rejected "
+          f"{int(st.nreject.min())}-{int(st.nreject.max())}; latched "
+          f"{latch.mean():.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB [{card}]",
           flush=True)
+    if sol.xs.shape != (MC_LANES, MC_KW["n_save"], cc.n) or \
+            not bool(torch.isfinite(sol.xs).all()):
+        raise RuntimeError(f"DFF Monte Carlo: bad xs {tuple(sol.xs.shape)}")
+    if not bool(sol.op_converged.all()) or bool(st.fail.any()):
+        raise RuntimeError(
+            f"DFF Monte Carlo: {int((~sol.op_converged).sum())} "
+            f"operating points failed, {int(st.fail.sum())} transients "
+            f"failed")
+    if launches < int(op_iters.max()) + tran_passes:
+        raise RuntimeError(f"DFF Monte Carlo: {launches} K1 launches < "
+                           f"{int(op_iters.max())} DC + {tran_passes} "
+                           f"transient passes")
     # the check lanes again on the host CPU, as one B = 4 transweep
-    cpu = ct.parse_spice(ct.dff_netlist())
+    cpu = ct.parse_spice(ct.dff_netlist(), device="cpu")
     t = time.perf_counter()
     ref = ct.transweep(cpu, {k: v[MC_CHECK] for k, v in tab.items()},
                        (0, 6e-7), **MC_KW)
@@ -661,12 +817,15 @@ def dff_montecarlo(card, serial_wall):
                                f"{TWIN_FLIP_TOL:.0e}")
     print(f"DFF Monte Carlo check lanes {MC_CHECK} on the host CPU: "
           f"{cpu_wall:.3f} s", flush=True)
-    return dict(wall=wall, launches=launches, tab=tab, sol=sol, cc=cold_cc)
+    return dict(wall=wall, launches=launches, tab=tab, sol=sol, cc=cc)
 
 
-def profile_montecarlo(card, tab):
+def profile_montecarlo(card, tab, full):
     """Phase 9b: torch.profiler over the 4096-lane operating point and the
-    first 30 ns (the full run's maximum step, 12 ns, kept)."""
+    first 30 ns (the full run's maximum step, 12 ns, kept). The run
+    repeats phase 9's: its operating point (the t = 0 row) bit for bit,
+    its rows at 10 and 20 ns within MC_TOL (its shorter span rounds the
+    steps before them differently: about 1e-32 V apart on the CPU)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -694,6 +853,15 @@ def profile_montecarlo(card, tab):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"   {e.key[:60]:60s} count {e.count:7d} device "
               f"{e.self_device_time_total / 1e3:10.3f} ms", flush=True)
+    op_equal = torch.equal(sol.xs[:, 0], full.xs[:, 0])
+    err = float((sol.xs[:, 1:3] - full.xs[:, 1:3]).abs().max()) / 5.0
+    print(f"profiled run against phase 9's: operating points of {MC_LANES} "
+          f"lanes bit for bit {op_equal}; rows at 10 and 20 ns max |dx| / "
+          f"5 V {err:.3e}", flush=True)
+    if not (op_equal and err <= MC_TOL):
+        raise RuntimeError(f"DFF Monte Carlo repeat: operating points equal "
+                           f"{op_equal}, rows at 10 and 20 ns {err:.3e} > "
+                           f"{MC_TOL:.0e}")
 
 
 def dc_sweep_rescue(card):
@@ -792,6 +960,7 @@ def derivatives(card):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda is not available")
@@ -812,32 +981,48 @@ def main():
     load_k2()
     print(f"K1 + K2 build+load (parallel nvcc) "
           f"{time.perf_counter() - t:.2f} s", flush=True)
-    cases = kernel_cases(card)
-    k1_derivative_cases(card)
-    dff = run_dff(card)
-    device_eval(card)
-    twin = k2_vs_twin(card)
-    k2 = k2_dff(card)
-    k2_graetz(card)
-    mc = dff_montecarlo(card, dff["cold"]["wall"])
-    profile_montecarlo(card, mc["tab"])
-    k1_dff_jacobian_cases(card, mc["cc"], mc["sol"], mc["tab"])
-    dc_sweep_rescue(card)
-    derivatives(card)
-    main_case = cases["f64 n=19 k=1 b=4096"]
-    kernels = [{"name": "K1 gj_solve (jvp, vjp)", "route": "cuda",
+    walls = {"build": time.perf_counter() - t}
+
+    def phase(label, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        walls[label] = time.perf_counter() - t
+        return res
+
+    cases = phase("3 K1", kernel_cases, card)
+    phase("3b K1 rules", k1_derivative_cases, card)
+    dff = phase("4 DFF tran", run_dff, card)
+    phase("5 K2 device eval", device_eval, card)
+    twin = phase("6 K2 vs twin", k2_vs_twin, card)
+    k2 = phase("7 DFF vmem_tran", k2_dff, card)
+    phase("8 graetz", k2_graetz, card)
+    mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"])
+    phase("9b profile", profile_montecarlo, card, mc["tab"], mc["sol"])
+    phase("9c K1 rules on Jacobians", k1_dff_jacobian_cases, card, mc["cc"],
+          mc["sol"], mc["tab"])
+    phase("10 dcsweep", dc_sweep_rescue, card)
+    phase("11 derivatives", derivatives, card)
+    print("wall per phase (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    k1, k2d = cases["f64 n=19 k=1 b=4096"], twin["dff"]
+    kernels = [{"name": "K1 gj_solve (warp and block variants; jvp, vjp)",
+                "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/gj_solve.cu",
                 "replaces": "cadnip_tpu/ops/pallas_solve.py:35",
                 "launches": mc["launches"],
-                "max_abs_err": main_case["max_abs_err"],
-                "ms": main_case["ms"], "plain_ms": main_case["plain_ms"]},
+                "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+                "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+                "bound_us": k1["bound_ms"] * 1e3,
+                "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
                {"name": "K2 vmem_tran", "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/vmem_tran.cu",
                 "replaces": "archive/pallas_tran.py:372",
                 "launches": k2["cold"]["k2"],
-                "max_abs_err": twin["dff"]["max_abs_err"],
-                "ms": twin["dff"]["ms"],
-                "plain_ms": twin["dff"]["plain_ms"]}]
+                "max_abs_err": k2d["max_abs_err"], "ms": k2d["ms"],
+                "plain_ms": k2d["plain_ms"], "bound_ms": k2d["bound_ms"],
+                "bound_us": k2d["bound_ms"] * 1e3,
+                "bound_by": k2d["bound_by"], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ NSTATES = 8
 @pytest.fixture(scope="module")
 def dff():
     jcc = jct.parse_spice(dff_netlist())
-    tcc = tct.parse_spice(dff_netlist())
+    tcc = tct.parse_spice(dff_netlist(), device="cpu")
     pnp = [jax.tree.map(np.asarray, d) for d in jcc.params0()]
     x_op = np.array(jct.op_tran(jcc).x)
     return jcc, tcc, pnp, x_op
@@ -59,10 +59,10 @@ def test_dff_assembly_matches_jax(dff):
     jp = jax.tree.map(jnp.asarray, pnp)
     jrun = jax.jit(lambda x, l, t: jasm(jax_pad(x), l, jp, jax_dynspec(
         time=t, mode=MODE_TRAN)))
-    tp = params_from_numpy(pnp)
+    tp = params_from_numpy(pnp, device="cpu")
     # all states at once as lanes of one batched assembly
     got = tasm(pad_state(torch.as_tensor(xs)), torch.as_tensor(lims), tp,
-               make_dynspec(mode=MODE_TRAN)._replace(
+               make_dynspec(mode=MODE_TRAN, device="cpu")._replace(
                    time=torch.as_tensor(times)))
     for k in range(NSTATES):
         ref = jrun(jnp.asarray(xs[k]), jnp.asarray(lims[k]), times[k])
@@ -76,8 +76,9 @@ def test_dff_rhs_and_init_lim_match_jax(dff):
                                                          x_op.size))
     jrhs, trhs = jax_rhs(jcc), make_rhs_assembler(tcc)
     jp = jax.tree.map(jnp.asarray, pnp)
-    F, Q = trhs(pad_state(torch.as_tensor(xs)), params_from_numpy(pnp),
-                make_dynspec(mode=MODE_TRAN, time=1e-7))
+    F, Q = trhs(pad_state(torch.as_tensor(xs)),
+                params_from_numpy(pnp, device="cpu"),
+                make_dynspec(mode=MODE_TRAN, time=1e-7, device="cpu"))
     lim = make_assembler(tcc).init_lim(pad_state(torch.as_tensor(xs)))
     jinit = jax_assembler(jcc).init_lim
     for k in range(NSTATES):
@@ -95,7 +96,7 @@ def test_gshunt_lands_on_node_diagonals(dff):
     xp = pad_state(torch.as_tensor(x_op)[None])
     lim = asm.init_lim(xp)
     p = tcc.params0()
-    d0 = make_dynspec(mode=MODE_TRAN)
+    d0 = make_dynspec(mode=MODE_TRAN, device="cpu")
     F0, _, G0, _, _ = asm(xp, lim, p, d0)
     F1, _, G1, _, _ = asm(xp, lim, p, d0._replace(
         gshunt=torch.tensor(1e-3, dtype=torch.float64)))

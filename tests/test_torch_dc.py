@@ -91,9 +91,11 @@ def test_dc_matches_jax(case):
     tcir, _ = CASES[case](tct)
     spec = jct.SimSpec(gmin=0.0) if case == "mosfet" else None
     jcc = jcir.compile(spec)
-    tcc = tcir.compile(tct.SimSpec(gmin=0.0) if case == "mosfet" else None)
+    tcc = tcir.compile(tct.SimSpec(gmin=0.0) if case == "mosfet" else None,
+                       device="cpu")
     jsol = jct.dc(jcc)
-    tsol = tct.dc(tcc, params_from_numpy(jax_params_np(jcc.params0())))
+    tsol = tct.dc(tcc, params_from_numpy(jax_params_np(jcc.params0()),
+                                         device="cpu"))
     assert bool(jsol.converged) and bool(tsol.converged)
     assert int(tsol.iters) == int(jsol.iters)
     np.testing.assert_allclose(tsol.x.numpy(), np.asarray(jsol.x),
@@ -105,7 +107,7 @@ def test_dc_matches_jax(case):
 
 def test_alter_and_unknown_param():
     cir, _ = _divider(tct)
-    cc = cir.compile()
+    cc = cir.compile(device="cpu")
     sol = tct.dc(cc, cc.alter(cc.params0(), **{"r2.r": 3e3}))
     assert float(sol["out"]) == pytest.approx(3.75, rel=1e-9)
     with pytest.raises(KeyError):
@@ -114,7 +116,7 @@ def test_alter_and_unknown_param():
 
 def test_currents_on_sources_and_nodeset():
     cir, _ = _divider(tct)
-    sol = tct.dc(cir.compile(), nodeset={"out": 2.0})
+    sol = tct.dc(cir.compile(device="cpu"), nodeset={"out": 2.0})
     iv = sol.currents("v1")
     assert iv["p"] == pytest.approx(-2.5e-3, rel=1e-6)
     assert iv["n"] == pytest.approx(+2.5e-3, rel=1e-6)

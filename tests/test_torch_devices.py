@@ -104,8 +104,8 @@ def test_residual_and_jacobians_match_jax(kind):
     (jfv, jqv), (jJ, jC) = jax.vmap(jf)(
         jnp.asarray(u), jax.tree.map(jnp.asarray, p), jnp.asarray(times))
 
-    tp = params_from_numpy([p])[0]
-    dyn0 = make_dynspec(mode=MODE_TRAN)
+    tp = params_from_numpy([p], device="cpu")[0]
+    dyn0 = make_dynspec(mode=MODE_TRAN, device="cpu")
     tdyn = dyn0._replace(time=torch.as_tensor(times),
                          **{k: getattr(dyn0, k).expand(NPTS)
                             for k in ("temp", "gmin", "gshunt", "srcfact",
@@ -129,10 +129,10 @@ def test_limiters_match_jax_exactly(kind):
     jd = jax_dynspec(mode=MODE_TRAN)
     ref = jax.vmap(lambda a, b, pp: jmodel.limit(a, b, pp, jd))(
         jnp.asarray(u), jnp.asarray(u_prev), jax.tree.map(jnp.asarray, p))
-    td = make_dynspec(mode=MODE_TRAN)
+    td = make_dynspec(mode=MODE_TRAN, device="cpu")
     got = vmap(lambda a, b, pp: tmodel.limit(a, b, pp, td))(
         torch.as_tensor(u), torch.as_tensor(u_prev),
-        params_from_numpy([p])[0])
+        params_from_numpy([p], device="cpu")[0])
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
@@ -174,7 +174,7 @@ def test_eval_wave_matches_jax(name):
         packed["kind"][0], packed["coeffs"][0], packed["ncoef"][0], t))(
         jnp.asarray(ts))
     tp = twf.pack_waveforms([twf.Waveform(wave.kind, wave.coeffs,
-                                          wave.dc)])
+                                          wave.dc)], device="cpu")
     got = twf.eval_wave(tp["kind"][0], tp["coeffs"][0], tp["ncoef"][0],
                         torch.as_tensor(ts))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-14,
@@ -203,12 +203,13 @@ def test_diode_rs_operating_point_matches_jax(time):
     from cadnip_tpu_torch.mna.spec import MODE_TRANOP
 
     jcc = jct.parse_spice(GRAETZ)
-    tcc = ct.parse_spice(GRAETZ)
+    tcc = ct.parse_spice(GRAETZ, device="cpu")
     assert [g.model.name for g in tcc.groups].count("diode_rs") == 1
     assert tcc.names == jcc.names
     jsol = jct.dc(jcc, mode=MODE_TRANOP, time=time)
     tsol = ct.dc(tcc, params_from_numpy([jax.tree.map(np.array, d)
-                                         for d in jcc.params0()]),
+                                         for d in jcc.params0()],
+                                        device="cpu"),
                  mode=MODE_TRANOP, time=time)
     assert bool(jsol.converged) and bool(tsol.converged)
     assert int(tsol.iters) == int(jsol.iters)

@@ -127,7 +127,7 @@ def assert_same_circuit(tcc, jcc):
 
 
 def test_dff_compiles_identically():
-    tcc = tct.parse_spice(tct.dff_netlist())
+    tcc = tct.parse_spice(tct.dff_netlist(), device="cpu")
     jcc = jax_parse(jax_dff())
     assert tct.dff_netlist() == jax_dff()
     assert_same_circuit(tcc, jcc)
@@ -139,10 +139,10 @@ def test_dff_compiles_identically():
 @pytest.mark.parametrize("deck", list(DECKS))
 def test_deck_compiles_identically_and_solves(deck):
     text, node = DECKS[deck]
-    tcc, jcc = parse_spice(text), jax_parse(text)
+    tcc, jcc = parse_spice(text, device="cpu"), jax_parse(text)
     assert_same_circuit(tcc, jcc)
     # the same operating point from the same parameters
-    params = params_from_numpy(_jax_params_np(jcc))
+    params = params_from_numpy(_jax_params_np(jcc), device="cpu")
     tsol, jsol = tct.dc(tcc, params), jct.dc(jcc)
     assert bool(tsol.converged) and bool(jsol.converged)
     np.testing.assert_allclose(float(tsol[node]), float(jsol[node]),
@@ -168,7 +168,7 @@ def test_number_magnitudes():
 def test_not_ported_features_raise(line, what):
     deck = f"deferred\nv1 b 0 1\nr1 a 0 1k\n.model qn npn\n{line}\n"
     with pytest.raises(NotImplementedError, match=what):
-        parse_spice(deck)
+        parse_spice(deck, device="cpu")
 
 
 def test_unknown_bin_still_errors():
@@ -178,4 +178,26 @@ m1 d d 0 0 nch w=2u l=50u
 .model nch.1 nmos lmin=0.1u lmax=1u vto=0.4
 """
     with pytest.raises(ValueError, match="no bin"):
-        parse_spice(deck)
+        parse_spice(deck, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["parse_spice", "montecarlo_elaborate",
+                                   "compile", "params_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """Without `device` the entry points build on the card; where there is
+    none they raise instead of quietly building a CPU circuit. Whether a
+    card is present is decided here, at run time."""
+    from cadnip_tpu_torch.frontend.elaborate import montecarlo_elaborate
+    deck = "divider\nv1 in 0 5\nr1 in out 1k\nr2 out 0 1k\n"
+    calls = {
+        "parse_spice": lambda: parse_spice(deck).device,
+        "montecarlo_elaborate": lambda: montecarlo_elaborate(
+            deck, 2, seed=1)[0].device,
+        "compile": lambda: parse_spice(deck, compile=False).compile().device,
+        "params_from_numpy": lambda: params_from_numpy(
+            [{"r": np.ones(2)}])[0]["r"].device}
+    if torch.cuda.is_available():
+        assert calls[entry]().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            calls[entry]()

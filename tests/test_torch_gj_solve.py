@@ -2,7 +2,8 @@
 JAX package's Pallas Gauss-Jordan kernel (interpret mode) in f32 and its
 full-f64 `gauss_solve`, the wrapper's argument checks, and the derivative
 rules of `GJSolve` (jvp, vjp, vmap) against autodiff of the twin and of
-`jnp.linalg.solve`. The CUDA kernel itself runs only on the card (the `gpu`
+`jnp.linalg.solve`, and the choice between the kernel's warp and block
+variants. The CUDA kernel itself runs only on the card (the `gpu`
 marker)."""
 import jax
 import numpy as np
@@ -13,7 +14,8 @@ from torch.func import jacfwd, jvp, vjp
 
 from cadnip_tpu.ops.linalg import gauss_solve
 from cadnip_tpu.ops.pallas_solve import gj_solve_f32
-from cadnip_tpu_torch.ops.gj_solve import GJSolve, gj_solve, gj_solve_plain
+from cadnip_tpu_torch.ops.gj_solve import (GJSolve, gj_solve, gj_solve_plain,
+                                           launch, variant)
 
 torch.set_num_threads(1)
 
@@ -223,3 +225,73 @@ def test_cuda_derivative_rules_match_plain_twin():
         assert _rel(dX, dXp) <= 1e-12
         for g, gp in zip(grads, grads_p):
             assert _rel(g, gp) <= 1e-12
+
+
+@pytest.mark.parametrize("n, k, want", [
+    (19, 1, "warp"), (19, 19, "warp"), (32, 1, "warp"),
+    (33, 1, "block"), (128, 1, "block"), (19, 64, "block")])
+def test_variant_choice(n, k, want):
+    # one row per lane (n <= 32), the augmented row in <= 64 registers
+    assert variant(n, k) == want
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _variants_agree(At, Bt):
+    """The warp variant against the block variant (the same arithmetic:
+    0 expected, 1e-14 relative allowed) and against the plain twin."""
+    def amax(t):
+        return float(t.abs().max()) if t.numel() else 0.0
+
+    Xw, Xb = launch(At, Bt, "warp"), launch(At, Bt, "block")
+    assert torch.equal(torch.isnan(Xw), torch.isnan(Xb))
+    fin = torch.isfinite(Xb)
+    scale = max(amax(Xb[fin]), 1.0)
+    assert amax((Xw - Xb)[fin]) <= 1e-14 * scale
+    Xp = gj_solve_plain(At, Bt)
+    assert torch.equal(torch.isnan(Xw), torch.isnan(Xp))
+    tol = 1e-10 if At.dtype == torch.float64 else 1e-4
+    assert amax((Xw - Xp)[fin]) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4096])
+@pytest.mark.parametrize("k", [1, 3, 19])
+@pytest.mark.parametrize("n", [1, 2, 9, 19, 31, 32])
+def test_warp_variant_matches_block_on_gpu(cuda, n, k, b):
+    rng = np.random.default_rng(n * 100 + k)
+    A = rng.standard_normal((b, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+    At = torch.as_tensor(A, device=cuda)
+    Bt = torch.as_tensor(rng.standard_normal((b, n, k)), device=cuda)
+    assert variant(n, k) == "warp"
+    before = gj_solve.launches
+    X = gj_solve(At, Bt)
+    assert gj_solve.launches == before + 1
+    assert torch.equal(X, launch(At, Bt, "warp"))
+    _variants_agree(At, Bt)
+    _variants_agree(At.float(), Bt.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["forced_pivot", "tie", "nan_column"])
+def test_warp_variant_pivots_like_block_on_gpu(cuda, case):
+    rng = np.random.default_rng(8)
+    n, b = 19, 64
+    A = rng.standard_normal((b, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+    if case == "forced_pivot":
+        A[:, 5, 5] = 0.0
+    elif case == "tie":
+        # |A[i, 0]| ties between rows 4 and 9 (opposite signs) above every
+        # other row of column 0: row 4 wins, as jax.lax.argmax
+        A[:, 0, 0] = 0.5
+        A[:, [4, 9], 0] = np.array([-4.0, 4.0])
+    else:
+        A[:, :, 4] = np.nan
+    At = torch.as_tensor(A, device=cuda)
+    Bt = torch.as_tensor(rng.standard_normal((b, n, 2)), device=cuda)
+    _variants_agree(At, Bt)

@@ -31,7 +31,7 @@ r3 out 0 {r3v}
 
 
 def test_statistical_functions_are_nominal_without_rng():
-    cc = tct.parse_spice(NETLIST)
+    cc = tct.parse_spice(NETLIST, device="cpu")
     sol = tct.dc(cc)
     assert float(sol["out"]) == pytest.approx(5.0 / 3.0, rel=1e-12)
     cir, _ = elaborate_netlist(NETLIST, rng=np.random.default_rng(0))
@@ -41,7 +41,7 @@ def test_statistical_functions_are_nominal_without_rng():
 
 def test_montecarlo_elaborate_matches_jax():
     jcc, jparams, axes = jax_montecarlo_elaborate(NETLIST, 16, seed=3)
-    cc, params = montecarlo_elaborate(NETLIST, 16, seed=3)
+    cc, params = montecarlo_elaborate(NETLIST, 16, seed=3, device="cpu")
     jp = [jax.tree.map(np.asarray, d) for d in jparams]
     assert len(params) == len(jp)
     for d, jd in zip(params, jp):
@@ -63,12 +63,18 @@ def test_montecarlo_elaborate_matches_jax():
     assert np.ptp(vout) > 0.05       # the samples differ
 
 
+def _on_cpu(ct):
+    """The keyword that puts a circuit of the port on the host; the JAX
+    package takes none."""
+    return {"device": "cpu"} if ct is tct else {}
+
+
 def _rc(ct):
     cir = ct.Circuit("sens")
     cir.V("vs", "in", "0", wave=ct.Pulse(0.0, 1.0, tr=1e-9))
     cir.R("r1", "in", "out", 1e3)
     cir.C("c1", "out", "0", 1e-6)
-    return cir.compile()
+    return cir.compile(**_on_cpu(ct))
 
 
 def test_jacfwd_through_transient_matches_jax():

@@ -35,14 +35,14 @@ def test_graft_entry_step_matches_jax():
     jx, jconv = jax.jit(fn)(*args)
     x0, lim0, params, dyn, c0, rhs_q = args
 
-    tcc = tct.parse_spice(tct.dff_netlist())
+    tcc = tct.parse_spice(tct.dff_netlist(), device="cpu")
     asm = make_assembler(tcc)
     newton_t = make_tran_newton(tcc, assemble=asm)
     x = torch.as_tensor(np.array(x0))[None]
     lim = torch.as_tensor(np.array(lim0))[None]
     r = newton_t(x, lim, params_from_numpy(
-        [jax.tree.map(np.asarray, d) for d in params]),
-        tcc.spec.dyn(mode=MODE_TRAN, time=1e-9), float(c0),
+        [jax.tree.map(np.asarray, d) for d in params], device="cpu"),
+        tcc.spec.dyn(tcc.device, mode=MODE_TRAN, time=1e-9), float(c0),
         torch.as_tensor(np.array(rhs_q))[None])
     assert bool(r.converged[0]) == bool(jconv)
     np.testing.assert_allclose(r.x[0].numpy(), np.asarray(jx), rtol=0,
@@ -54,11 +54,11 @@ def test_dff_dc_homotopy_matches_jax():
     jr = jax.jit(jax_dc_solver(jcc))(
         jnp.zeros(jcc.n), jcc.params0(),
         jcc.spec.dyn(mode=MODE_TRANOP, time=0.0))
-    tcc = tct.parse_spice(tct.dff_netlist())
+    tcc = tct.parse_spice(tct.dff_netlist(), device="cpu")
     tr = make_dc_solver(tcc)(
         torch.zeros((1, tcc.n), dtype=torch.float64),
-        params_from_numpy(_np_params(jcc)),
-        tcc.spec.dyn(mode=MODE_TRANOP, time=0.0))
+        params_from_numpy(_np_params(jcc), device="cpu"),
+        tcc.spec.dyn(tcc.device, mode=MODE_TRANOP, time=0.0))
     print(f"DFF DC Newton iterations: port {int(tr.iters[0])}, "
           f"JAX {int(jr.iters)}")
     assert bool(jr.converged) and bool(tr.converged[0])
@@ -80,8 +80,9 @@ def test_batched_dc_lanes_match_two_jax_runs():
     tcir.V("v1", "in", "0", dc=5.0)
     tcir.R("r1", "in", "d", 1e3)
     tcir.D("d1", "d", "0", **{"is": 1e-14, "cjo": 1e-12})
-    tcc = tcir.compile()
-    params = tcc.alter(params_from_numpy(_np_params(jcc)), **{"r1.r": rs})
+    tcc = tcir.compile(device="cpu")
+    params = tcc.alter(params_from_numpy(_np_params(jcc), device="cpu"),
+                       **{"r1.r": rs})
     sol = tct.dc(tcc, params)
     assert sol.x.shape == (2, tcc.n)
     assert sol.converged.tolist() == [True, True]

@@ -54,7 +54,8 @@ CAPPED = dict(max_newton_iters=8, gmin_steps=2, src_steps=2)
 
 def _pair(deck, **spec):
     return (jct.parse_spice(DECKS[deck], spec=jct.SimSpec(**spec)),
-            tct.parse_spice(DECKS[deck], spec=tct.SimSpec(**spec)))
+            tct.parse_spice(DECKS[deck], spec=tct.SimSpec(**spec),
+                            device="cpu"))
 
 
 def _same(r, ref, rtol=1e-12):
@@ -75,7 +76,7 @@ def test_rescue_tier_from_zeros_matches_jax(tier, deck):
                                       jcc.spec.dyn())
     r = getattr(tnewton, tier)(tcc)(
         torch.zeros((1, tcc.n), dtype=torch.float64), tcc.params0(),
-        tcc.spec.dyn())
+        tcc.spec.dyn(tcc.device))
     assert bool(r.converged[0])
     _same(r, ref)
 
@@ -89,6 +90,6 @@ def test_rescue_tier_on_batched_lanes_matches_jax_vmap(tier):
         jnp.zeros(jcc.n), bp, jcc.spec.dyn())
     r = getattr(tnewton, tier)(tcc)(
         torch.zeros((3, tcc.n), dtype=torch.float64),
-        batch_params(tcc, {"v1.dc": vals}), tcc.spec.dyn())
+        batch_params(tcc, {"v1.dc": vals}), tcc.spec.dyn(tcc.device))
     assert r.x.shape == (3, tcc.n) and r.converged.any()
     _same(r, ref)

@@ -26,7 +26,7 @@ def test_dc_with_capped_chain_lands_on_jax_point(deck, rescue):
     assert bool(sol.converged) == (rescue or deck == "bridge")
     _same(sol, ref)
     if deck == "bridge":
-        full = tct.dc(tct.parse_spice(DECKS[deck]))
+        full = tct.dc(tct.parse_spice(DECKS[deck], device="cpu"))
         np.testing.assert_allclose(sol.x.numpy(), full.x.numpy(), atol=1e-5)
 
 

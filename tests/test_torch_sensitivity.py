@@ -15,12 +15,18 @@ from cadnip_tpu.models.dff import dff_netlist as jax_dff_netlist
 torch.set_num_threads(1)
 
 
+def _on_cpu(ct):
+    """The keyword that puts a circuit of the port on the host; the JAX
+    package takes none."""
+    return {"device": "cpu"} if ct is tct else {}
+
+
 def _divider(ct):
     cir = ct.Circuit("div")
     cir.V("v1", "in", "0", dc=5.0)
     cir.R("r1", "in", "out", 1e3)
     cir.R("r2", "out", "0", 1e3)
-    return cir.compile()
+    return cir.compile(**_on_cpu(ct))
 
 
 def _diode(ct):
@@ -28,12 +34,12 @@ def _diode(ct):
     cir.V("v1", "in", "0", dc=5.0)
     cir.R("r1", "in", "d", 1e3)
     cir.D("d1", "d", "0", **{"is": 1e-14})
-    return cir.compile()
+    return cir.compile(**_on_cpu(ct))
 
 
 def _dff(ct):
     return ct.parse_spice(jax_dff_netlist() if ct is jct
-                          else tct.dff_netlist())
+                          else tct.dff_netlist(), **_on_cpu(ct))
 
 
 CASES = {"divider": (_divider, ["r2.r", "r1.r"], {}),

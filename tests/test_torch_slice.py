@@ -19,7 +19,7 @@ GOLD = os.path.join(ROOT, "tests", "goldens", "dff.npz")
 
 def test_dff_transient_matches_golden():
     g = np.load(GOLD)
-    cc = tct.parse_spice(tct.dff_netlist())
+    cc = tct.parse_spice(tct.dff_netlist(), device="cpu")
     sol = tct.tran(cc, (0, 6e-7), dt=3.333e-10, max_steps=100000)
     st = sol.stats
     # the JAX package on the CPU takes 995 / 143 / 2062 on this run
@@ -39,7 +39,7 @@ def test_transient_lanes_and_gear2_on_rc():
     cir.V("v1", "in", "0", wave=tct.Pulse(0.0, 1.0, 1e-6, 1e-9, 1e-9))
     cir.R("r1", "in", "out", 1e3)
     cir.C("c1", "out", "0", 1e-9)
-    cc = cir.compile()
+    cc = cir.compile(device="cpu")
     params = cc.alter(cc.params0(), **{"r1.r": [1e3, 2e3]})
     for integ in ("trap", "gear2"):
         sol = tct.tran(cc, (0, 5e-6), params, dt=1e-8, integ=integ)
@@ -57,7 +57,7 @@ def test_uic_and_ic_pin_the_start():
     cir.V("v1", "in", "0", dc=0.0)
     cir.R("r1", "in", "out", 1e3)
     cir.C("c1", "out", "0", 1e-9)
-    sol = tct.tran(cir.compile(), (0, 3e-6), dt=1e-8, uic=True,
+    sol = tct.tran(cir.compile(device="cpu"), (0, 3e-6), dt=1e-8, uic=True,
                    ic={"out": 1.0})
     v = sol["out"].numpy()
     assert v[0] == pytest.approx(1.0)

@@ -29,12 +29,18 @@ d5 e 0 dd
 """
 
 
+def _on_cpu(ct):
+    """The keyword that puts a circuit of the port on the host; the JAX
+    package takes none."""
+    return {"device": "cpu"} if ct is tct else {}
+
+
 def _divider(ct):
     cir = ct.Circuit("div")
     cir.V("v1", "in", "0", dc=5.0)
     cir.R("r1", "in", "out", 1e3)
     cir.R("r2", "out", "0", 1e3)
-    return cir.compile()
+    return cir.compile(**_on_cpu(ct))
 
 
 def _rc(ct):
@@ -42,7 +48,7 @@ def _rc(ct):
     cir.V("vs", "in", "0", wave=ct.Pulse(0.0, 1.0, tr=1e-9))
     cir.R("r1", "in", "out", 1e3)
     cir.C("c1", "out", "0", 1e-6)
-    return cir.compile()
+    return cir.compile(**_on_cpu(ct))
 
 
 def _sweeps(m):
@@ -83,7 +89,7 @@ def test_dcsweep_neighbour_rescue_matches_jax():
     jcc = jct.parse_spice(DIODE_CHAIN, spec=jct.SimSpec(
         max_newton_iters=5, gmin_steps=2, src_steps=2))
     tcc = tct.parse_spice(DIODE_CHAIN, spec=tct.SimSpec(
-        max_newton_iters=5, gmin_steps=2, src_steps=2))
+        max_newton_iters=5, gmin_steps=2, src_steps=2), device="cpu")
     bp, axes = jsw.batch_params(jcc, {"vs.dc": vals})
     cold_ref = jax.vmap(jax_dc_solver(jcc), in_axes=(None, axes, None))(
         jnp.zeros(jcc.n), bp, jcc.spec.dyn())
@@ -156,7 +162,7 @@ def test_montecarlo_tables_are_jax_bit_for_bit():
         np.testing.assert_array_equal(tab[k], ref[k])
     assert abs(tab["v1.dc"].mean() - 5.0) < 0.05
     jcc = jct.parse_spice(jax_dff_netlist())
-    tcc = tct.parse_spice(tct.dff_netlist())
+    tcc = tct.parse_spice(tct.dff_netlist(), device="cpu")
     ref = jct.montecarlo_table(jcc, DFF_SPREADS, 4096, seed=42)
     tab = tct.montecarlo_table(tcc, DFF_SPREADS, 4096, seed=42)
     for k in ref:

@@ -16,7 +16,7 @@ DFF_SPREADS = {"cq.c": 0.1, "mno1.w": 0.1, "mpo1.w": 0.1}   # bench.py:381
 def test_dff_montecarlo_lanes_match_jax():
     # bench.py's 4096-way table, four of its lanes over 0-30 ns
     jcc = jct.parse_spice(jax_dff_netlist())
-    tcc = tct.parse_spice(tct.dff_netlist())
+    tcc = tct.parse_spice(tct.dff_netlist(), device="cpu")
     lanes = [0, 1, 2047, 4095]
     tab = {k: v[lanes] for k, v in tct.montecarlo_table(
         tcc, DFF_SPREADS, 4096, seed=42).items()}

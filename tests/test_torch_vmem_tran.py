@@ -80,19 +80,26 @@ def counts(stats):
                                   stats.nnewton))
 
 
+def _on_cpu(ct):
+    """The keyword that puts a circuit of the port on the host; the JAX
+    package takes none."""
+    return {"device": "cpu"} if ct is tct else {}
+
+
 def _ladder(ct):
     cir = ct.Circuit("big")
     cir.V("v0", "n0", "0", dc=1.0)
     for i in range(200):
         cir.R(f"r{i}", f"n{i}", f"n{i + 1}", 10.0)
-    return cir.compile()
+    return cir.compile(**_on_cpu(ct))
 
 
-CIRCUITS = {"rc": lambda ct: ct.parse_spice(RC_NETLIST),
-            "graetz": lambda ct: ct.parse_spice(GRAETZ),
-            "mul": lambda ct: ct.parse_spice(MUL),
+CIRCUITS = {"rc": lambda ct: ct.parse_spice(RC_NETLIST, **_on_cpu(ct)),
+            "graetz": lambda ct: ct.parse_spice(GRAETZ, **_on_cpu(ct)),
+            "mul": lambda ct: ct.parse_spice(MUL, **_on_cpu(ct)),
             "dff": lambda ct: ct.parse_spice(
-                jax_dff_netlist() if ct is jct else ct.dff_netlist()),
+                jax_dff_netlist() if ct is jct else ct.dff_netlist(),
+                **_on_cpu(ct)),
             "ladder": _ladder}
 
 
@@ -116,7 +123,7 @@ def test_model_without_device_function_is_refused():
                             defaults={"r": 1e3})
     cir.add(model, "r1", ("a", "0"), r=1e3)
     cir.V("v1", "a", "0", dc=1.0)
-    assert not vt.supported(cir.compile())
+    assert not vt.supported(cir.compile(device="cpu"))
 
 
 def test_rc_twin_meets_reference_bars():
@@ -129,7 +136,8 @@ def test_rc_twin_meets_reference_bars():
     ref = jct.tran(jcc, (0, 8e-3), dt=8e-6)
     k2 = load_reference().vmem_tran(jcc, (0, 8e-3), dt=8e-6,
                                     interpret=True)
-    sol = tct.vmem_tran(tct.parse_spice(RC_NETLIST), (0, 8e-3), dt=8e-6)
+    sol = tct.vmem_tran(tct.parse_spice(RC_NETLIST, device="cpu"),
+                        (0, 8e-3), dt=8e-6)
     assert bool(sol.converged)
     assert sol.xs.shape == (1001, 3)
     v = sol["2"].numpy()
@@ -144,16 +152,27 @@ def test_rc_twin_meets_reference_bars():
 def test_pack_reproduces_the_assembly(name):
     """The host packer's gather plans (K2's assembly) give the same F and
     J as the port's sorted scatter (the twin's assembly) for random local
-    contributions, and its parameter rows hold each group's parameters in
-    the order csrc/devices.cuh reads them."""
+    contributions at K2's padded strides, and its parameter rows hold each
+    group's parameters in the order csrc/devices.cuh reads them."""
     cc = CIRCUITS[name](tct)
     S = vt.prepare(cc, (0, 1e-9 if name == "dff" else 1e-3),
                    dt=1e-10 if name == "dff" else 1e-4)
     pk = vt.pack(S)
     n = cc.n
     rng = np.random.default_rng(3)
-    floc = rng.standard_normal(pk["n_loc"])
-    jloc = rng.standard_normal(pk["n_jac"])
+    # random contributions in the scatter's order, placed at K2's strides
+    # (the padding holds NaN, which no plan may read)
+    fl = [rng.standard_normal(g.conn.shape) for g in cc.groups]
+    jl = [rng.standard_normal(g.conn.shape + g.conn.shape[1:])
+          for g in cc.groups]
+    floc = np.full(pk["n_loc"], np.nan)
+    jloc = np.full(pk["n_jac"], np.nan)
+    for gd, g, f, j in zip(pk["gdesc"], cc.groups, fl, jl):
+        I, L = g.conn.shape
+        ls, js = vt.loc_strides(L)
+        floc[gd[6]:gd[6] + I * ls].reshape(I, ls)[:, :L] = f
+        jloc[gd[7]:gd[7] + I * js].reshape(I, js)[:, :L * L] = \
+            j.reshape(I, -1)
     F = np.array([floc[pk["fq_idx"][pk["fq_ptr"][r]:pk["fq_ptr"][r + 1]]]
                   .sum() for r in range(n)])
     J = np.array([jloc[pk["jc_idx"][pk["jc_ptr"][e]:pk["jc_ptr"][e + 1]]]
@@ -162,8 +181,10 @@ def test_pack_reproduces_the_assembly(name):
     jc = make_sorted_scatter([g.conn[:, :, None] * (n + 1)
                               + g.conn[:, None, :] for g in cc.groups],
                              (n + 1) ** 2, "cpu")
-    F_ref = fq([torch.as_tensor(floc)[None]])[0, :n].numpy()
-    J_ref = jc([torch.as_tensor(jloc)[None]])[0].reshape(n + 1, n + 1)
+    F_ref = fq([torch.as_tensor(np.concatenate(
+        [f.reshape(-1) for f in fl]))[None]])[0, :n].numpy()
+    J_ref = jc([torch.as_tensor(np.concatenate(
+        [j.reshape(-1) for j in jl]))[None]])[0].reshape(n + 1, n + 1)
     np.testing.assert_allclose(F, F_ref, rtol=1e-14, atol=1e-14)
     np.testing.assert_allclose(J, J_ref[:n, :n].numpy(), rtol=1e-14,
                                atol=1e-14)
@@ -175,6 +196,30 @@ def test_pack_reproduces_the_assembly(name):
             np.testing.assert_array_equal(rows[j::len(pnames)], g.params[k])
         conn = pk["conn"][gd[4]:gd[4] + g.conn.size]
         np.testing.assert_array_equal(conn, g.conn.reshape(-1))
+
+
+@pytest.mark.parametrize("name", ["dff", "graetz", "mul"])
+def test_pack_slots_give_each_group_whole_warps(name):
+    """K2's instance slots: every instance once, in order, each group
+    starting at a warp boundary and padded with -1 to whole warps; and
+    whether the locals and plans take shared memory follows their size."""
+    cc = CIRCUITS[name](tct)
+    S = vt.prepare(cc, (0, 1e-9), dt=1e-10)
+    pk = vt.pack(S)
+    inst, grp = pk["slot_inst"], pk["slot_group"]
+    assert len(inst) == len(grp) and len(inst) % 32 == 0
+    np.testing.assert_array_equal(inst[inst >= 0], np.arange(pk["n_inst"]))
+    for gi, (gd, g) in enumerate(zip(pk["gdesc"], cc.groups)):
+        slots = np.nonzero(grp == gi)[0]
+        assert slots[0] % 32 == 0 and len(slots) == -(-g.n_inst // 32) * 32
+        np.testing.assert_array_equal(inst[slots[:g.n_inst]],
+                                      gd[8] + np.arange(g.n_inst))
+        assert (inst[slots[g.n_inst:]] == -1).all()
+    cfg, _ = vt._kernel_args(S)
+    fits = vt.smem_bytes(cc.n) + vt.locals_bytes(cc.n, pk) <= vt.SMEM_MAX
+    assert cfg.locals_in_smem == int(fits) == 1
+    assert (cfg.n_slots, cfg.n_fq, cfg.n_jc) == (
+        len(inst), len(pk["fq_idx"]), len(pk["jc_idx"]))
 
 
 def _fields(src, struct):
@@ -216,10 +261,24 @@ def test_kernel_layouts_match_the_host():
     assert vt.smem_bytes(vt.MAX_UNKNOWNS) <= 232448 - 2048
 
 
+def test_phase_slots_match_the_kernel():
+    """The statistics slots and phase names of the host agree with the
+    kernel's N_STATS, PHASE0, phase enum and warp-solve bound."""
+    cu = open(os.path.join(CSRC, "vmem_tran.cu")).read()
+    assert int(re.search(r"N_STATS = (\d+);", cu).group(1)) == vt._N_STATS
+    assert int(re.search(r"PHASE0 = (\d+);", cu).group(1)) == vt._PHASE0
+    body = re.search(r"enum \{ (PH_EVAL[^}]*)\}", cu).group(1)
+    phases = [w.strip() for w in body.split(",") if w.strip()]
+    assert phases[-1] == "N_PHASES" and len(phases) - 1 == len(vt.PHASES)
+    assert vt._PHASE0 + len(vt.PHASES) <= vt._N_STATS
+    assert int(re.search(r"WARP_SOLVE_MAX = (\d+);", cu).group(1)) \
+        == vt.WARP_SOLVE_MAX
+
+
 def test_cuda_circuit_needs_the_kernel():
     """A circuit on a device the kernel does not serve is refused, not
     handed to the twin."""
-    cc = tct.parse_spice(RC_NETLIST)
+    cc = tct.parse_spice(RC_NETLIST, device="cpu")
     S = vt.prepare(cc, (0, 1e-4), dt=1e-5)
     S.cc = tct.parse_spice(RC_NETLIST, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -272,3 +331,62 @@ def test_device_functions_match_twin_on_gpu(cuda):
                         vt.eval_group_plain(model, *args)):
             assert float((a - b).abs().max()) <= 1e-10 * max(
                 float(b.abs().max()), 1e-300), name
+
+
+@pytest.mark.gpu
+def test_k2_warp_solve_replays_twin_counts_on_gpu(cuda):
+    """The DFF (n = 19, the warp-resident Newton solve) over 0-60 ns: K2
+    takes the twin's accepted / rejected / Newton counts exactly, and
+    reports the cycles of every phase."""
+    S = vt.prepare(tct.parse_spice(tct.dff_netlist(), device=cuda),
+                   (0, 6e-8), dt=3.333e-10)
+    assert S.cc.n <= vt.WARP_SOLVE_MAX
+    rk, rp = vt.integrate(S), vt.integrate_plain(S)
+    assert rk.stats == rp.stats and not rk.stats[3]
+    assert set(rk.phases) == set(vt.PHASES)
+    assert all(v > 0 for v in rk.phases.values())
+    assert float((rk.xs - rp.xs).pow(2).mean().sqrt()) <= 1e-7 * 5.0
+
+
+def _rc_ladder(ct, sections=40):
+    """An RC ladder driven by a pulse: n = sections + 2 unknowns."""
+    cir = ct.Circuit("ladder")
+    cir.V("vs", "n0", "0", wave=ct.Pulse(0.0, 1.0, 1e-6, 1e-7, 1e-7, 5e-6,
+                                         1.2e-5))
+    for i in range(sections):
+        cir.R(f"r{i}", f"n{i}", f"n{i + 1}", 100.0)
+        cir.C(f"c{i}", f"n{i + 1}", "0", 1e-9)
+    return cir.compile(device="cuda")
+
+
+@pytest.mark.gpu
+def test_k2_block_solve_matches_twin_on_gpu(cuda):
+    """n > 32: K2 keeps the block elimination, and takes the twin's
+    counts on a linear ladder."""
+    S = vt.prepare(_rc_ladder(tct), (0, 2e-5), dt=2e-7)
+    assert S.cc.n > vt.WARP_SOLVE_MAX
+    rk, rp = vt.integrate(S), vt.integrate_plain(S)
+    assert rk.stats == rp.stats and not rk.stats[3]
+    assert float((rk.xs - rp.xs).abs().max()) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_k2_locals_in_device_memory_give_the_same_bits_on_gpu(cuda):
+    """The per-instance locals and plans in device memory (the layout of
+    a circuit too large for shared memory) give the bits of the shared
+    memory layout."""
+    import ctypes
+    S = vt.prepare(tct.parse_spice(tct.dff_netlist(), device=cuda),
+                   (0, 3e-8), dt=3.333e-10)
+    ref = vt.integrate(S)
+    cfg, t = vt._kernel_args(S)
+    assert cfg.locals_in_smem == 1
+    cfg.locals_in_smem = 0
+    ptrs = vt._Ptrs(**{k: t[k].data_ptr() for k in vt._PTRS})
+    err = vt.load_library().vmem_tran_f64(
+        ctypes.byref(cfg), ctypes.byref(ptrs), vt._THREADS,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert tuple(t["stats"].tolist()[:4]) == ref.stats
+    assert torch.equal(t["xs"][:S.n_save], ref.xs)

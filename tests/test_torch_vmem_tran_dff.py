@@ -22,7 +22,8 @@ SPAN, DT = (0, 1.5e-7), 3.333e-10
 @pytest.fixture(scope="module")
 def runs():
     jcc = jct.parse_spice(jax_dff_netlist())
-    out = {"port": tct.vmem_tran(tct.parse_spice(tct.dff_netlist()), SPAN,
+    out = {"port": tct.vmem_tran(tct.parse_spice(tct.dff_netlist(),
+                                                 device="cpu"), SPAN,
                                  dt=DT)}
     for key, x64 in (("ref", False), ("ref64", True)):
         # a circuit each: the reference caches its kernel on the circuit

@@ -25,7 +25,7 @@ def _v(sol):
 
 @pytest.fixture(scope="module")
 def runs():
-    tcc = tct.parse_spice(GRAETZ)
+    tcc = tct.parse_spice(GRAETZ, device="cpu")
     assert [tcc.index_of(k) for k in ("outp", "outn")] == [2, 3]
     out = {"port": tct.vmem_tran(tcc, SPAN, dt=DT)}
     for key, x64 in (("ref", False), ("ref64", True)):
