@@ -2,13 +2,18 @@
 simulator, for NVIDIA Hopper.
 
 It runs the main path of the JAX package `cadnip_tpu`, which stays the
-reference: SPICE text -> parse and elaborate -> built-in level-1 MOSFET,
-diode (with or without series rs), R, C and independent sources ->
-gather / torch.func.jacrev / scatter assembly -> dense Gauss-Jordan solve
-(kernel K1, hand-written CUDA for sm_90a on a CUDA device) inside Newton
--> DC operating point through the gmin/source homotopy -> adaptive
-trapezoidal transient. `vmem_tran` runs the whole transient of a small
-circuit (n <= 127) in one launch of kernel K2 instead.
+reference: SPICE text -> parse and elaborate -> the built-in devices (R,
+C, L, mutual K, V, I, the controlled sources E/G/F/H, the diode with or
+without series rs, the BJT, the level-1 MOSFET) -> gather /
+torch.func.jacrev / scatter assembly -> dense Gauss-Jordan solve (kernel
+K1, hand-written CUDA for sm_90a on a CUDA device) inside Newton -> DC
+operating point through the gmin/source homotopy -> adaptive trapezoidal
+transient. `vmem_tran` runs the whole transient of a small circuit
+(n <= 127) in one launch of kernel K2 instead.
+
+AC and noise linearize at the operating point and solve every frequency
+of the sweep in one K1 launch (the real 2n x 2n embedding of
+G + jωC, and its transpose for the noise adjoint).
 
 Sweeps and Monte Carlo run every point as one lane of a batch: a table
 {"inst.param": values} (from `Sweep` and its combinators, or
@@ -28,18 +33,27 @@ A circuit is compiled for the card unless the caller asks for the host
     tab = montecarlo_table(cc, {"cq.c": 0.1, "mno1.w": 0.1}, 4096, seed=42)
     sol = transweep(cc, tab, (0, 6e-7), dt=3.333e-10, n_save=61)
 
+    # supply rejection and output noise of the DFF over 1 kHz-100 GHz
+    p = cc.alter(cc.params0(), **{"vvdd.acmag": 1.0})
+    h = ac(cc, acdec(100, 1e3, 1e11), p)["q"]       # complex [801]
+    sn = noise(cc, "q", acdec(100, 1e3, 1e11), input="vvdd")
+    sn.onoise_psd, sn.inoise_psd, sn.contributions["mno1"]
+
 This package imports torch and numpy, never jax or cadnip_tpu.
 """
 from .mna.structure import Circuit, CompiledCircuit  # noqa: F401
 from .mna.spec import SimSpec  # noqa: F401
 from .mna import devices  # noqa: F401
 from .mna.devices import (  # noqa: F401
-    RESISTOR, CAPACITOR, VSOURCE, ISOURCE, DIODE, DIODE_RS, MOSFET1,
-    DeviceModel)
+    RESISTOR, CAPACITOR, INDUCTOR, VSOURCE, ISOURCE, VCVS, VCCS, CCCS, CCVS,
+    DIODE, DIODE_RS, BJT, MOSFET1, MUTUAL, DeviceModel)
 from .mna.waveforms import (  # noqa: F401
     DC as DCWave, Pulse, Sin, PWL, Exp, Sffm)
 from .analyses.dc import dc, op_tran, DCSolution  # noqa: F401
 from .analyses.tran import tran, TranSolution  # noqa: F401
+from .analyses.ac import (  # noqa: F401
+    ac, acdec, ACSolution, subsystem, DescriptorSISO)
+from .analyses.noise import noise, NoiseSolution  # noqa: F401
 from .analyses.sweeps import (  # noqa: F401
     Sweep, ProductSweep, TandemSweep, SerialSweep, dcsweep, transweep,
     montecarlo_table)
@@ -51,11 +65,13 @@ from .models.dff import dff_netlist  # noqa: F401
 
 __all__ = [
     "Circuit", "CompiledCircuit", "SimSpec", "DeviceModel", "devices",
-    "RESISTOR", "CAPACITOR", "VSOURCE", "ISOURCE", "DIODE", "DIODE_RS",
-    "MOSFET1",
+    "RESISTOR", "CAPACITOR", "INDUCTOR", "VSOURCE", "ISOURCE", "VCVS",
+    "VCCS", "CCCS", "CCVS", "DIODE", "DIODE_RS", "BJT", "MOSFET1", "MUTUAL",
     "DCWave", "Pulse", "Sin", "PWL", "Exp", "Sffm",
     "dc", "op_tran", "DCSolution", "tran", "TranSolution", "vmem_tran",
     "supported",
+    "ac", "acdec", "ACSolution", "subsystem", "DescriptorSISO",
+    "noise", "NoiseSolution",
     "Sweep", "ProductSweep", "TandemSweep", "SerialSweep",
     "dcsweep", "transweep", "montecarlo_table", "dc_sensitivity",
     "parse_spice", "models", "dff_netlist",

@@ -16,7 +16,6 @@ import torch
 
 from ..config import DTYPE
 from ..mna.assemble import pad_state
-from ..mna.devices import deferred
 from ..mna.newton import (NewtonResult, make_dc_solver, make_lm_rescue,
                           make_ptran_rescue)
 from ..mna.spec import MODE_DCOP, MODE_TRANOP
@@ -39,8 +38,9 @@ def param_lanes(params):
 
 class DCSolution:
     """Name-addressable operating point: sol['out'] is a node voltage,
-    sol['v1#i'] a V-source branch current, sol.v('a','b') a difference.
-    Batched solutions index the same way with a leading lane axis."""
+    sol['v1#i'] a V-source or inductor branch current, sol.v('a','b') a
+    difference. Batched solutions index the same way with a leading lane
+    axis."""
 
     def __init__(self, cc: CompiledCircuit, x, converged, iters,
                  resnorm=None, params=None):
@@ -59,15 +59,15 @@ class DCSolution:
         return vp if n is None else vp - self[n]
 
     def i(self, source_name):
-        """Branch current through a V source."""
+        """Branch current through a V source or inductor."""
         return self[f"{source_name}#i"]
 
     def keys(self):
         return self.cc.names.keys()
 
-    def currents(self, inst):
-        """Terminal currents of a device at the operating point:
-        {terminal_name: current flowing INTO the device}."""
+    def _eval_device(self, inst):
+        """One instance's group, local unknowns, parameters, DynSpec and
+        connections at the operating point."""
         if self.x.ndim != 1:
             raise ValueError("per-device evaluation needs an unbatched "
                              "solution; index one lane first")
@@ -83,14 +83,23 @@ class DCSolution:
         p = {k: one(v) for k, v in params[gi].items()}
         u = pad_state(self.x)[torch.as_tensor(g.conn[slot],
                                               device=self.x.device)]
-        f, _ = g.model.residual(u, p, self.cc.spec.dyn(self.x.device))
-        f = f.cpu().numpy()
-        conn = g.conn[slot]
+        return g, u, p, self.cc.spec.dyn(self.x.device), g.conn[slot]
+
+    def currents(self, inst):
+        """Terminal currents of a device at the operating point:
+        {terminal_name: current flowing INTO the device}."""
+        g, u, p, dyn, conn = self._eval_device(inst)
+        f = g.model.residual(u, p, dyn)[0].cpu().numpy()
         return {t: float(f[conn == conn[i]].sum())
                 for i, t in enumerate(g.model.terminals)}
 
     def op_info(self, inst):
-        deferred("the operating-point info channel (op_info)")
+        """Model-defined operating-point variables (gm, ids, ...) of one
+        instance, if its model publishes them."""
+        g, u, p, dyn, _ = self._eval_device(inst)
+        if g.model.opvars is None:
+            return {}
+        return {k: float(v) for k, v in g.model.opvars(u, p, dyn).items()}
 
     def __repr__(self):
         conv = np.asarray(self.converged.cpu())

@@ -10,10 +10,15 @@ sections, `.include` files, `.if/.else` blocks, `.global` nodes and
 dotted names (`x1.m2`, `x1.net5`). All of it is pure Python, copied from
 the JAX package.
 
+The elements: R, C, L, K (mutual inductance, m = k*sqrt(L1*L2) resolved
+after the whole netlist), V, I, E, G, F, H (the current-controlled ones
+sense a V source or inductor by name, before or after them in the deck,
+with the subcircuit prefix), D, Q (npn/pnp cards) and M (level 1), and X.
+
 Not ported yet, and raising NotImplementedError with the feature's name:
-Verilog-A (`.hdl`, N/Y instances, tier-1 VA models), the Spectre dialect,
-behavioral B-sources, the elements whose devices are deferred (L, K, E,
-G, F, H, Q) and the `simulate` analyses runner.
+Verilog-A (`.hdl`, N/Y instances, tier-1 VA models, a D, Q or M card of
+another level), the Spectre dialect, behavioral B-sources and the
+`simulate` analyses runner.
 
 `montecarlo_elaborate` elaborates a netlist once per sample with its
 statistical functions (agauss, gauss, aunif, unif) drawing from a seeded
@@ -172,6 +177,9 @@ class Elaborator:
         self.globals: set = set()
         self.warned: set = set()
         self.cir: Optional[Circuit] = None
+        # K elements: (name, inductor 1, inductor 2, k), resolved to
+        # m = k*sqrt(L1*L2) after the whole netlist is built
+        self._mutuals: list = []
 
     # ------------------------------------------------------------------ utils
     def _warn_once(self, key, msg):
@@ -467,13 +475,45 @@ class Elaborator:
             val = (self.value_of(kw["c"], scope) if "c" in kw
                    else self.value_of(f[2], scope))
             self.cir.C(name, flat_node(n1), flat_node(n2), val)
+        elif L == "L":
+            n1, n2 = words(2)
+            val = (self.value_of(kw["l"], scope) if "l" in kw
+                   else self.value_of(f[2], scope))
+            self.cir.L(name, flat_node(n1), flat_node(n2), val)
         elif L in "VI":
             self._source(card, scope, prefix, flat_node)
-        elif L in ("L", "K", "E", "G", "F", "H", "Q"):
-            what = {"L": "the inductor", "K": "mutual inductance",
-                    "E": "the VCVS", "G": "the VCCS", "F": "the CCCS",
-                    "H": "the CCVS", "Q": "the BJT"}[L]
-            dv.deferred(f"{what} ({L} element)")
+        elif L == "E":
+            n1, n2, c1, c2 = words(4)
+            gain = self.value_of(f[4], scope)
+            self.cir.add(dv.VCVS, name, (flat_node(n1), flat_node(n2),
+                                         flat_node(c1), flat_node(c2)),
+                         gain=gain)
+        elif L == "G":
+            n1, n2, c1, c2 = words(4)
+            gm = self.value_of(f[4], scope)
+            self.cir.add(dv.VCCS, name, (flat_node(n1), flat_node(n2),
+                                         flat_node(c1), flat_node(c2)),
+                         gm=gm)
+        elif L == "F":
+            n1, n2, vname = words(3)
+            gain = self.value_of(f[3], scope)
+            self.cir.add(dv.CCCS, name, (flat_node(n1), flat_node(n2)),
+                         sense=prefix + vname, gain=gain)
+        elif L == "H":
+            n1, n2, vname = words(3)
+            r = self.value_of(f[3], scope)
+            self.cir.add(dv.CCVS, name, (flat_node(n1), flat_node(n2)),
+                         sense=prefix + vname, r=r)
+        elif L == "K":
+            l1, l2 = words(2)
+            k = self.value_of(f[2], scope) if len(f) > 2 else \
+                self.value_of(kw["k"], scope)
+            # placeholder M; set to k*sqrt(L1*L2) by the post-pass of
+            # elaborate_netlist once both inductor values are known
+            self.cir.add(dv.MUTUAL, name, (), sense=(prefix + l1,
+                                                     prefix + l2),
+                         m=float(k))
+            self._mutuals.append((name, prefix + l1, prefix + l2, float(k)))
         elif L in ("N", "Y", "J", "Z"):
             _not_ported(f"Verilog-A device instances ({L} element)",
                         "item 3")
@@ -489,6 +529,22 @@ class Elaborator:
                 area = self.value_of(kw["area"], scope)
             p["area"] = area
             self.cir.D(name, flat_node(n1), flat_node(n2), **p)
+        elif L == "Q":
+            ws = words(5)
+            # the model is the 4th or the 5th word (optional substrate)
+            mc = scope.lookup_model(ws[3]) if len(ws) > 3 else None
+            if mc is None and len(ws) > 4:
+                mc = scope.lookup_model(ws[4])
+            if mc is None:
+                raise ElabError(f"{name}: unknown BJT model")
+            c, b, e = ws[0], ws[1], ws[2]
+            self._tier1_va(mc)
+            p = _map_model_params(mc, _BJT_MAP, self._warn_once)
+            p["type"] = -1.0 if mc.mtype == "pnp" else 1.0
+            if "area" in kw:
+                p["area"] = self.value_of(kw["area"], scope)
+            self.cir.add(dv.BJT, name,
+                         (flat_node(c), flat_node(b), flat_node(e)), **p)
         elif L == "M":
             ws = words(5)
             d, g, s, b, mname = ws[0], ws[1], ws[2], ws[3], ws[4]
@@ -642,6 +698,12 @@ _DIODE_MAP = {
     "vj": "vj", "pb": "vj", "m": "m", "mj": "m", "tt": "tt", "bv": "bv",
     "ibv": "ibv", "fc": "fc", "kf": "kf", "af": "af",
 }
+_BJT_MAP = {
+    "is": "is", "bf": "bf", "br": "br", "nf": "nf", "nr": "nr", "vaf": "vaf",
+    "va": "vaf", "var": "var", "cje": "cje", "vje": "vje", "mje": "mje",
+    "cjc": "cjc", "vjc": "vjc", "mjc": "mjc", "tf": "tf", "tr": "tr",
+    "fc": "fc",
+}
 _MOS_MAP = {
     "vto": "vth", "vth0": "vth", "kp": "kp", "lambda": "lambda",
     "cgso": "cgs", "cgdo": "cgd", "cgbo": "cgb", "cbd": "cbd",
@@ -714,6 +776,14 @@ def elaborate_netlist(source, *, include_dirs=(), section=None, title=None,
     el.eval_params(root)
     el.cir = Circuit(title or nl.title or "netlist")
     el.build(elements, root, "", {})
+    # resolve mutual inductances now that both L values are known
+    lvals = {i.name: i.params.get("l", i.model.defaults["l"])
+             for i in el.cir.instances if i.model is dv.INDUCTOR}
+    insts = {i.name: i for i in el.cir.instances}
+    for nm, l1, l2, k in el._mutuals:
+        if l1 not in lvals or l2 not in lvals:
+            raise ElabError(f"{nm}: couples unknown inductors {l1!r}/{l2!r}")
+        insts[nm].params["m"] = k * float(np.sqrt(lvals[l1] * lvals[l2]))
     return el.cir, el
 
 

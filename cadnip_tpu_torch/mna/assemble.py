@@ -195,6 +195,33 @@ def make_assembler(cc: CompiledCircuit):
     return assemble
 
 
+def make_ac_rhs(cc: CompiledCircuit):
+    """Build b_ac(params) -> (br, bi), each [n]: the small-signal excitation
+    vector of the sources with nonzero acmag, +sign * acmag at angle
+    acphase (degrees) on each row of their model's `ac_rhs`. Unbatched
+    parameters ([n_inst] leaves)."""
+    n = cc.n
+    terms = [(gi, local, sign) for gi, g in enumerate(cc.groups)
+             for local, sign in g.model.ac_rhs]
+    scatter = make_sorted_scatter([cc.groups[gi].conn[:, local]
+                                   for gi, local, _ in terms], n + 1,
+                                  cc.device) if terms else None
+
+    def b_ac(params):
+        if not terms:
+            z = torch.zeros(n, dtype=DTYPE, device=cc.device)
+            return z, z.clone()
+        re, im = [], []
+        for gi, _, sign in terms:
+            mag = params[gi]["acmag"]
+            ph = params[gi]["acphase"] * (torch.pi / 180.0)
+            re.append((sign * mag * torch.cos(ph))[None])
+            im.append((sign * mag * torch.sin(ph))[None])
+        return scatter(re)[0, :n], scatter(im)[0, :n]
+
+    return b_ac
+
+
 def make_rhs_assembler(cc: CompiledCircuit):
     """Residual-only assembly: rhs(x_pad, params, dyn) -> (F, Q), no
     Jacobians and no limiting. Used for the consistent initial qdot."""

@@ -1,5 +1,5 @@
 """Built-in device models as pure residual functions (PyTorch port of
-`cadnip_tpu/mna/devices.py`, the subset the DFF transient needs).
+`cadnip_tpu/mna/devices.py`).
 
 A device is a pure function
 
@@ -15,14 +15,21 @@ Newton limiting is the optional hook
 
 and the assembler anchors the companion model at `u_eval`.
 
+Noise is a third optional channel, `noise(u, p, dyn) -> psd`: each
+instance's white noise-current PSDs between the local node pairs of
+`noise_pairs`, with an optional 1/f channel `flicker(u, p, dyn) -> (num,
+exp)` (S = num / f**exp); `analyses/noise.py` reads both. `opvars(u, p,
+dyn) -> {name: value}` publishes operating-point variables (`op_info`).
+Sources with `ac_rhs` drive the AC excitation vector (`make_ac_rhs`).
+
 Every function here is branch-free: `torch.where` instead of `if` on a
 tensor, no `.item()`, and `torch.stack` only over tensors, so that
 `torch.func.jacfwd`, `jacrev` and `vmap` can trace it.
 
-Ported: resistor, capacitor, V and I sources, the diode (with and without
-series rs) and the level-1 MOSFET. The inductor, mutual inductance,
-controlled sources, BJT and the noise/flicker/op-info channels raise
-`NotImplementedError` (ROADMAP, modules still to port, item 1).
+Every built-in model of the JAX package: resistor, capacitor, inductor,
+mutual inductance, V and I sources, the four controlled sources (E, G, F,
+H), the diode (with and without series rs), the BJT and the level-1
+MOSFET.
 """
 from __future__ import annotations
 
@@ -32,16 +39,13 @@ from typing import Callable, Optional
 
 import torch
 
-from .spec import MODE_DCOP, DynSpec
+from .spec import KB, MODE_DCOP, QE, DynSpec
 from .waveforms import eval_wave
 
 # unknown classes: select the per-class absolute tolerance
 CLASS_V = 0   # node voltage      -> vntol
 CLASS_I = 1   # branch current    -> abstol
 CLASS_Q = 2   # charge-like state -> chgtol
-
-_DEFERRED = ("is not ported to cadnip_tpu_torch yet (ROADMAP, modules still "
-             "to port, item 1)")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -55,6 +59,18 @@ class DeviceModel:
     internals: tuple = ()                 # (name, CLASS_*) extra unknowns
     defaults: dict = dataclasses.field(default_factory=dict)
     limit: Optional[Callable] = None      # (u, u_prev, p, dyn) -> u_eval
+    noise: Optional[Callable] = None      # (u, p, dyn) -> white PSDs [n_pairs]
+    noise_pairs: tuple = ()               # ((p_idx, n_idx), ...) per psd entry
+    # optional 1/f channel: (u, p, dyn) -> (num [n_pairs], exp [n_pairs]);
+    # S_flicker(f) = num / f**exp
+    flicker: Optional[Callable] = None
+    ac_source: bool = False               # contributes to the AC rhs
+    # ((local_idx, sign), ...): rows receiving +sign*acmag∠acphase in b_ac
+    ac_rhs: tuple = ()
+    # residual is affine in u (f = A u - b(t), q = C u)
+    linear: bool = False
+    # optional operating-point info: (u, p, dyn) -> dict of named scalars
+    opvars: Optional[Callable] = None
     # Verilog-A hooks of the JAX package. The port has no VA compiler yet,
     # so they stay unset; the assembler refuses a model that sets them.
     residual_lim: Optional[Callable] = None
@@ -68,11 +84,6 @@ class DeviceModel:
     @property
     def n_local(self):
         return len(self.terminals) + len(self.internals)
-
-
-def deferred(what: str):
-    """Raise for a device or channel the port does not have yet."""
-    raise NotImplementedError(f"{what} {_DEFERRED}")
 
 
 # ---------------------------------------------------------------------------
@@ -100,9 +111,15 @@ def _resistor_residual(u, p, dyn):
     return torch.stack([i, -i]), _z(u)
 
 
+def _resistor_noise(u, p, dyn):
+    # thermal: S_i = 4kT/R (one source between the two terminals)
+    return torch.stack([4.0 * KB * dyn.temp / p["r"]])
+
+
 RESISTOR = DeviceModel(
     name="resistor", terminals=("p", "n"), residual=_resistor_residual,
-    defaults={"r": 1e3})
+    defaults={"r": 1e3}, noise=_resistor_noise, noise_pairs=((0, 1),),
+    linear=True)
 
 
 def _capacitor_residual(u, p, dyn):
@@ -112,7 +129,31 @@ def _capacitor_residual(u, p, dyn):
 
 CAPACITOR = DeviceModel(
     name="capacitor", terminals=("p", "n"), residual=_capacitor_residual,
-    defaults={"c": 1e-12})
+    defaults={"c": 1e-12}, linear=True)
+
+
+def _inductor_residual(u, p, dyn):
+    # unknowns: [vp, vn, i]; branch row: vp - vn - L di/dt = 0
+    vp, vn, i = u[0], u[1], u[2]
+    f = torch.stack([i, -i, vp - vn])
+    q = torch.stack([0.0 * i, 0.0 * i, -p["l"] * i])
+    return f, q
+
+
+INDUCTOR = DeviceModel(
+    name="inductor", terminals=("p", "n"), residual=_inductor_residual,
+    internals=(("i", CLASS_I),), defaults={"l": 1e-9}, linear=True)
+
+
+def _mutual_residual(u, p, dyn):
+    # u = [i1, i2]: adds -M*i_other to each inductor's branch (flux) row
+    m = p["m"]
+    return _z(u), torch.stack([-m * u[1], -m * u[0]])
+
+
+MUTUAL = DeviceModel(
+    name="mutual", terminals=("isense1", "isense2"),
+    residual=_mutual_residual, defaults={"m": 0.0}, linear=True)
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +168,8 @@ def _vsource_residual(u, p, dyn):
 VSOURCE = DeviceModel(
     name="vsource", terminals=("p", "n"), residual=_vsource_residual,
     internals=(("i", CLASS_I),),
-    defaults={"acmag": 0.0, "acphase": 0.0})
+    defaults={"acmag": 0.0, "acphase": 0.0}, ac_source=True,
+    ac_rhs=((2, 1.0),), linear=True)
 
 
 def _isource_residual(u, p, dyn):
@@ -137,7 +179,58 @@ def _isource_residual(u, p, dyn):
 
 ISOURCE = DeviceModel(
     name="isource", terminals=("p", "n"), residual=_isource_residual,
-    defaults={"acmag": 0.0, "acphase": 0.0})
+    defaults={"acmag": 0.0, "acphase": 0.0}, ac_source=True,
+    ac_rhs=((0, -1.0), (1, 1.0)), linear=True)
+
+
+# ---------------------------------------------------------------------------
+# controlled sources (E/G/F/H). The current-controlled ones sense the branch
+# current of a V source or inductor: that unknown is wired in as an extra
+# local connection at elaboration time.
+
+def _vcvs_residual(u, p, dyn):
+    vp, vn, vcp, vcn, i = u[0], u[1], u[2], u[3], u[4]
+    f = torch.stack([i, -i, 0 * i, 0 * i, vp - vn - p["gain"] * (vcp - vcn)])
+    return f, _z(u)
+
+
+VCVS = DeviceModel(
+    name="vcvs", terminals=("p", "n", "cp", "cn"), residual=_vcvs_residual,
+    internals=(("i", CLASS_I),), defaults={"gain": 1.0}, linear=True)
+
+
+def _vccs_residual(u, p, dyn):
+    vp, vn, vcp, vcn = u[0], u[1], u[2], u[3]
+    i = p["gm"] * (vcp - vcn)
+    return torch.stack([i, -i, 0 * i, 0 * i]), _z(u)
+
+
+VCCS = DeviceModel(
+    name="vccs", terminals=("p", "n", "cp", "cn"), residual=_vccs_residual,
+    defaults={"gm": 1.0}, linear=True)
+
+
+def _cccs_residual(u, p, dyn):
+    # u = [vp, vn, i_sense]; i_sense is the sensed branch current, a
+    # read-only coupling: this device adds nothing to the sensed row
+    i = p["gain"] * u[2]
+    return torch.stack([i, -i, 0 * u[2]]), _z(u)
+
+
+CCCS = DeviceModel(
+    name="cccs", terminals=("p", "n", "isense"), residual=_cccs_residual,
+    defaults={"gain": 1.0}, linear=True)
+
+
+def _ccvs_residual(u, p, dyn):
+    vp, vn, isense, i = u[0], u[1], u[2], u[3]
+    f = torch.stack([i, -i, 0 * i, vp - vn - p["r"] * isense])
+    return f, _z(u)
+
+
+CCVS = DeviceModel(
+    name="ccvs", terminals=("p", "n", "isense"), residual=_ccvs_residual,
+    internals=(("i", CLASS_I),), defaults={"r": 1.0}, linear=True)
 
 
 # ---------------------------------------------------------------------------
@@ -243,9 +336,22 @@ _DIODE_DEFAULTS = {"is": 1e-14, "n": 1.0, "rs": 0.0, "cjo": 0.0, "vj": 1.0,
                    "m": 0.5, "fc": 0.5, "tt": 0.0, "bv": 0.0, "ibv": 1e-3,
                    "area": 1.0, "kf": 0.0, "af": 1.0}
 
+def _diode_noise(u, p, dyn):
+    # shot noise 2qId (flicker kf*Id^af/f is the flicker channel's)
+    i, _ = _diode_ivq(u[0] - u[1], p, dyn)
+    return torch.stack([2.0 * QE * torch.abs(i)])
+
+
+def _diode_flicker(u, p, dyn):
+    i, _ = _diode_ivq(u[0] - u[1], p, dyn)
+    return (torch.stack([p["kf"] * torch.pow(torch.abs(i), p["af"])]),
+            torch.stack([torch.ones_like(i)]))
+
+
 DIODE = DeviceModel(
     name="diode", terminals=("p", "n"), residual=_diode_residual,
-    defaults=dict(_DIODE_DEFAULTS), limit=_diode_limit)
+    defaults=dict(_DIODE_DEFAULTS), limit=_diode_limit,
+    noise=_diode_noise, noise_pairs=((0, 1),), flicker=_diode_flicker)
 
 
 def _diode_rs_residual(u, p, dyn):
@@ -266,10 +372,98 @@ def _diode_rs_limit(u, u_prev, p, dyn):
     return torch.stack([u[0], u[1], u[1] + vd])
 
 
+def _diode_rs_noise(u, p, dyn):
+    i, _ = _diode_ivq(u[2] - u[1], p, dyn)
+    return torch.stack([2.0 * QE * torch.abs(i),
+                        4.0 * KB * dyn.temp / torch.clamp(p["rs"], min=1e-12)])
+
+
 DIODE_RS = DeviceModel(
     name="diode_rs", terminals=("p", "n"), residual=_diode_rs_residual,
     internals=(("int", CLASS_V),), defaults=dict(_DIODE_DEFAULTS),
-    limit=_diode_rs_limit)
+    limit=_diode_rs_limit, noise=_diode_rs_noise,
+    noise_pairs=((2, 1), (0, 2)))
+
+
+# ---------------------------------------------------------------------------
+# BJT: Ebers-Moll transport formulation with Early effect and junction +
+# diffusion charge (a Gummel-Poon subset: bf/br/is/vaf/var currents,
+# cje/cjc depletion caps, tf/tr diffusion charge). Terminals c, b, e.
+
+def _junction_q(v, cj0, vj, m, fc):
+    fcv = fc * vj
+    q_below = cj0 * vj / (1.0 - m) * (1.0 - _powx(
+        torch.clamp(1.0 - torch.minimum(v, fcv) / vj, min=1e-6), 1.0 - m))
+    f1 = cj0 * vj / (1.0 - m) * (1.0 - _powx(1.0 - fc, 1.0 - m))
+    f2 = _powx(1.0 - fc, -1.0 - m)
+    q_above = f1 + cj0 * f2 * ((1.0 - fc * (1.0 + m)) * (v - fcv)
+                               + 0.5 * m / vj * (v * v - fcv * fcv))
+    return torch.where(v < fcv, q_below, q_above)
+
+
+def _bjt_currents(vbe, vbc, p, dyn):
+    vt = dyn.vt
+    is_ = p["is"] * p["area"]
+    ex_be = torch.exp(torch.clip(vbe / (p["nf"] * vt), -80.0, 80.0))
+    ex_bc = torch.exp(torch.clip(vbc / (p["nr"] * vt), -80.0, 80.0))
+    icc = is_ * (ex_be - 1.0)
+    iec = is_ * (ex_bc - 1.0)
+    # Early + Webster (high-injection) base charge factor
+    qb_inv = (1.0 - vbc / p["vaf"] - vbe / p["var"])
+    qb = 1.0 / torch.clamp(qb_inv, min=0.1)
+    it = (icc - iec) / qb
+    ib = icc / p["bf"] + iec / p["br"]
+    ic = it - iec / p["br"]
+    ie = -(it + icc / p["bf"])
+    return ic, ib, ie, icc, iec
+
+
+def _bjt_residual(u, p, dyn):
+    ty = p["type"]   # +1 npn, -1 pnp
+    vc, vb, ve = ty * u[0], ty * u[1], ty * u[2]
+    vbe = vb - ve
+    vbc = vb - vc
+    ic, ib, ie, icc, iec = _bjt_currents(vbe, vbc, p, dyn)
+    gm = dyn.gmin
+    f = torch.stack([ty * (ic + gm * (vc - vb)),
+                     ty * (ib - gm * (vc - vb) - gm * (ve - vb)),
+                     ty * (ie + gm * (ve - vb))])
+    qbe = (_junction_q(vbe, p["cje"] * p["area"], p["vje"], p["mje"],
+                       p["fc"]) + p["tf"] * icc)
+    qbc = (_junction_q(vbc, p["cjc"] * p["area"], p["vjc"], p["mjc"],
+                       p["fc"]) + p["tr"] * iec)
+    q = torch.stack([-ty * qbc, ty * (qbe + qbc), -ty * qbe])
+    return f, q
+
+
+def _bjt_limit(u, u_prev, p, dyn):
+    ty = p["type"]
+    vt = dyn.vt
+    is_ = p["is"] * p["area"]
+    vcrit = vt * torch.log(vt / (math.sqrt(2.0) * torch.clamp(is_,
+                                                              min=1e-300)))
+    vbe = pnjlim(ty * (u[1] - u[2]), ty * (u_prev[1] - u_prev[2]), vt, vcrit)
+    vbc = pnjlim(ty * (u[1] - u[0]), ty * (u_prev[1] - u_prev[0]), vt, vcrit)
+    # keep the base voltage, move emitter and collector to honour the
+    # limited junctions
+    return torch.stack([u[1] - ty * vbc, u[1], u[1] - ty * vbe])
+
+
+def _bjt_noise(u, p, dyn):
+    ty = p["type"]
+    vc, vb, ve = ty * u[0], ty * u[1], ty * u[2]
+    ic, ib, _, _, _ = _bjt_currents(vb - ve, vb - vc, p, dyn)
+    return torch.stack([2.0 * QE * torch.abs(ic), 2.0 * QE * torch.abs(ib)])
+
+
+BJT = DeviceModel(
+    name="bjt", terminals=("c", "b", "e"), residual=_bjt_residual,
+    defaults={"type": 1.0, "is": 1e-16, "bf": 100.0, "br": 1.0,
+              "nf": 1.0, "nr": 1.0, "vaf": 1e12, "var": 1e12,
+              "cje": 0.0, "vje": 0.75, "mje": 0.33,
+              "cjc": 0.0, "vjc": 0.75, "mjc": 0.33,
+              "tf": 0.0, "tr": 0.0, "fc": 0.5, "area": 1.0},
+    limit=_bjt_limit, noise=_bjt_noise, noise_pairs=((0, 2), (1, 2)))
 
 
 # ---------------------------------------------------------------------------
@@ -350,13 +544,44 @@ def _mos1_limit(u, u_prev, p, dyn):
     return torch.stack([ty * vd3, ty * vg2, ty * vs3, ty * vb])
 
 
+def _mos1_noise(u, p, dyn):
+    # channel thermal noise 8/3 kT gm
+    ty = p["type"]
+    vd, vg, vs = ty * u[0], ty * u[1], ty * u[2]
+    fwd = vd >= vs
+    vgs = torch.where(fwd, vg - vs, vg - vd)
+    vov = torch.clamp(vgs - ty * p["vth"], min=0.0)
+    gm = p["kp"] * p["w"] / p["l"] * vov
+    return torch.stack([8.0 / 3.0 * KB * dyn.temp * gm])
+
+
+def _mos1_opvars(u, p, dyn):
+    ty = p["type"]
+    vd, vg, vs = ty * u[0], ty * u[1], ty * u[2]
+    fwd = vd >= vs
+    vgs = torch.where(fwd, vg - vs, vg - vd)
+    vds = torch.abs(vd - vs)
+    vth = ty * p["vth"]
+    vov = torch.clamp(vgs - vth, min=0.0)
+    beta = p["kp"] * p["w"] / p["l"]
+    ids = _mos1_ids(vgs, vds, p, vth)
+    gm = torch.where(vds > vov, beta * vov, beta * vds)
+    gds = torch.where(vds > vov,
+                      0.5 * beta * vov * vov * p["lambda"],
+                      beta * (vov - vds))
+    return {"ids": ids, "vgs": vgs, "vds": vds, "vth": vth, "gm": gm,
+            "gds": gds, "vdsat": vov}
+
+
 MOSFET1 = DeviceModel(
     name="mos1", terminals=("d", "g", "s", "b"), residual=_mos1_residual,
     defaults={"type": 1.0, "vth": 0.7, "kp": 110e-6, "lambda": 0.0,
               "w": 1e-6, "l": 1e-6, "cgs": 0.0, "cgd": 0.0, "cgb": 0.0,
               "cbd": 0.0, "cbs": 0.0, "is": 1e-14},
-    limit=_mos1_limit)
+    limit=_mos1_limit,
+    noise=_mos1_noise, noise_pairs=((0, 2),), opvars=_mos1_opvars)
 
 
-BUILTINS = {m.name: m for m in (RESISTOR, CAPACITOR, VSOURCE, ISOURCE,
-                                DIODE, DIODE_RS, MOSFET1)}
+BUILTINS = {m.name: m for m in
+            (RESISTOR, CAPACITOR, INDUCTOR, VSOURCE, ISOURCE, VCVS, VCCS,
+             CCCS, CCVS, DIODE, DIODE_RS, BJT, MOSFET1, MUTUAL)}

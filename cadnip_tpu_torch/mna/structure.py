@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DEVICE, DTYPE, resolve_device
-from .devices import CLASS_V, DeviceModel, deferred
+from .devices import CLASS_V, DeviceModel
 from .spec import SimSpec
 from .waveforms import DC, Waveform, pack_waveforms
 
@@ -94,7 +94,8 @@ class Circuit:
         return self.add(CAPACITOR, name, (p, n), c=float(c))
 
     def L(self, name, p, n, l):
-        deferred("the inductor")
+        from .devices import INDUCTOR
+        return self.add(INDUCTOR, name, (p, n), l=float(l))
 
     def V(self, name, p, n, wave=None, dc=0.0, acmag=0.0, acphase=0.0):
         from .devices import VSOURCE

@@ -1,6 +1,8 @@
 """VACASK benchmark-suite circuits (reference `benchmarks/vacask/*`), the
 netlists of `cadnip_tpu/models/vacask.py` copied as text: rc, graetz (the
-four-diode rectifier) and mul (the diode voltage multiplier).
+four-diode rectifier) and mul (the diode voltage multiplier); and the
+darlington (two cascaded NPNs switched by a 500 kHz pulse train, whose
+benchmark runs `tran 2n 1m`), the text of bench.py's DARLINGTON.
 """
 
 RC_NETLIST = """RC circuit excited by a pulse train
@@ -37,5 +39,18 @@ c3 1 2  c={c}
 d3 10 2 d1n4007
 c4 10 20 c={c}
 d4 2 20 d1n4007
+.end
+"""
+
+DARLINGTON = """Darlington pair switch driven by a pulse train
+.model qmod npn bf=100 is=1e-15 cje=10p cjc=5p tf=0.3n
+vcc vcc 0 dc 5
+vs vin 0 dc 0 pulse 0 3 0 10n 10n 0.99u 2u
+rb vin b1 10k
+q1 coll b1 b2 qmod
+q2 coll b2 0 qmod
+rbleed b2 0 10k
+rl vcc coll 1k
+cl coll 0 100p
 .end
 """

@@ -24,11 +24,21 @@ constexpr double PI2 = 6.283185307179586;     // 2 * math.pi
 constexpr double SQRT2 = 1.4142135623730951;  // math.sqrt(2.0)
 
 enum Model { RESISTOR = 0, CAPACITOR = 1, VSOURCE = 2, ISOURCE = 3,
-             DIODE = 4, DIODE_RS = 5, MOS1 = 6 };
+             DIODE = 4, DIODE_RS = 5, MOS1 = 6, INDUCTOR = 7, MUTUAL = 8,
+             VCVS = 9, VCCS = 10, CCCS = 11, CCVS = 12, BJT = 13 };
+
+// the most local unknowns of one instance (the VCVS's five)
+constexpr int MAX_NL = 5;
 
 // parameter rows (KERNEL_MODELS in ops/vmem_tran.py)
-enum { P_R = 0 };
+enum { P_R = 0 };       // resistor; the CCVS's transresistance
 enum { P_C = 0 };
+enum { P_L = 0 };
+enum { P_M = 0 };
+enum { P_GAIN = 0 };    // VCVS, CCCS
+enum { P_GM = 0 };
+enum { Q_TYPE = 0, Q_IS, Q_BF, Q_BR, Q_NF, Q_NR, Q_VAF, Q_VAR, Q_CJE, Q_VJE,
+       Q_MJE, Q_CJC, Q_VJC, Q_MJC, Q_TF, Q_TR, Q_FC, Q_AREA };
 enum { D_IS = 0, D_N, D_CJO, D_VJ, D_M, D_FC, D_TT, D_BV, D_IBV, D_AREA,
        D_RS };
 enum { M_TYPE = 0, M_VTH, M_KP, M_LAMBDA, M_W, M_L, M_CGS, M_CGD, M_CGB,
@@ -331,6 +341,177 @@ struct Mos1 {
   }
 };
 
+struct Inductor {
+  static constexpr int NL = 3;
+  static constexpr bool LIMITED = false;
+  template <typename T>
+  __device__ static void residual(const T* u, const double* p, double,
+                                  const Dyn&, T* f, T* q) {
+    const T& i = u[2];
+    f[0] = i;
+    f[1] = -i;
+    f[2] = u[0] - u[1];
+    q[0] = 0.0 * i;
+    q[1] = 0.0 * i;
+    q[2] = -p[P_L] * i;
+  }
+};
+
+// u = [i1, i2], the sensed inductor currents: -M i_other on each flux row
+struct Mutual {
+  static constexpr int NL = 2;
+  static constexpr bool LIMITED = false;
+  template <typename T>
+  __device__ static void residual(const T* u, const double* p, double,
+                                  const Dyn&, T* f, T* q) {
+    const double m = p[P_M];
+    f[0] = T(0.0);
+    f[1] = T(0.0);
+    q[0] = -m * u[1];
+    q[1] = -m * u[0];
+  }
+};
+
+struct Vcvs {
+  static constexpr int NL = 5;
+  static constexpr bool LIMITED = false;
+  template <typename T>
+  __device__ static void residual(const T* u, const double* p, double,
+                                  const Dyn&, T* f, T* q) {
+    const T& i = u[4];
+    f[0] = i;
+    f[1] = -i;
+    f[2] = 0.0 * i;
+    f[3] = 0.0 * i;
+    f[4] = u[0] - u[1] - p[P_GAIN] * (u[2] - u[3]);
+    for (int a = 0; a < 5; ++a) q[a] = T(0.0);
+  }
+};
+
+struct Vccs {
+  static constexpr int NL = 4;
+  static constexpr bool LIMITED = false;
+  template <typename T>
+  __device__ static void residual(const T* u, const double* p, double,
+                                  const Dyn&, T* f, T* q) {
+    const T i = p[P_GM] * (u[2] - u[3]);
+    f[0] = i;
+    f[1] = -i;
+    f[2] = 0.0 * i;
+    f[3] = 0.0 * i;
+    for (int a = 0; a < 4; ++a) q[a] = T(0.0);
+  }
+};
+
+// u = [vp, vn, i_sense]: the sensed branch current is read, not stamped
+struct Cccs {
+  static constexpr int NL = 3;
+  static constexpr bool LIMITED = false;
+  template <typename T>
+  __device__ static void residual(const T* u, const double* p, double,
+                                  const Dyn&, T* f, T* q) {
+    const T i = p[P_GAIN] * u[2];
+    f[0] = i;
+    f[1] = -i;
+    f[2] = 0.0 * u[2];
+    for (int a = 0; a < 3; ++a) q[a] = T(0.0);
+  }
+};
+
+// u = [vp, vn, i_sense, i]
+struct Ccvs {
+  static constexpr int NL = 4;
+  static constexpr bool LIMITED = false;
+  template <typename T>
+  __device__ static void residual(const T* u, const double* p, double,
+                                  const Dyn&, T* f, T* q) {
+    const T& i = u[3];
+    f[0] = i;
+    f[1] = -i;
+    f[2] = 0.0 * i;
+    f[3] = u[0] - u[1] - p[P_R] * u[2];
+    for (int a = 0; a < 4; ++a) q[a] = T(0.0);
+  }
+};
+
+// depletion charge with the fc linearization (devices.py _junction_q)
+template <typename T>
+__device__ T junction_q(const T& v, double cj0, double vj, double m,
+                        double fc) {
+  const double fcv = fc * vj;
+  if (val(v) < fcv) {
+    // minimum(v, fcv) is v on this branch
+    return cj0 * vj / (1.0 - m)
+           * (1.0 - powx(clamp_min(1.0 - v / vj, 1e-6), 1.0 - m));
+  }
+  const double f1 = cj0 * vj / (1.0 - m) * (1.0 - powx(1.0 - fc, 1.0 - m));
+  const double f2 = powx(1.0 - fc, -1.0 - m);
+  return f1 + cj0 * f2 * ((1.0 - fc * (1.0 + m)) * (v - fcv)
+                          + 0.5 * m / vj * (v * v - fcv * fcv));
+}
+
+// Ebers-Moll transport currents with the Early factor (devices.py
+// _bjt_currents); exp arguments clipped to +-80
+template <typename T>
+__device__ void bjt_currents(const T& vbe, const T& vbc, const double* p,
+                             const Dyn& dy, T& ic, T& ib, T& ie, T& icc,
+                             T& iec) {
+  const double vt = dy.vt;
+  const double is_ = p[Q_IS] * p[Q_AREA];
+  const T ex_be = dexp(clip(vbe / (p[Q_NF] * vt), -80.0, 80.0));
+  const T ex_bc = dexp(clip(vbc / (p[Q_NR] * vt), -80.0, 80.0));
+  icc = is_ * (ex_be - 1.0);
+  iec = is_ * (ex_bc - 1.0);
+  const T qb_inv = 1.0 - vbc / p[Q_VAF] - vbe / p[Q_VAR];
+  const T qb = 1.0 / clamp_min(qb_inv, 0.1);
+  const T it = (icc - iec) / qb;
+  ib = icc / p[Q_BF] + iec / p[Q_BR];
+  ic = it - iec / p[Q_BR];
+  ie = -(it + icc / p[Q_BF]);
+}
+
+// u = [vc, vb, ve]; `type` is +1 npn, -1 pnp
+struct Bjt {
+  static constexpr int NL = 3;
+  static constexpr bool LIMITED = true;
+  template <typename T>
+  __device__ static void residual(const T* u, const double* p, double,
+                                  const Dyn& dy, T* f, T* q) {
+    const double ty = p[Q_TYPE];
+    const T vc = ty * u[0], vb = ty * u[1], ve = ty * u[2];
+    const T vbe = vb - ve;
+    const T vbc = vb - vc;
+    T ic, ib, ie, icc, iec;
+    bjt_currents(vbe, vbc, p, dy, ic, ib, ie, icc, iec);
+    const double gm = dy.gmin;
+    f[0] = ty * (ic + gm * (vc - vb));
+    f[1] = ty * (ib - gm * (vc - vb) - gm * (ve - vb));
+    f[2] = ty * (ie + gm * (ve - vb));
+    const T qbe = junction_q(vbe, p[Q_CJE] * p[Q_AREA], p[Q_VJE], p[Q_MJE],
+                             p[Q_FC]) + p[Q_TF] * icc;
+    const T qbc = junction_q(vbc, p[Q_CJC] * p[Q_AREA], p[Q_VJC], p[Q_MJC],
+                             p[Q_FC]) + p[Q_TR] * iec;
+    q[0] = -ty * qbc;
+    q[1] = ty * (qbe + qbc);
+    q[2] = -ty * qbe;
+  }
+  // pnjlim on both junctions; the base stays, emitter and collector move
+  __device__ static void limit(const double* u, const double* up,
+                               const double* p, const Dyn& dy, double* ue) {
+    const double ty = p[Q_TYPE];
+    const double vt = dy.vt;
+    const double is_ = p[Q_IS] * p[Q_AREA];
+    const double vcrit = vt * log(vt / (SQRT2 * clamp_min(is_, 1e-300)));
+    const double vbe = pnjlim(ty * (u[1] - u[2]), ty * (up[1] - up[2]), vt,
+                              vcrit);
+    const double vbc = pnjlim(ty * (u[1] - u[0]), ty * (up[1] - up[0]), vt,
+                              vcrit);
+    ue[0] = u[1] - ty * vbc;
+    ue[1] = u[1];
+    ue[2] = u[1] - ty * vbe;
+  }
+};
+
 // One instance: limit (when the model has a limiter), then the residual on
 // Dual<NL> at the limited point, linearized back to u as the twin does:
 // f + J (u - u_eval), q + C (u - u_eval). Outputs f, q, u_eval [NL] and
@@ -390,12 +571,22 @@ __device__ __forceinline__ bool eval_model(int model, const double* u,
                                           ue); return true;
     case MOS1: eval_instance<Mos1>(u, up, p, v_src, d, f, q, J, C, ue);
       return true;
+    case INDUCTOR: eval_instance<Inductor>(u, up, p, v_src, d, f, q, J, C,
+                                           ue); return true;
+    case MUTUAL: eval_instance<Mutual>(u, up, p, v_src, d, f, q, J, C, ue);
+      return true;
+    case VCVS: eval_instance<Vcvs>(u, up, p, v_src, d, f, q, J, C, ue);
+      return true;
+    case VCCS: eval_instance<Vccs>(u, up, p, v_src, d, f, q, J, C, ue);
+      return true;
+    case CCCS: eval_instance<Cccs>(u, up, p, v_src, d, f, q, J, C, ue);
+      return true;
+    case CCVS: eval_instance<Ccvs>(u, up, p, v_src, d, f, q, J, C, ue);
+      return true;
+    case BJT: eval_instance<Bjt>(u, up, p, v_src, d, f, q, J, C, ue);
+      return true;
     default: return false;
   }
-}
-
-__device__ __forceinline__ bool model_limited(int model) {
-  return model == DIODE || model == DIODE_RS || model == MOS1;
 }
 
 // ---------------------------------------------------------------------------

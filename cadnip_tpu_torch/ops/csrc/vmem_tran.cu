@@ -380,7 +380,7 @@ __global__ void __launch_bounds__(256)
         const int* cn = P.conn + G[GD_CONN] + li * nl;
         const long long lo = G[GD_LOC] + li * loc_stride(nl);
         const long long jo = G[GD_JAC] + (long long)li * jac_stride(nl);
-        double u[4], up[4];
+        double u[dev::MAX_NL], up[dev::MAX_NL];
         for (int a = 0; a < nl; ++a) {
           u[a] = xi[cn[a]];
           up[a] = lims[lo + a];
@@ -685,7 +685,7 @@ __global__ void eval_group_kernel(int model, int n_inst, int nl,
                                   double* ue) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_inst) return;
-  double uu[4], pp[4];
+  double uu[dev::MAX_NL], pp[dev::MAX_NL];
   for (int a = 0; a < nl; ++a) {
     uu[a] = u[i * nl + a];
     pp[a] = up[i * nl + a];

@@ -58,3 +58,19 @@ def factorize(A, method: str | None = "auto") -> DenseLU:
 
 def solve(A, b, method: str | None = "auto"):
     return factorize(A, method).solve(b)
+
+
+def solve_complex(Ar, Ai, br, bi, method: str | None = "auto"):
+    """Solve (Ar + j Ai) x = (br + j bi) through the real 2N x 2N embedding
+    [[Ar, -Ai], [Ai, Ar]] [xr; xi] = [br; bi], batched over the leading
+    axes (Ar, Ai [..., n, n]; br, bi [..., n]): with "gauss", one K1 launch
+    for the whole batch. Returns (xr, xi)."""
+    n = Ar.shape[-1]
+    lead = br.shape[:-1]
+    A = torch.cat([torch.cat([Ar, -Ai], dim=-1),
+                   torch.cat([Ai, Ar], dim=-1)], dim=-2)
+    b = torch.cat([br, bi], dim=-1)
+    if len(lead) > 1:
+        A, b = A.reshape(-1, 2 * n, 2 * n), b.reshape(-1, 2 * n)
+    x = solve(A, b, method).reshape(lead + (2 * n,))
+    return x[..., :n], x[..., n:]

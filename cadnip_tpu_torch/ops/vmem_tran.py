@@ -57,8 +57,9 @@ from ..config import DTYPE, ITYPE
 from ..mna.assemble import (_group_eval, _lane_dyn, make_assembler,
                             make_rhs_assembler, make_sorted_scatter,
                             pad_state)
-from ..mna.devices import (CAPACITOR, CLASS_V, DIODE, DIODE_RS, ISOURCE,
-                           MOSFET1, RESISTOR, VSOURCE)
+from ..mna.devices import (BJT, CAPACITOR, CCCS, CCVS, CLASS_V, DIODE,
+                           DIODE_RS, INDUCTOR, ISOURCE, MOSFET1, MUTUAL,
+                           RESISTOR, VCCS, VCVS, VSOURCE)
 from ..mna.newton import abstol_vector
 from ..mna.spec import MODE_TRAN, MODE_TRANOP, T0_K, DynSpec, make_dynspec
 from ..mna.waveforms import WAVE_DC, eval_wave, pack_waveforms
@@ -95,18 +96,25 @@ _DIODE_P = ("is", "n", "cjo", "vj", "m", "fc", "tt", "bv", "ibv", "area",
             "rs")
 _MOS_P = ("type", "vth", "kp", "lambda", "w", "l", "cgs", "cgd", "cgb",
           "cbd", "cbs", "is")
+_BJT_P = ("type", "is", "bf", "br", "nf", "nr", "vaf", "var", "cje", "vje",
+          "mje", "cjc", "vjc", "mjc", "tf", "tr", "fc", "area")
 #: models K2 has a device function for: model -> (id in csrc/devices.cuh,
-#: parameter order of its packed row)
+#: parameter order of its packed row). Every built-in model: the reference
+#: kernel traces any model that is not Verilog-A.
 KERNEL_MODELS = {RESISTOR: (0, ("r",)), CAPACITOR: (1, ("c",)),
                  VSOURCE: (2, ()), ISOURCE: (3, ()), DIODE: (4, _DIODE_P),
-                 DIODE_RS: (5, _DIODE_P), MOSFET1: (6, _MOS_P)}
+                 DIODE_RS: (5, _DIODE_P), MOSFET1: (6, _MOS_P),
+                 INDUCTOR: (7, ("l",)), MUTUAL: (8, ("m",)),
+                 VCVS: (9, ("gain",)), VCCS: (10, ("gm",)),
+                 CCCS: (11, ("gain",)), CCVS: (12, ("r",)),
+                 BJT: (13, _BJT_P)}
 
 
 def supported(cc) -> bool:
     """Can this circuit run through K2? The reference kernel's rule (dense,
     n + 1 <= 128, <= 128 instances per group, no Verilog-A or B-source
     models, no $limit sites or delays), and every model must be one K2 has
-    a device function for."""
+    a device function for (every built-in model has one)."""
     if cc.bbd is not None or cc.n + 1 > MAX_UNKNOWNS + 1:
         return False
     for g in cc.groups:

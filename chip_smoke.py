@@ -21,24 +21,33 @@ Phases, each of which raises (exit code != 0) on failure:
      tran() over 0-600 ns, checked against the f64 golden
      tests/goldens/dff.npz, with K1's launch count proving that every
      Newton solve went through the kernel;
-  5. K2's device functions (every model, limiter branches included, and
-     every waveform kind) against the twin's group evaluation;
+  5. K2's device functions (every model: R, C, V, I, the diodes, MOS1, L,
+     K, E, G, F, H and the BJT, limiter branches included, and every
+     waveform kind) against the twin's group evaluation;
   6. K2 against its twin vmem_tran_plain on the card: rc, the DFF over
-     0-60 ns, graetz over 0-20 ms and a 125-section RC ladder over 0-5 us
-     (n = 127: the block solve, and the locals in device memory), on the
-     same operating point, with K2's share of cycles per phase;
+     0-60 ns, graetz over 0-20 ms, a 125-section RC ladder over 0-5 us
+     (n = 127: the block solve, and the locals in device memory), the
+     darlington (two BJTs, 0-1 us) and an L/K/E/G/F/H deck (0-0.5 us),
+     on the same operating point, with K2's share of cycles per phase;
   7. the K2 path: vmem_tran() of the full DFF (0-600 ns), cold and warm,
      against the golden, one K2 launch per transient and K1 launches for
      the operating point; then once at the reference's 512-row chunks;
      with K2's share of cycles per phase of a Newton iteration;
   8. vmem_tran() of the full VACASK graetz span (0-1 s at 1 us, 1,000,001
      save rows) within bench.py's gates, with its phase shares;
+ 8b. vmem_tran() of the full VACASK darlington span (0-1 ms at 2 ns,
+     500,001 save rows) in one K2 launch, within bench.py's physics gate,
+     and its first 4 us against tran() on the card away from the
+     switching edges;
+ 8c. AC and noise on the card, 801 frequencies each in one K1 launch,
+     against the same calls on the CPU: the DFF's supply rejection, its
+     output noise referred to the supply, and a darlington biased ON;
   9. the sweep path: bench.py's 4096-way DFF Monte Carlo (montecarlo_table
      over cq.c, mno1.w and mpo1.w, seed 42), once, through transweep() over
      0-600 ns, unchunked, every Newton iteration of all lanes one K1
      launch; four lanes held against the same rows run on the host CPU,
-     a torch.profiler run of the operating point and the first 30 ns (which
-     must repeat the operating points bit for bit), and
+     the operating point again (bit for bit) and a torch.profiler run of
+     the first 10 ns of the transient from it, and
      K1's jvp and vjp rules on every lane's Jacobian at its operating
      point, held to a bound scaled by cond(G);
  10. dcsweep() with its neighbour-seeded rescue on a crippled 5-diode
@@ -85,6 +94,9 @@ MC_CHECK = [0, 1, 2047, 4095]   # lanes rerun on the host CPU
 MC_KW = dict(dt=3.333e-10, max_steps=20000, n_save=61)
 MC_TOL = 1e-9          # check lanes, card vs CPU: max |dx| / 5 V
 CPU_TOL = 1e-9         # DC sweep, sensitivities, jacfwd: card vs CPU
+AC_TOL = 1e-9          # AC card vs CPU, of max |H|; noise PSD, relative
+AC_FREQS = (100, 1e3, 1e11)    # acdec: 801 points, 1 kHz to 100 GHz
+AC_DFF_ROW = "f64 n=38 k=1 b=801 (AC sweep, DFF)"
 DIODE_CHAIN = """diode chain
 .model dd d is=1e-15 n=1
 vs in 0 dc 0
@@ -96,6 +108,46 @@ d4 d e dd
 d5 e 0 dd
 .end
 """
+
+
+#: an RLC driven through a VCVS with a coupled secondary, a VCCS into a
+#: sensing V source, and the CCCS and CCVS that read its current: every
+#: linear model K2 gained beside the BJT (L, K, E, G, F, H)
+LKEFGH = """rlc driven through a vcvs, coupled secondary, controlled sources
+vin in 0 dc 0 pulse 0 1 10n 5n 5n 200n 400n
+e1 drv 0 in 0 2
+r1 drv a 50
+l1 a b 10u
+c1 b 0 1n
+rload b 0 1k
+l2 s 0 40u
+k12 l1 l2 0.8
+rs s 0 200
+vsen drv2 0 0
+g1 0 drv2 b 0 1m
+f1 0 fo vsen 5
+rf fo 0 100
+cf fo 0 10p
+h1 ho 0 vsen 1k
+rh ho 0 1k
+.end
+"""
+
+
+def edge_masked(ts, a, b):
+    """The darlington's bar away from its switching edges
+    (tests/test_vacask_circuits.py::test_darlington_pit_matches_serial):
+    where the pulse (period 2 us) is more than 50 ns from a transition,
+    the 99th percentile of |a - b| and its maximum."""
+    tm = np.asarray(ts) % 2e-6
+    mask = (((tm > 0.05e-6) & (tm < 0.95e-6))
+            | ((tm > 1.05e-6) & (tm < 1.95e-6)))
+    err = np.abs(np.asarray(a)[mask] - np.asarray(b)[mask])
+    return float(np.quantile(err, 0.99)), float(err.max())
+
+
+#: the edge-masked bar: 99th percentile and maximum, volts
+EDGE_Q99_TOL, EDGE_MAX_TOL = 0.15, 0.6
 
 
 def nvidia_smi(query):
@@ -190,7 +242,12 @@ def kernel_cases(card):
              ("f64 n=19 k=1 b=4096", 19, 1, 4096, torch.float64, False),
              ("f64 n=128 k=1 b=64", 128, 1, 64, torch.float64, False),
              ("f64 n=19 k=1 b=1 A[5,5]=0", 19, 1, 1, torch.float64, True),
-             ("f32 n=19 k=1 b=1", 19, 1, 1, torch.float32, False)]
+             ("f32 n=19 k=1 b=1", 19, 1, 1, torch.float32, False),
+             # an AC or noise sweep of 801 frequencies: the real 2n x 2n
+             # embedding of the DFF (n = 19) and of the darlington (n = 7)
+             (AC_DFF_ROW, 38, 1, 801, torch.float64, False),
+             ("f64 n=14 k=1 b=801 (AC sweep, darlington)", 14, 1, 801,
+              torch.float64, False)]
     results = {}
     for name, n, k, b, dtype, zero_diag in cases:
         # well-conditioned (eigenvalues within ~1 of 2), so the residual
@@ -272,7 +329,11 @@ def rel_err(a, b):
 
 def k1_derivative_cases(card):
     """Phase 3b: K1's jvp and vjp rules on the card against torch.func
-    autodiff of the plain twin on the same inputs."""
+    autodiff of the plain twin on the same inputs; times beside the bound
+    and the same torch.func call on torch.linalg.solve (timed only). Each
+    rule reads A, B and one tangent or cotangent pair and writes X and its
+    derivative (2n^2 + 4nk numbers per system); it does one solve and two
+    more n^2 k products or triangular solves per column."""
     import torch
     from torch.func import jvp, vjp
     from cadnip_tpu_torch.ops.gj_solve import GJSolve, gj_solve_plain
@@ -292,11 +353,15 @@ def k1_derivative_cases(card):
                                         device="cuda") for _ in range(3))
         runs = {
             "jvp": (lambda: jvp(GJSolve.apply, (At, Bt), (dAt, dBt))[1],
-                    lambda: jvp(gj_solve_plain, (At, Bt), (dAt, dBt))[1]),
+                    lambda: jvp(gj_solve_plain, (At, Bt), (dAt, dBt))[1],
+                    lambda: jvp(torch.linalg.solve, (At, Bt), (dAt, dBt))[1]),
             "vjp": (lambda: vjp(GJSolve.apply, At, Bt)[1](gXt),
-                    lambda: vjp(gj_solve_plain, At, Bt)[1](gXt))}
+                    lambda: vjp(gj_solve_plain, At, Bt)[1](gXt),
+                    lambda: vjp(torch.linalg.solve, At, Bt)[1](gXt))}
         name = f"n={n} k={k} b={b}"
-        for rule, (kern, plain) in runs.items():
+        bound = roofline(8 * b * (2 * n * n + 4 * n * k),
+                         b * (solve_flops(n, k) + 4 * n * n * k), 8)
+        for rule, (kern, plain, library) in runs.items():
             got, ref = kern(), plain()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
@@ -304,14 +369,19 @@ def k1_derivative_cases(card):
             reps = 20 if b > 1 else 100
             ms = cuda_time_ms(kern, reps)
             plain_ms = cuda_time_ms(plain, reps)
+            library_ms = cuda_time_ms(library, reps)
             print(f"K1 {rule} {name}: max relative error {err:.3e}; kernel "
-                  f"{ms * 1e3:.1f} us, twin {plain_ms * 1e3:.1f} us [{card}]",
-                  flush=True)
+                  f"{ms * 1e3:.1f} us, twin {plain_ms * 1e3:.1f} us, "
+                  f"torch.linalg.solve {library_ms * 1e3:.1f} us; "
+                  f"{bound['bytes']} bytes, {bound['flops']} FLOP, bound "
+                  f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) "
+                  f"[{card}]", flush=True)
             if not err <= DERIV_TOL:
                 raise RuntimeError(f"K1 {rule} {name}: {err:.3e} > "
                                    f"{DERIV_TOL:.0e}")
             out[f"{rule} {name}"] = dict(max_rel_err=err, ms=ms,
-                                         plain_ms=plain_ms)
+                                         plain_ms=plain_ms,
+                                         library_ms=library_ms, **bound)
     return out
 
 
@@ -468,6 +538,37 @@ def eval_inputs(rng, I=256):
     u = rng.uniform(-0.5, 5.5, (I, 4))
     u[:, 3] = np.where(ty > 0, 0.0, 5.0)
     out["mos1"] = (dv.MOSFET1, u, far(u, 1.5), p, None)
+    # the linear models: node voltages and branch currents at random
+    for name, model, key, lo, hi in (
+            ("inductor", dv.INDUCTOR, "l", 1e-9, 1e-3),
+            ("mutual", dv.MUTUAL, "m", -1e-6, 1e-6),
+            ("vcvs", dv.VCVS, "gain", -10.0, 10.0),
+            ("vccs", dv.VCCS, "gm", -1e-2, 1e-2),
+            ("cccs", dv.CCCS, "gain", -10.0, 10.0),
+            ("ccvs", dv.CCVS, "r", -1e3, 1e3)):
+        p = base(model)
+        p[key] = rng.uniform(lo, hi, I)
+        u = rng.uniform(-5, 5, (I, model.n_local))
+        out[name] = (model, u, u, p, None)
+    # npn and pnp, a finite Early voltage on half (its qb clamp at 0.1
+    # included), junction voltages past the exponential's clamps at +-80
+    # thermal voltages and on both sides of the charge's fc knee
+    p = base(dv.BJT)
+    ty = np.where(rng.random(I) < 0.5, 1.0, -1.0)
+    early = rng.random(I) < 0.5
+    p.update(type=ty, bf=rng.uniform(50, 200, I), br=rng.uniform(0.5, 5, I),
+             nf=rng.uniform(1.0, 1.2, I), nr=rng.uniform(1.0, 1.2, I),
+             vaf=np.where(early, rng.uniform(2, 100, I), 1e12),
+             var=np.where(early, rng.uniform(2, 50, I), 1e12),
+             cje=rng.uniform(1e-12, 1e-11, I),
+             cjc=rng.uniform(1e-12, 5e-12, I),
+             vje=rng.uniform(0.6, 0.9, I), vjc=rng.uniform(0.6, 0.9, I),
+             mje=rng.uniform(0.3, 0.5, I), mjc=rng.uniform(0.3, 0.5, I),
+             tf=rng.uniform(1e-10, 1e-9, I), tr=rng.uniform(1e-9, 1e-8, I),
+             area=rng.uniform(0.5, 2.0, I),
+             **{"is": rng.uniform(1e-16, 1e-14, I)})
+    u = rng.uniform(-3.0, 3.0, (I, 3))
+    out["bjt"] = (dv.BJT, u, far(u, 1.0), p, None)
     return out
 
 
@@ -531,6 +632,14 @@ def k2_bound(S, nnewton):
     return roofline(bytes_, nnewton * solve_flops(n, 1), 8)
 
 
+def span_bound(cc, tspan, dt, sol):
+    """k2_bound of a vmem_tran() run, its set-up rebuilt from the run's
+    operating point (the first save row: no second DC solve)."""
+    from cadnip_tpu_torch.ops import vmem_tran as vt
+    return k2_bound(vt.prepare(cc, tspan, dt=dt, x0=sol.xs[0]),
+                    int(sol.stats.nnewton))
+
+
 def phase_shares(cyc, nnewton):
     """K2's clock64 cycles per phase of a Newton iteration, as shares."""
     total = sum(cyc.values())
@@ -562,10 +671,11 @@ def k2_vs_twin(card):
     """Phase 6: one K2 launch against the twin on the same set-up. The
     ladder is the largest circuit K2 takes (n = 127): it runs the block
     solve with its locals in device memory, the other cases the warp
-    solve with them in shared memory."""
+    solve with them in shared memory. The darlington (BJTs) and the
+    L/K/E/G/F/H deck run the device functions this slice added."""
     import torch
     import cadnip_tpu_torch as ct
-    from cadnip_tpu_torch.models.vacask import GRAETZ, RC_NETLIST
+    from cadnip_tpu_torch.models.vacask import DARLINGTON, GRAETZ, RC_NETLIST
     from cadnip_tpu_torch.ops import vmem_tran as vt
 
     cases = [("rc", RC_NETLIST, (0, 8e-3), 8e-6, ("2", None), 1.0,
@@ -575,7 +685,12 @@ def k2_vs_twin(card):
              ("graetz", GRAETZ, (0, 2e-2), 1e-4, ("outp", "outn"), 20.0,
               ("warp", "shared")),
              ("ladder", rc_ladder(125), (0, 5e-6), 2e-7, ("n125", None), 1.0,
-              ("block", "device"))]
+              ("block", "device")),
+             # the ON half-period of the darlington and its falling edge
+             ("darlington", DARLINGTON, (0, 1e-6), 2e-9, ("coll", None), 5.0,
+              ("warp", "shared")),
+             ("lkefgh", LKEFGH, (0, 5e-7), 2e-9, ("b", None), 2.0,
+              ("warp", "shared"))]
     out = {}
     for name, net, span, dt, (na, nb), scale, layout in cases:
         cc = ct.parse_spice(net, device="cuda")
@@ -681,14 +796,17 @@ def k2_dff(card):
                                f"{k1} K1 launches for {op_iters} DC Newton "
                                f"iterations")
         tm = sol.timings
+        bound = span_bound(cc, (0, 6e-7), 3.333e-10, sol)
         print(f"DFF vmem_tran() {label} (rows_per_chunk {rc}): wall "
               f"{wall:.3f} s (operating point {tm['prepare']:.3f} s, K2 "
               f"{tm['integrate']:.3f} s), accepted {int(st.naccept)}, "
               f"rejected {int(st.nreject)}, newton {nnewton} + DC "
               f"{op_iters}, {nnewton / tm['integrate']:.0f} transient Newton"
               f" it/s, {(nnewton + op_iters) / wall:.1f} Newton it/s overall,"
-              f" K2 launches {k2}, K1 launches {k1}, q rel RMSE {rmse:.3e} "
-              f"[{card}]", flush=True)
+              f" K2 launches {k2}, K1 launches {k1}, q rel RMSE {rmse:.3e}; "
+              f"bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}:"
+              f" {bound['bytes']} bytes, {bound['flops']} FLOP) [{card}]",
+              flush=True)
         print(f"   K2 phases: {phase_shares(sol.phase_cycles, nnewton)}",
               flush=True)
         out[label] = dict(k1=k1, k2=k2, wall=wall)
@@ -713,13 +831,16 @@ def k2_graetz(card):
     ripple_ok = 16.0 < v[late].min() < v[late].max() < 19.5
     rmse = golden_rmse(sol, "graetz", "outp", "outn", scale=20.0)
     tm = sol.timings
+    bound = span_bound(cc, (0, 1.0), 1e-6, sol)
     print(f"graetz vmem_tran() 0-1 s at 1 us ({v.shape[0]} rows): wall "
           f"{wall:.3f} s (operating point {tm['prepare']:.3f} s, K2 "
           f"{tm['integrate']:.3f} s), accepted {int(st.naccept)}, rejected "
           f"{int(st.nreject)}, newton {int(st.nnewton)}, K2 launches "
           f"{ct.vmem_tran.launches}, v(outp,outn) after 0.06 s in "
           f"[{v[late].min():.4f}, {v[late].max():.4f}] V, golden rel RMSE "
-          f"{rmse:.3e} [{card}]", flush=True)
+          f"{rmse:.3e}; bound {bound['bound_ms'] * 1e3:.2f} us "
+          f"({bound['bound_by']}: {bound['bytes']} bytes, {bound['flops']} "
+          f"FLOP) [{card}]", flush=True)
     print(f"   K2 phases: {phase_shares(sol.phase_cycles, st.nnewton)}",
           flush=True)
     if not bool(sol.converged) or not np.isfinite(v).all():
@@ -729,6 +850,149 @@ def k2_graetz(card):
                            f" RMSE {rmse:.3e} (gate {GRAETZ_TOL:.0e})")
     if ct.vmem_tran.launches != 1:
         raise RuntimeError(f"graetz K2: {ct.vmem_tran.launches} launches")
+
+
+def k2_darlington(card):
+    """Phase 8b: the full VACASK darlington span (bench.py's `tran 2n 1m`,
+    500,001 save rows) through vmem_tran() in one K2 launch, within
+    bench.py's physics gate, and its first 4 us against tran() on the
+    card at the edge-masked bar."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.models.vacask import DARLINGTON
+
+    cc = ct.parse_spice(DARLINGTON, device="cuda")
+    torch.cuda.synchronize()
+    ct.vmem_tran.launches = 0
+    t = time.perf_counter()
+    sol = ct.vmem_tran(cc, (0, 1e-3), dt=2e-9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = ct.vmem_tran.launches
+    st = sol.stats
+    nn = int(st.nnewton)
+    ts = np.asarray(sol.ts)
+    vc = sol["coll"].cpu().numpy()
+    late = ts > 0.9e-3
+    physics = bool(vc[late].min() < 1.0 and vc[late].max() > 4.5)
+    tm = sol.timings
+    k2_ms = tm["integrate"] * 1e3
+    t = time.perf_counter()
+    ref = ct.tran(cc, (0, 4e-6), dt=2e-9)
+    torch.cuda.synchronize()
+    tran_wall = time.perf_counter() - t
+    q99, mx = edge_masked(ts[:2001], vc[:2001], ref["coll"].cpu().numpy())
+    bound = span_bound(cc, (0, 1e-3), 2e-9, sol)
+    cyc = sum(sol.phase_cycles.values()) / max(nn, 1)
+    print(f"darlington vmem_tran() 0-1 ms at 2 ns ({vc.shape[0]} rows, n = "
+          f"{cc.n}): wall {wall:.3f} s (operating point "
+          f"{tm['prepare']:.3f} s, K2 {k2_ms:.1f} ms), accepted "
+          f"{int(st.naccept)}, rejected {int(st.nreject)}, newton {nn}, "
+          f"{k2_ms * 1e3 / max(nn, 1):.2f} us and {cyc:.0f} cycles per Newton"
+          f" iteration, K2 launches {launches}; v(coll) after 0.9 ms in "
+          f"[{vc[late].min():.4f}, {vc[late].max():.4f}] V; against tran() "
+          f"0-4 us ({tran_wall:.1f} s, newton {int(ref.stats.nnewton)}) away"
+          f" from the edges: 99th percentile {q99:.3e} V, max {mx:.3e} V; "
+          f"bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}: "
+          f"{bound['bytes']} bytes, {bound['flops']} FLOP) [{card}]",
+          flush=True)
+    print(f"   K2 phases: {phase_shares(sol.phase_cycles, nn)}", flush=True)
+    if not (bool(sol.converged) and bool(ref.converged)
+            and np.isfinite(vc).all() and vc.shape == (500001,)):
+        raise RuntimeError("darlington K2: transient failed")
+    if not physics:
+        raise RuntimeError(f"darlington K2: v(coll) after 0.9 ms in "
+                           f"[{vc[late].min()}, {vc[late].max()}], want min"
+                           f" < 1.0 V and max > 4.5 V")
+    if launches != 1:
+        raise RuntimeError(f"darlington K2: {launches} launches (want 1)")
+    if not (q99 < EDGE_Q99_TOL and mx < EDGE_MAX_TOL):
+        raise RuntimeError(f"darlington K2 against tran(): {q99:.3e} / "
+                           f"{mx:.3e} V over {EDGE_Q99_TOL} / {EDGE_MAX_TOL}")
+    return dict(launches=launches, ms=k2_ms, wall=wall, nnewton=nn,
+                **bound)
+
+
+def ac_noise(card):
+    """Phase 8c: AC and noise sweeps of 801 frequencies on the card, each
+    one K1 launch, against the same calls on a CPU circuit: the DFF's
+    supply rejection (acmag = 1 on vvdd, output q), its output noise at q
+    referred to vvdd, and the AC of a darlington biased ON (vs at DC 3 V,
+    acmag = 1, output coll). Beside each sweep's wall, the time of its K1
+    launch alone on the same system (CUDA events)."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.analyses.ac import linearize
+    from cadnip_tpu_torch.mna.assemble import make_ac_rhs, make_assembler
+    from cadnip_tpu_torch.mna.spec import MODE_AC
+    from cadnip_tpu_torch.models.vacask import DARLINGTON
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    freqs = ct.acdec(*AC_FREQS)
+    runs = [("DFF PSRR (ac, q / vvdd)", ct.dff_netlist(),
+             {"vvdd.acmag": 1.0}, "ac", "q"),
+            ("DFF output noise (noise, q, input vvdd)", ct.dff_netlist(), {},
+             "noise", "q"),
+            ("darlington ON (ac, coll / vs at 3 V)", DARLINGTON,
+             {"vs.dc": 3.0, "vs.acmag": 1.0}, "ac", "coll")]
+    out = {}
+    for label, net, alter, kind, node in runs:
+        res = {}
+        for dev in ("cuda", "cpu"):
+            cc = ct.parse_spice(net, device=dev)
+            p = cc.alter(cc.params0(), **alter)
+            op = ct.dc(cc, p)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            gj_solve.launches = 0
+            t = time.perf_counter()
+            if kind == "ac":
+                y = (ct.ac(cc, freqs, p, op_x=op.x)[node],)
+            else:
+                r = ct.noise(cc, node, freqs, p, input="vvdd", op_x=op.x)
+                y = (r.onoise_psd, r.inoise_psd)
+            wall = time.perf_counter() - t
+            res[dev] = (y, wall, gj_solve.launches, bool(op.converged))
+            if dev == "cuda":
+                # the sweep's K1 launch alone: its [801, 2n, 2n] system
+                G, C = linearize(cc, make_assembler(cc), op.x, p,
+                                 cc.spec.dyn(cc.device, mode=MODE_AC))
+                if kind == "noise":
+                    G, C = G.T, C.T
+                w = torch.as_tensor(2 * np.pi * freqs, dtype=torch.float64,
+                                    device="cuda")[:, None, None]
+                Gb, Cb = G.expand(len(freqs), -1, -1), w * C
+                A = torch.cat([torch.cat([Gb, -Cb], -1),
+                               torch.cat([Cb, Gb], -1)], -2).contiguous()
+                b = torch.zeros(A.shape[:2], dtype=torch.float64,
+                                device="cuda")
+                b[:, :cc.n] = make_ac_rhs(cc)(p)[0]
+                k1_ms = cuda_time_ms(lambda: gj_solve(A, b), 5)
+        (yg, wall, launches, conv), (yc, cpu_wall, _, cconv) = \
+            res["cuda"], res["cpu"]
+        if kind == "ac":
+            err = float(np.abs(yg[0] - yc[0]).max() / np.abs(yc[0]).max())
+            what = (f"|H| {np.abs(yg[0]).min():.4e}-"
+                    f"{np.abs(yg[0]).max():.4e}")
+        else:
+            err = max(float((np.abs(a - c) / np.abs(c)).max())
+                      for a, c in zip(yg, yc))
+            what = (f"output PSD {yg[0].min():.4e}-{yg[0].max():.4e} V^2/Hz,"
+                    f" input-referred {yg[1].min():.4e}-{yg[1].max():.4e}")
+        print(f"{label}, {len(freqs)} frequencies {freqs[0]:g}-"
+              f"{freqs[-1]:g} Hz: {what}; card against CPU {err:.3e}; K1 "
+              f"launches {launches}; wall {wall * 1e3:.1f} ms (CPU "
+              f"{cpu_wall * 1e3:.1f} ms), its K1 launch alone "
+              f"{k1_ms * 1e3:.1f} us [{card}]", flush=True)
+        if not (conv and cconv):
+            raise RuntimeError(f"{label}: operating point did not converge")
+        if launches != 1:
+            raise RuntimeError(f"{label}: {launches} K1 launches (want 1)")
+        if not err <= AC_TOL or not all(np.isfinite(v).all() for v in yg):
+            raise RuntimeError(f"{label}: card against CPU {err:.3e} > "
+                               f"{AC_TOL:.0e}")
+        out[label] = dict(wall=wall, k1_ms=k1_ms, err=err)
+    return out
 
 
 def dff_montecarlo(card, serial_wall):
@@ -821,46 +1085,58 @@ def dff_montecarlo(card, serial_wall):
 
 
 def profile_montecarlo(card, tab, full):
-    """Phase 9b: torch.profiler over the 4096-lane operating point and the
-    first 30 ns (the full run's maximum step, 12 ns, kept). The run
-    repeats phase 9's: its operating point (the t = 0 row) bit for bit,
-    its rows at 10 and 20 ns within MC_TOL (its shorter span rounds the
-    steps before them differently: about 1e-32 V apart on the CPU)."""
+    """Phase 9b: the 4096-lane operating point again, which must repeat
+    phase 9's (the t = 0 row) bit for bit; then torch.profiler over the
+    first 10 ns of the transient from it (the full run's maximum step,
+    12 ns, kept), whose 10 ns row must agree with phase 9's within MC_TOL
+    (the shorter span rounds the steps before it differently). The
+    profiled window is the transient's first 10 ns only: the profiler's
+    stop and `key_averages` cost about 1 ms of host time per kernel
+    launch recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.analyses.sweeps import batch_params
+    from cadnip_tpu_torch.mna.spec import MODE_TRANOP
 
     cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
+    params = batch_params(cc, tab)
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    op = ct.dc(cc, params, mode=MODE_TRANOP, time=0.0, rescue=False)
+    torch.cuda.synchronize()
+    op_wall = time.perf_counter() - t
+    op_equal = torch.equal(op.x, full.xs[:, 0])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        sol = ct.transweep(cc, tab, (0, 3e-8), dt=3.333e-10, n_save=4,
-                           dtmax=6e-7 / 50)
+        sol = ct.transweep(cc, tab, (0, 1e-8), dt=3.333e-10, n_save=2,
+                           dtmax=6e-7 / 50, x0=op.x)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    t = time.perf_counter()
     ev = prof.key_averages()
     kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     n_launch = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
-    print(f"profiled DFF Monte Carlo {MC_LANES} lanes, 0-30 ns: wall "
-          f"{wall:.3f} s (operating point {sol.timings['op']:.3f} s, "
-          f"transient {sol.timings['transient']:.3f} s, host syncs "
-          f"{sol.host_syncs}), device busy {busy:.3f} s = "
-          f"{busy / wall * 100:.1f} %, cudaLaunchKernel {n_launch} [{card}]",
+    print(f"DFF Monte Carlo {MC_LANES} lanes: operating point again "
+          f"{op_wall:.3f} s; profiled transient 0-10 ns from it: wall "
+          f"{wall:.3f} s (host syncs {sol.host_syncs}), device busy "
+          f"{busy:.3f} s = {busy / wall * 100:.1f} %, cudaLaunchKernel "
+          f"{n_launch}; profiler processing "
+          f"{time.perf_counter() - t:.1f} s after the stop [{card}]",
           flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"   {e.key[:60]:60s} count {e.count:7d} device "
               f"{e.self_device_time_total / 1e3:10.3f} ms", flush=True)
-    op_equal = torch.equal(sol.xs[:, 0], full.xs[:, 0])
-    err = float((sol.xs[:, 1:3] - full.xs[:, 1:3]).abs().max()) / 5.0
-    print(f"profiled run against phase 9's: operating points of {MC_LANES} "
-          f"lanes bit for bit {op_equal}; rows at 10 and 20 ns max |dx| / "
-          f"5 V {err:.3e}", flush=True)
+    err = float((sol.xs[:, 1] - full.xs[:, 1]).abs().max()) / 5.0
+    print(f"against phase 9's run: operating points of {MC_LANES} lanes bit"
+          f" for bit {op_equal}; row at 10 ns max |dx| / 5 V {err:.3e}",
+          flush=True)
     if not (op_equal and err <= MC_TOL):
         raise RuntimeError(f"DFF Monte Carlo repeat: operating points equal "
-                           f"{op_equal}, rows at 10 and 20 ns {err:.3e} > "
+                           f"{op_equal}, row at 10 ns {err:.3e} > "
                            f"{MC_TOL:.0e}")
 
 
@@ -996,6 +1272,8 @@ def main():
     twin = phase("6 K2 vs twin", k2_vs_twin, card)
     k2 = phase("7 DFF vmem_tran", k2_dff, card)
     phase("8 graetz", k2_graetz, card)
+    dar = phase("8b darlington", k2_darlington, card)
+    phase("8c AC + noise", ac_noise, card)
     mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"])
     phase("9b profile", profile_montecarlo, card, mc["tab"], mc["sol"])
     phase("9c K1 rules on Jacobians", k1_dff_jacobian_cases, card, mc["cc"],
@@ -1006,6 +1284,7 @@ def main():
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     k1, k2d = cases["f64 n=19 k=1 b=4096"], twin["dff"]
+    k1ac = cases[AC_DFF_ROW]
     kernels = [{"name": "K1 gj_solve (warp and block variants; jvp, vjp)",
                 "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/gj_solve.cu",
@@ -1014,11 +1293,14 @@ def main():
                 "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
                 "bound_us": k1["bound_ms"] * 1e3,
-                "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+                "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+                "ac_shape": AC_DFF_ROW, "ac_ms": k1ac["ms"],
+                "ac_bound_ms": k1ac["bound_ms"],
+                "ac_library_ms": k1ac["library_ms"]},
                {"name": "K2 vmem_tran", "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/vmem_tran.cu",
                 "replaces": "archive/pallas_tran.py:372",
-                "launches": k2["cold"]["k2"],
+                "launches": k2["cold"]["k2"] + dar["launches"],
                 "max_abs_err": k2d["max_abs_err"], "ms": k2d["ms"],
                 "plain_ms": k2d["plain_ms"], "bound_ms": k2d["bound_ms"],
                 "bound_us": k2d["bound_ms"] * 1e3,

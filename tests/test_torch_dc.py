@@ -123,6 +123,60 @@ def test_currents_on_sources_and_nodeset():
     assert sol.currents("r1")["p"] == pytest.approx(2.5e-3, rel=1e-6)
     assert float(sol.i("v1")) == pytest.approx(-2.5e-3, rel=1e-6)
     assert "converged" in repr(sol)
-    with pytest.raises(NotImplementedError, match="op_info"):
-        sol.op_info("r1")
+    # a model without an op-info channel publishes nothing, as in JAX
+    assert sol.op_info("r1") == {}
     np.testing.assert_array_equal(to_numpy(sol.x), sol.x.numpy())
+
+
+def test_op_info_of_a_mosfet_matches_jax():
+    """op_info of the common-source MOSFET (saturated) and of the DFF's
+    first NMOS against the JAX package at the same operating point."""
+    jcir, _ = _mosfet(jct)
+    tcir, _ = _mosfet(tct)
+    jcc = jcir.compile(jct.SimSpec(gmin=0.0))
+    tcc = tcir.compile(tct.SimSpec(gmin=0.0), device="cpu")
+    _, _, jdff, tdff = _dff_ops()
+    cases = [(jct.dc(jcc), tct.dc(tcc), "m1"), (jdff, tdff, "mno1")]
+    for jsol, tsol, inst in cases:
+        got, want = tsol.op_info(inst), jsol.op_info(inst)
+        assert set(got) == set(want) == {"ids", "vgs", "vds", "vth", "gm",
+                                         "gds", "vdsat"}
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-9, abs=1e-18), k
+    info = cases[0][1].op_info("m1")
+    assert info["gm"] == pytest.approx(110e-6 * 10 * 1.0, rel=1e-9)
+
+
+_DFF = {}
+
+
+def _dff_ops():
+    """The DFF in both packages and its operating point in each, built
+    once per module: (jcc, tcc, jsol, tsol)."""
+    if not _DFF:
+        from cadnip_tpu.models.dff import dff_netlist
+        jcc = jct.parse_spice(dff_netlist())
+        tcc = tct.parse_spice(tct.dff_netlist(), device="cpu")
+        _DFF["v"] = (jcc, tcc, jct.dc(jcc), tct.dc(
+            tcc, params_from_numpy(jax_params_np(jcc.params0()),
+                                   device="cpu")))
+    return _DFF["v"]
+
+
+@pytest.mark.parametrize("name", ["dff", "darlington"])
+def test_operating_points_match_jax(name):
+    """The DFF and the darlington (two NPNs) operating points against
+    JAX's: the Newton count exactly, x to 1e-9 relative."""
+    if name == "dff":
+        _, _, jsol, tsol = _dff_ops()
+    else:
+        from cadnip_tpu_torch.models.vacask import DARLINGTON
+        jcc = jct.parse_spice(DARLINGTON)
+        tcc = tct.parse_spice(DARLINGTON, device="cpu")
+        jsol = jct.dc(jcc)
+        tsol = tct.dc(tcc, params_from_numpy(jax_params_np(jcc.params0()),
+                                             device="cpu"))
+    assert bool(jsol.converged) and bool(tsol.converged)
+    assert int(tsol.iters) == int(jsol.iters)
+    np.testing.assert_allclose(tsol.x.numpy(), np.asarray(jsol.x),
+                               rtol=1e-9, atol=1e-12)

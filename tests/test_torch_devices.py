@@ -186,10 +186,179 @@ def test_eval_wave_matches_jax(name):
 
 
 def test_deferred_devices_raise():
+    """The devices that once raised here build now: `Circuit.L` compiles
+    to the JAX package's circuit (names, classes, connections and the
+    inductance), and its operating point shorts the inductor."""
+    import cadnip_tpu as jct
     import cadnip_tpu_torch as ct
-    cir = ct.Circuit("deferred")
-    with pytest.raises(NotImplementedError, match="inductor"):
-        cir.L("l1", "a", "0", 1e-9)
+    cirs = []
+    for pkg, kw in ((jct, {}), (ct, {"device": "cpu"})):
+        cir = pkg.Circuit("deferred")
+        cir.V("v1", "a", "0", dc=1.0)
+        cir.R("r1", "a", "b", 1e3)
+        cir.L("l1", "b", "0", 1e-9)
+        cirs.append(cir.compile(**kw))
+    jcc, tcc = cirs
+    assert tcc.names == jcc.names and tcc.n == jcc.n == 4
+    np.testing.assert_array_equal(tcc.classes, jcc.classes)
+    for tg, jg in zip(tcc.groups, jcc.groups):
+        assert tg.model.name == jg.model.name
+        np.testing.assert_array_equal(tg.conn, jg.conn)
+    assert tcc.groups[2].params["l"].tolist() == [1e-9]
+    import cadnip_tpu_torch as tct
+    sol = tct.dc(tcc)
+    assert float(sol["b"]) == pytest.approx(0.0, abs=1e-12)
+    assert float(sol.i("l1")) == pytest.approx(1e-3, rel=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the models that were deferred, and every noise, flicker and opvars channel
+
+def _bjt_params(rng, ty):
+    p = {k: np.full(NPTS, float(v)) for k, v in jdv.BJT.defaults.items()}
+    early = rng.random(NPTS) < 0.5
+    p.update(type=np.full(NPTS, ty), bf=rng.uniform(50, 200, NPTS),
+             br=rng.uniform(0.5, 5, NPTS), nf=rng.uniform(1.0, 1.2, NPTS),
+             nr=rng.uniform(1.0, 1.2, NPTS),
+             vaf=np.where(early, rng.uniform(2, 100, NPTS), 1e12),
+             var=np.where(early, rng.uniform(2, 50, NPTS), 1e12),
+             cje=rng.uniform(1e-12, 1e-11, NPTS),
+             cjc=rng.uniform(1e-12, 5e-12, NPTS),
+             vje=rng.uniform(0.6, 0.9, NPTS), vjc=rng.uniform(0.6, 0.9, NPTS),
+             mje=rng.uniform(0.3, 0.5, NPTS), mjc=rng.uniform(0.3, 0.5, NPTS),
+             tf=rng.uniform(1e-10, 1e-9, NPTS),
+             tr=rng.uniform(1e-9, 1e-8, NPTS),
+             area=rng.uniform(0.5, 2.0, NPTS),
+             **{"is": rng.uniform(1e-16, 1e-14, NPTS)})
+    return p
+
+
+def _setup_new(kind, rng):
+    """(JAX model, port model, params, u) for the once-deferred models."""
+    if kind in ("npn", "pnp"):
+        u = rng.uniform(-1.5, 1.5, (NPTS, 3))
+        return jdv.BJT, tdv.BJT, _bjt_params(
+            rng, 1.0 if kind == "npn" else -1.0), u
+    jm, tm, key, lo, hi = {
+        "inductor": (jdv.INDUCTOR, tdv.INDUCTOR, "l", 1e-9, 1e-3),
+        "mutual": (jdv.MUTUAL, tdv.MUTUAL, "m", -1e-6, 1e-6),
+        "vcvs": (jdv.VCVS, tdv.VCVS, "gain", -10.0, 10.0),
+        "vccs": (jdv.VCCS, tdv.VCCS, "gm", -1e-2, 1e-2),
+        "cccs": (jdv.CCCS, tdv.CCCS, "gain", -10.0, 10.0),
+        "ccvs": (jdv.CCVS, tdv.CCVS, "r", -1e3, 1e3)}[kind]
+    p = {k: np.full(NPTS, float(v)) for k, v in jm.defaults.items()}
+    p[key] = rng.uniform(lo, hi, NPTS)
+    return jm, tm, p, rng.uniform(-5, 5, (NPTS, jm.n_local))
+
+
+NEW_KINDS = ["inductor", "mutual", "vcvs", "vccs", "cccs", "ccvs", "npn",
+             "pnp"]
+#: the stated bar of the once-deferred models against JAX, relative
+NEW_TOL = 1e-13
+
+
+def _close_new(a, b):
+    np.testing.assert_allclose(a, b, rtol=NEW_TOL,
+                               atol=NEW_TOL * max(np.abs(b).max(), 1e-300))
+
+
+def _both(kind, rng):
+    jm, tm, p, u = (_setup_new if kind in NEW_KINDS else _setup)(kind, rng)
+    jp = jax.tree.map(jnp.asarray, p)
+    tp = params_from_numpy([p], device="cpu")[0]
+    return jm, tm, jp, tp, u
+
+
+@pytest.mark.parametrize("kind", NEW_KINDS)
+def test_new_models_match_jax(kind):
+    """f, q and their Jacobians at seeded random points (junctions of the
+    BJT past the exponential's clamps and both sides of the fc knee), and
+    the parameters carried over by params_from_numpy, BJT's 18 among
+    them."""
+    rng = np.random.default_rng(200 + NEW_KINDS.index(kind))
+    jm, tm, jp, tp, u = _both(kind, rng)
+    assert set(tp) == set(tm.defaults) == set(jm.defaults)
+    jd = jax_dynspec(mode=MODE_TRAN)
+    td = make_dynspec(mode=MODE_TRAN, device="cpu")
+
+    def jf(uu, pp):
+        fq = lambda x: jm.residual(x, pp, jd)
+        return fq(uu), jax.jacfwd(fq)(uu)
+
+    def tf(uu, pp):
+        fq = lambda x: tm.residual(x, pp, td)
+        return fq(uu), jacfwd(fq)(uu)
+
+    (jfv, jqv), (jJ, jC) = jax.vmap(jf)(jnp.asarray(u), jp)
+    (tfv, tqv), (tJ, tC) = vmap(tf)(torch.as_tensor(u), tp)
+    for a, b in ((tfv, jfv), (tqv, jqv), (tJ, jJ), (tC, jC)):
+        _close_new(a.numpy(), np.asarray(b))
+
+
+CHANNEL_KINDS = ["nmos_fwd", "pmos_rev", "diode", "diode_rs", "npn", "pnp"]
+
+
+@pytest.mark.parametrize("kind", CHANNEL_KINDS)
+def test_noise_flicker_opvars_match_jax(kind):
+    """The white-noise, 1/f and operating-point channels at the same
+    points (and the resistor's thermal noise) against JAX."""
+    rng = np.random.default_rng(300 + CHANNEL_KINDS.index(kind))
+    jm, tm, jp, tp, u = _both(kind, rng)
+    if kind == "diode":
+        p = {"kf": rng.uniform(1e-17, 1e-15, NPTS),
+             "af": rng.uniform(0.8, 1.5, NPTS)}
+        jp = dict(jp, **{k: jnp.asarray(v) for k, v in p.items()})
+        tp = dict(tp, **{k: torch.as_tensor(v) for k, v in p.items()})
+    assert tm.noise_pairs == jm.noise_pairs
+    jd = jax_dynspec(mode=MODE_TRAN)
+    td = make_dynspec(mode=MODE_TRAN, device="cpu")
+    ju, tu = jnp.asarray(u), torch.as_tensor(u)
+    for ch in ("noise", "flicker", "opvars"):
+        jfn, tfn = getattr(jm, ch), getattr(tm, ch)
+        assert (jfn is None) == (tfn is None), ch
+        if jfn is None:
+            continue
+        ref = jax.vmap(lambda a, pp: jfn(a, pp, jd))(ju, jp)
+        got = vmap(lambda a, pp: tfn(a, pp, td))(tu, tp)
+        if isinstance(ref, dict):
+            assert set(got) == set(ref)
+            ref, got = [ref[k] for k in sorted(ref)], [got[k] for k in
+                                                      sorted(ref)]
+        ref, got = jax.tree.leaves(ref), torch.utils._pytree.tree_leaves(got)
+        assert len(got) == len(ref)
+        for a, b in zip(got, ref):
+            _close_new(a.numpy(), np.asarray(b))
+    r = rng.uniform(1.0, 1e6, NPTS)
+    np.testing.assert_allclose(
+        vmap(lambda a, rr: tdv.RESISTOR.noise(a, {"r": rr}, td))(
+            torch.as_tensor(u[:, :2]), torch.as_tensor(r)).numpy(),
+        np.asarray(jax.vmap(lambda a, rr: jdv.RESISTOR.noise(
+            a, {"r": rr}, jd))(jnp.asarray(u[:, :2]), jnp.asarray(r))),
+        rtol=NEW_TOL)
+
+
+@pytest.mark.parametrize("kind", ["npn", "pnp"])
+def test_bjt_limiter_matches_jax_exactly(kind):
+    """pnjlim on both junctions, from previous points near and far, some at
+    the zeros a transient starts from: both sides of vcrit."""
+    rng = np.random.default_rng(400 + len(kind))
+    jm, tm, jp, tp, u = _both(kind, rng)
+    u_prev = u + rng.normal(0.0, 1.0, u.shape)
+    u_prev[: NPTS // 8] = 0.0
+    jd = jax_dynspec(mode=MODE_TRAN)
+    ref = jax.vmap(lambda a, b, pp: jm.limit(a, b, pp, jd))(
+        jnp.asarray(u), jnp.asarray(u_prev), jp)
+    td = make_dynspec(mode=MODE_TRAN, device="cpu")
+    got = vmap(lambda a, b, pp: tm.limit(a, b, pp, td))(
+        torch.as_tensor(u), torch.as_tensor(u_prev), tp)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # both sides of vcrit, and some instances moved by the limiter
+    vt = float(td.vt)
+    vcrit = vt * np.log(vt / (np.sqrt(2.0) * jp["is"] * jp["area"]))
+    ty = np.asarray(jp["type"])
+    vbe = ty * (u[:, 1] - u[:, 2])
+    assert (vbe > vcrit).any() and (vbe < vcrit).any()
+    assert (got.numpy() != u).any() and (got.numpy() == u).any()
 
 
 @pytest.mark.parametrize("time", [0.0, 5e-3, 1.5e-2])

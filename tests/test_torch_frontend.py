@@ -1,7 +1,8 @@
 """SPICE front end of the port (cadnip_tpu_torch/frontend) against the JAX
-package: the compiled circuit field by field for the DFF benchmark and for
-the tests/test_frontend.py decks that use only ported devices, and the
-features that are not ported yet raising NotImplementedError."""
+package: the compiled circuit field by field for the DFF benchmark, for
+the tests/test_frontend.py decks, for a deck of every once-deferred element
+(L, K, E, G, F, H, Q) and the darlington, and the features that are not
+ported yet raising NotImplementedError."""
 import jax
 import numpy as np
 import pytest
@@ -157,13 +158,119 @@ def test_number_magnitudes():
     assert parse_number("abc") is None
 
 
+#: every once-deferred element: a K before its second inductor, an F
+#: whose sensed source comes later in the deck and one whose source came
+#: before, an H inside a subcircuit sensing that subcircuit's source (its
+#: prefix) before the source's line, npn and pnp cards
+ELEMENTS = """every once-deferred element
+.model qn npn bf=80 is=1e-15 vaf=50 cje=1p cjc=0.5p tf=0.1n
+.model qp pnp bf=50 is=2e-15
+.subckt sense in out
+h1 out 0 vs 100
+vs in mid 0
+r1 mid 0 1k
+.ends
+v1 in 0 dc 1 ac 1
+e1 a 0 in 0 2
+r1 a b 100
+l1 b c 1u
+c1 c 0 1n
+k1 l1 l2 0.5
+l2 d 0 4u
+r2 d 0 50
+g1 0 e in 0 1m
+re e 0 1k
+f1 0 f vlate 3
+rf f 0 1k
+f2 0 f2n v1 0.5
+rf2 f2n 0 1k
+rl in g 2k
+vlate g 0 0
+x1 in hout sense
+rh hout 0 10k
+vcc vcc 0 5
+rc vcc col 1k
+q1 col bb 0 qn
+rbb in bb 10k
+q2 0 pb pe qp
+rpe vcc pe 2k
+rpb pb 0 10k
+.end
+"""
+
+
+@pytest.mark.parametrize("name", ["elements", "darlington"])
+def test_once_deferred_elements_compile_identically_and_solve(name):
+    """L, K, E, G, F, H and Q from SPICE, compiled field by field against
+    cadnip_tpu.parse_spice (names, conn with the sense columns, the
+    parameters with the mutual's m = k sqrt(L1 L2)), and the same
+    operating point from the same parameters."""
+    from cadnip_tpu_torch.models.vacask import DARLINGTON
+    text = ELEMENTS if name == "elements" else DARLINGTON
+    tcc, jcc = parse_spice(text, device="cpu"), jax_parse(text)
+    assert_same_circuit(tcc, jcc)
+    models = {g.model.name for g in tcc.groups}
+    if name == "elements":
+        assert models >= {"inductor", "mutual", "vcvs", "vccs", "cccs",
+                          "ccvs", "bjt"}
+        gi, slot = tcc.inst_group["k1"]
+        g = tcc.groups[gi]
+        assert g.params["m"][slot] == pytest.approx(0.5 * np.sqrt(4e-12),
+                                                    rel=1e-15)
+        # the sense columns hold the sensed branch unknowns
+        assert list(g.conn[slot]) == [tcc.names["l1#i"], tcc.names["l2#i"]]
+        gi, slot = tcc.inst_group["x1.h1"]
+        assert tcc.groups[gi].conn[slot][2] == tcc.names["x1.vs#i"]
+        gi, slot = tcc.inst_group["f1"]
+        assert tcc.groups[gi].conn[slot][2] == tcc.names["vlate#i"]
+        gi, slot = tcc.inst_group["q2"]
+        assert tcc.groups[gi].params["type"][slot] == -1.0
+    else:
+        assert models == {"vsource", "resistor", "bjt", "capacitor"}
+        assert tcc.n == 7
+    params = params_from_numpy(_jax_params_np(jcc), device="cpu")
+    tsol, jsol = tct.dc(tcc, params), jct.dc(jcc)
+    assert bool(tsol.converged) and bool(jsol.converged)
+    assert int(tsol.iters) == int(jsol.iters)
+    np.testing.assert_allclose(tsol.x.numpy(), np.asarray(jsol.x),
+                               rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("line, what", [
+    ("f1 0 b r1 2", "has no branch current"),
+    ("l1 a b 1u\nk1 l1 l9 0.5", "couples unknown inductors"),
+])
+def test_bad_sense_targets_error_like_jax(line, what):
+    """A CCCS sensing a resistor, a K coupling an inductor that does not
+    exist: the JAX package's error, word for word."""
+    deck = f"bad sense\nv1 a 0 1\nr1 a 0 1k\nr2 b 0 1k\n{line}\n"
+    with pytest.raises(ValueError) as want:
+        jax_parse(deck)
+    with pytest.raises(ValueError) as got:
+        parse_spice(deck, device="cpu")
+    assert str(got.value) == str(want.value)
+    assert what in str(got.value)
+
+
 @pytest.mark.parametrize("line, what", [
     ("l1 a 0 1n", "inductor"),
-    ("e1 a 0 b 0 2", "VCVS"),
-    ("q1 a b 0 qn", "BJT"),
+    ("e1 a 0 b 0 2", "vcvs"),
+    ("q1 a b 0 qn", "bjt"),
+])
+def test_once_deferred_lines_build_like_jax(line, what):
+    """The element lines that raised before this slice's devices existed
+    now compile to the JAX package's circuit."""
+    deck = f"deferred\nv1 b 0 1\nr1 a 0 1k\n.model qn npn\n{line}\n"
+    tcc = parse_spice(deck, device="cpu")
+    assert_same_circuit(tcc, jax_parse(deck))
+    assert tcc.groups[-1].model.name == what
+
+
+@pytest.mark.parametrize("line, what", [
     ("bsq a 0 v={v(b)*2}", "B-sources"),
     (".hdl \"diode.va\"", "Verilog-A"),
     ("ma a b 0 0 m2 w=1u l=1u\n.model m2 nmos level=49", "tier-1"),
+    ("qv a b 0 q4\n.model q4 npn level=4", "tier-1"),
 ])
 def test_not_ported_features_raise(line, what):
     deck = f"deferred\nv1 b 0 1\nr1 a 0 1k\n.model qn npn\n{line}\n"

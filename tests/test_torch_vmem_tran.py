@@ -28,12 +28,14 @@ import cadnip_tpu as jct
 import cadnip_tpu_torch as tct
 from cadnip_tpu.models.dff import dff_netlist as jax_dff_netlist
 from cadnip_tpu_torch.mna.assemble import make_sorted_scatter
-from cadnip_tpu_torch.models.vacask import GRAETZ, MUL, RC_NETLIST
+from cadnip_tpu_torch.models.vacask import DARLINGTON, GRAETZ, MUL, RC_NETLIST
 from cadnip_tpu_torch.ops import vmem_tran as vt
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "cadnip_tpu_torch", "ops", "csrc")
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402  (the L/K/E/G/F/H deck and the edge bar)
 
 
 class _NumpyF64:
@@ -100,7 +102,11 @@ CIRCUITS = {"rc": lambda ct: ct.parse_spice(RC_NETLIST, **_on_cpu(ct)),
             "dff": lambda ct: ct.parse_spice(
                 jax_dff_netlist() if ct is jct else ct.dff_netlist(),
                 **_on_cpu(ct)),
-            "ladder": _ladder}
+            "ladder": _ladder,
+            "darlington": lambda ct: ct.parse_spice(DARLINGTON,
+                                                    **_on_cpu(ct)),
+            "lkefgh": lambda ct: ct.parse_spice(chip_smoke.LKEFGH,
+                                                **_on_cpu(ct))}
 
 
 @pytest.mark.parametrize("name", list(CIRCUITS))
@@ -248,7 +254,7 @@ def test_kernel_layouts_match_the_host():
         body = re.search(r"enum \{ (%s = 0[^}]*)\}" % first, cuh).group(1)
         return [w.split("=")[0].strip() for w in body.split(",")]
 
-    prefix = {"diode": "D_", "mos1": "M_"}
+    prefix = {"diode": "D_", "mos1": "M_", "bjt": "Q_"}
     for model, (mid, pnames) in vt.KERNEL_MODELS.items():
         name = {"diode_rs": "DIODE_RS", "mos1": "MOS1"}.get(
             model.name, model.name.upper())
@@ -258,6 +264,16 @@ def test_kernel_layouts_match_the_host():
         if key:
             assert enum(key + pnames[0].upper()) == [
                 key + p.upper() for p in pnames]
+        elif pnames:
+            # one parameter: its P_ index is 0
+            assert len(pnames) == 1
+            assert re.search(r"enum \{ P_%s = 0 \}" % pnames[0].upper(),
+                             cuh), model.name
+    # every built-in model has a device function
+    from cadnip_tpu_torch.mna.devices import BUILTINS
+    assert set(vt.KERNEL_MODELS) == set(BUILTINS.values())
+    assert max(m.n_local for m in BUILTINS.values()) == int(re.search(
+        r"MAX_NL = (\d+);", cuh).group(1))
     assert vt.smem_bytes(vt.MAX_UNKNOWNS) <= 232448 - 2048
 
 
@@ -314,23 +330,40 @@ def test_k2_matches_twin_on_gpu(cuda, name):
 
 
 @pytest.mark.gpu
-def test_device_functions_match_twin_on_gpu(cuda):
-    sys.path.insert(0, ROOT)
-    import chip_smoke
+@pytest.mark.parametrize("name", list(chip_smoke.eval_inputs(
+    np.random.default_rng(4), I=1)))
+def test_device_functions_match_twin_on_gpu(cuda, name):
     from cadnip_tpu_torch.mna.spec import MODE_TRAN, make_dynspec
 
     def t(a):
         return torch.as_tensor(a, dtype=torch.float64, device=cuda)
 
     dyn = make_dynspec(gmin=vt.GMIN, mode=MODE_TRAN, device=cuda)
-    for name, (model, u, up, p, wv) in chip_smoke.eval_inputs(
-            np.random.default_rng(4)).items():
-        args = (t(u), t(up), {k: t(v) for k, v in p.items()},
-                None if wv is None else t(wv), dyn)
-        for a, b in zip(vt.eval_group(model, *args),
-                        vt.eval_group_plain(model, *args)):
-            assert float((a - b).abs().max()) <= 1e-10 * max(
-                float(b.abs().max()), 1e-300), name
+    model, u, up, p, wv = chip_smoke.eval_inputs(
+        np.random.default_rng(4))[name]
+    args = (t(u), t(up), {k: t(v) for k, v in p.items()},
+            None if wv is None else t(wv), dyn)
+    for a, b in zip(vt.eval_group(model, *args),
+                    vt.eval_group_plain(model, *args)):
+        assert float((a - b).abs().max()) <= 1e-10 * max(
+            float(b.abs().max()), 1e-300), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["darlington", "lkefgh"])
+def test_k2_new_models_match_twin_on_gpu(cuda, name):
+    """The darlington (BJTs) over 0-1 us and the L/K/E/G/F/H deck over
+    0-2 us through K2 against the twin, at chip_smoke.py's bars."""
+    net = DARLINGTON if name == "darlington" else chip_smoke.LKEFGH
+    span = (0, 1e-6) if name == "darlington" else (0, 2e-6)
+    S = vt.prepare(tct.parse_spice(net, device=cuda), span, dt=2e-9)
+    rk, rp = vt.integrate(S), vt.integrate_plain(S)
+    assert not rk.stats[3] and not rp.stats[3]
+    assert all(abs(a - b) <= max(1, chip_smoke.TWIN_COUNT_TOL * b)
+               for a, b in zip(rk.stats[:3], rp.stats[:3]))
+    tol = (chip_smoke.TWIN_RMSE_TOL if rk.stats[:3] == rp.stats[:3]
+           else chip_smoke.TWIN_FLIP_TOL)
+    assert float((rk.xs - rp.xs).pow(2).mean().sqrt()) / 5.0 <= tol
 
 
 @pytest.mark.gpu
