@@ -39,6 +39,15 @@ A circuit is compiled for the card unless the caller asks for the host
     sn = noise(cc, "q", acdec(100, 1e3, 1e11), input="vvdd")
     sn.onoise_psd, sn.inoise_psd, sn.contributions["mno1"]
 
+Verilog-A compact models compile to DeviceModels whose residual
+interprets the analog block on torch tensors (`compile_va`,
+`load_va_file`; the EKV model in `models/ekv.py`); a netlist loads them
+with `.hdl` and instantiates them by N/Y/X lines or `.model` cards:
+
+    ekv = compile_ekv()                             # the inline EKV 2.6
+    cir.add(ekv, "m1", ("d", "g", "0", "0"), vto=0.6, vto__given=1.0)
+    cc = parse_spice(deck_with_hdl_card)            # `.hdl "ekv26.va"`
+
 This package imports torch and numpy, never jax or cadnip_tpu.
 """
 from .mna.structure import Circuit, CompiledCircuit  # noqa: F401
@@ -60,8 +69,11 @@ from .analyses.sweeps import (  # noqa: F401
 from .analyses.sensitivity import dc_sensitivity  # noqa: F401
 from .ops.vmem_tran import supported, vmem_tran  # noqa: F401
 from .frontend.elaborate import parse_spice  # noqa: F401
+from .va.codegen import (  # noqa: F401
+    VACompileError, compile_va, load_va_file)
 from . import models  # noqa: F401
 from .models.dff import dff_netlist  # noqa: F401
+from .models.ekv import compile_ekv  # noqa: F401
 
 __all__ = [
     "Circuit", "CompiledCircuit", "SimSpec", "DeviceModel", "devices",
@@ -75,6 +87,7 @@ __all__ = [
     "Sweep", "ProductSweep", "TandemSweep", "SerialSweep",
     "dcsweep", "transweep", "montecarlo_table", "dc_sensitivity",
     "parse_spice", "models", "dff_netlist",
+    "compile_va", "load_va_file", "VACompileError", "compile_ekv",
 ]
 
 __version__ = "0.1.0"

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from ..config import DTYPE
-from ..mna.assemble import make_ac_rhs, make_assembler, pad_state
+from ..mna.assemble import ensure_setup, make_ac_rhs, make_assembler, \
+    pad_state
 from ..mna.spec import MODE_AC
 from ..mna.structure import CompiledCircuit
 from ..ops.linalg import solve_complex
@@ -64,11 +65,11 @@ def acdec(points_per_decade: int, fstart: float, fstop: float) -> np.ndarray:
 
 def _check_model(cc: CompiledCircuit):
     # the JAX package folds absdelay sites into each frequency's system
-    # (make_delay_meta); no model of the port has delay sites
+    # (make_delay_meta); the port refuses them (ROADMAP item 3b)
     for g in cc.groups:
         assert not g.model.n_delay_sites, (
             f"{g.model.name}: absdelay sites need make_delay_meta (ROADMAP, "
-            f"modules still to port, item 2: transient extras)")
+            f"modules still to port, item 3b)")
 
 
 def linearize(cc: CompiledCircuit, assemble, x_op, params, dyn):
@@ -111,6 +112,7 @@ def ac(cc: CompiledCircuit, freqs, params=None, *, op_x=None) -> ACSolution:
     if params is None:
         params = cc.params0()
     _unbatched(params, "ac")
+    params = ensure_setup(cc, params)
     freqs = np.atleast_1d(np.asarray(freqs, np.float64))
     op = None
     if op_x is None:
@@ -157,6 +159,7 @@ def subsystem(cc: CompiledCircuit, name, params=None, *,
     if params is None:
         params = cc.params0()
     _unbatched(params, "subsystem")
+    params = ensure_setup(cc, params)
     _check_model(cc)
     if op_x is None:
         op_x = dc(cc, params).x

@@ -7,7 +7,10 @@ the rescue tiers of the JAX package in its order: pseudo-transient
 continuation, then Levenberg-Marquardt. Where they fail too, `dc` returns
 `converged=False`; it does not guess. The JAX package's host-driven
 pseudo-transient tier for Verilog-A circuits (`_ptran_rescue_host`) is
-not ported: the port has no Verilog-A models yet.
+item 3b of the ROADMAP; a circuit with a hoisted Verilog-A setup pass
+takes the fused pseudo-transient tier here. Every entry point computes
+the setup matrix of such a model first (`ensure_setup`), and the solution
+keeps the parameters it was solved with.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import numpy as np
 import torch
 
 from ..config import DTYPE
-from ..mna.assemble import pad_state
+from ..mna.assemble import RANK2_LEAVES, ensure_setup, pad_state
 from ..mna.newton import (NewtonResult, make_dc_solver, make_lm_rescue,
                           make_ptran_rescue)
 from ..mna.spec import MODE_DCOP, MODE_TRANOP
@@ -24,14 +27,15 @@ from ..mna.structure import CompiledCircuit
 
 def param_lanes(params):
     """Number of lanes B a parameter list carries, or None if no leaf has
-    a lane axis ([B, n_inst], or [B, n_inst, width] for coefficients)."""
+    a lane axis ([B, n_inst], or [B, n_inst, width] for coefficients and
+    the host-setup matrix)."""
     for d in params:
         for k, v in d.items():
             if isinstance(v, dict):
                 b = param_lanes([v])
                 if b is not None:
                     return b
-            elif v.ndim > (2 if k == "coeffs" else 1):
+            elif v.ndim > (2 if k in RANK2_LEAVES else 1):
                 return v.shape[0]
     return None
 
@@ -160,6 +164,7 @@ def dc(cc: CompiledCircuit, params=None, x0=None, *, mode: int = MODE_DCOP,
     for node, v in (nodeset or {}).items():
         x[:, cc.index_of(str(node))] = float(v)
     dyn = cc.spec.dyn(cc.device, mode=mode, time=time)
+    params = ensure_setup(cc, params, dyn)
     r = _get_dc_solver(cc)(x, params, dyn)
     if rescue and not bool(r.converged.all()):
         r = _take(r, _cached(cc, "dc_ptran_rescue", make_ptran_rescue)(

@@ -21,7 +21,7 @@ import torch
 from torch.func import vmap
 
 from ..config import DTYPE, ITYPE
-from ..mna.assemble import make_assembler, pad_state
+from ..mna.assemble import ensure_setup, make_assembler, pad_state
 from ..mna.spec import MODE_AC
 from ..mna.structure import CompiledCircuit
 from ..ops.linalg import solve_complex
@@ -148,6 +148,7 @@ def noise(cc: CompiledCircuit, out, freqs, params=None, *, input=None,
     if params is None:
         params = cc.params0()
     _unbatched(params, "noise")
+    params = ensure_setup(cc, params)
     freqs = np.atleast_1d(np.asarray(freqs, np.float64))
     op = None
     if op_x is None:

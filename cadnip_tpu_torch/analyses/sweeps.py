@@ -127,7 +127,8 @@ def batch_params(cc: CompiledCircuit, table: dict, params=None):
     NaN entries (from SerialSweep) keep the base value for that point.
 
     The JAX package then re-runs the hoisted host setup of Verilog-A
-    models (`ensure_setup`); the port has no Verilog-A models yet."""
+    models (`ensure_setup`). Here `transweep` gets it from `tran`'s entry;
+    `dcsweep`'s is ROADMAP item 3b."""
     if params is None:
         params = cc.params0()
     batch = None

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from ..config import DTYPE, ITYPE
-from ..mna.assemble import make_assembler, make_rhs_assembler, pad_state
+from ..mna.assemble import (ensure_setup, make_assembler, make_rhs_assembler,
+                             pad_state)
 from ..mna.devices import CLASS_V
 from ..mna.newton import (_make_assemble_solve, abstol_vector, damp_step,
                           make_uic_warmup)
@@ -348,6 +349,7 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     dev = cc.device
     if params is None:
         params = cc.params0()
+    params = ensure_setup(cc, params)
     lanes = param_lanes(params)
     B = lanes or 1
     if dt is None:

@@ -15,10 +15,19 @@ after the whole netlist), V, I, E, G, F, H (the current-controlled ones
 sense a V source or inductor by name, before or after them in the deck,
 with the subcircuit prefix), D, Q (npn/pnp cards) and M (level 1), and X.
 
+Verilog-A: `.hdl "file.va"` (or `ahdl_include`, or the `hdl=` argument of
+`parse_spice`) compiles the file's modules into the scope. A module is
+instantiated by an N or Y element, by an X line naming it, or by a D, M,
+Q, J or Z line whose `.model` card has the module's name as its type
+(tier 2, most recent wins). A card of another level, or any card under
+`.option vamodels`, resolves through the tier-1 registry
+(`models/registry.py`), which needs the VA model files. Instance and card
+parameters map case-insensitively, set the `__given` mask, and pick the
+model's per-signature specialization (node collapse).
+
 Not ported yet, and raising NotImplementedError with the feature's name:
-Verilog-A (`.hdl`, N/Y instances, tier-1 VA models, a D, Q or M card of
-another level), the Spectre dialect, behavioral B-sources and the
-`simulate` analyses runner.
+the Spectre dialect, behavioral B-sources and the `simulate` analyses
+runner.
 
 `montecarlo_elaborate` elaborates a netlist once per sample with its
 statistical functions (agauss, gauss, aunif, unif) drawing from a seeded
@@ -40,6 +49,8 @@ from ..mna import devices as dv
 from ..mna import waveforms as wf
 from ..mna.spec import SimSpec
 from ..mna.structure import GROUND_NAMES, Circuit
+from ..models.registry import getmodel
+from ..va.codegen import load_va_file
 from .expressions import (ExprError, eval_expr, expr_names, parse_expr,
                           parse_number)
 from .netlist import (DotCard, Element, IfBlock, LibSection, Netlist,
@@ -77,6 +88,10 @@ class Scope:
     param_vals: dict = dataclasses.field(default_factory=dict)
     models: dict = dataclasses.field(default_factory=dict)
     subckts: dict = dataclasses.field(default_factory=dict)
+    # imported Verilog-A modules: lowercase name -> DeviceModel (tier-2
+    # model resolution, most recent wins, reference `spice_select_device`
+    # sema.jl:308-333)
+    va_modules: dict = dataclasses.field(default_factory=dict)
     # binned model sets: base name -> [ModelCard 'base.1', 'base.2', ...]
     binned: dict = dataclasses.field(default_factory=dict)
 
@@ -107,6 +122,9 @@ class Scope:
 
     def lookup_subckt(self, name):
         return self._lookup("subckts", name)
+
+    def lookup_va(self, name):
+        return self._lookup("va_modules", name)
 
 
 #: expression-level physical constants; netlist .param definitions shadow
@@ -253,7 +271,9 @@ class Elaborator:
         elif kind == "include":
             self._include(card, scope, elements)
         elif kind in ("hdl", "ahdl_include"):
-            _not_ported("Verilog-A (.hdl)", "item 3")
+            path = self._resolve_path(card.fields[0][1])
+            for name, model in load_va_file(path).items():
+                scope.va_modules[name.lower()] = model
         elif kind == "lib":
             self._lib(card, scope, elements)
         elif kind in ("ic", "nodeset"):
@@ -514,15 +534,28 @@ class Elaborator:
                                                      prefix + l2),
                          m=float(k))
             self._mutuals.append((name, prefix + l1, prefix + l2, float(k)))
-        elif L in ("N", "Y", "J", "Z"):
-            _not_ported(f"Verilog-A device instances ({L} element)",
-                        "item 3")
+        elif L == "N" or L == "Y":
+            # VA device instance: nname node... modelname [p=v ...]
+            ws = [fld[1] for fld in f if fld[0] == "word"]
+            mname = ws[-1]
+            mc = scope.lookup_model(mname)
+            va = scope.lookup_va(mc.mtype) if mc else scope.lookup_va(mname)
+            if va is None:
+                raise ElabError(f"{name}: unknown VA model {mname!r}")
+            extra = {k: self.value_of(v, scope) for k, v in kw.items()}
+            self._va_inst(name, va, ws[:-1], flat_node,
+                          dict(mc.params if mc else {}, **extra))
         elif L == "D":
             n1, n2 = words(2)
             mc = scope.lookup_model(f[2][1])
             if mc is None:
                 raise ElabError(f"{name}: unknown diode model {f[2][1]!r}")
-            self._tier1_va(mc)
+            va = scope.lookup_va(mc.mtype) or self._tier1_va(mc)
+            if va is not None:
+                extra = {k: self.value_of(v, scope) for k, v in kw.items()}
+                self._va_inst(name, va, [n1, n2], flat_node,
+                              dict(mc.params, **extra))
+                return
             p = _map_model_params(mc, _DIODE_MAP, self._warn_once)
             area = self.value_of(f[3], scope) if len(f) > 3 else 1.0
             if "area" in kw:
@@ -533,12 +566,22 @@ class Elaborator:
             ws = words(5)
             # the model is the 4th or the 5th word (optional substrate)
             mc = scope.lookup_model(ws[3]) if len(ws) > 3 else None
+            subs_used = False
             if mc is None and len(ws) > 4:
                 mc = scope.lookup_model(ws[4])
+                subs_used = True
             if mc is None:
                 raise ElabError(f"{name}: unknown BJT model")
             c, b, e = ws[0], ws[1], ws[2]
-            self._tier1_va(mc)
+            va = scope.lookup_va(mc.mtype) or self._tier1_va(mc)
+            if va is not None:
+                extra = {k: self.value_of(v, scope) for k, v in kw.items()}
+                if mc.mtype == "pnp":
+                    extra.setdefault("type", -1.0)
+                sub = ws[3] if subs_used else "0"
+                self._va_inst(name, va, [c, b, e, sub], flat_node,
+                              dict(mc.params, **extra))
+                return
             p = _map_model_params(mc, _BJT_MAP, self._warn_once)
             p["type"] = -1.0 if mc.mtype == "pnp" else 1.0
             if "area" in kw:
@@ -557,7 +600,16 @@ class Elaborator:
                 mc = self._find_bin(scope, mname, float(lv), float(wv))
             if mc is None:
                 raise ElabError(f"{name}: unknown MOS model {mname!r}")
-            self._tier1_va(mc)
+            va = scope.lookup_va(mc.mtype) or self._tier1_va(mc)
+            if va is not None:
+                extra = {k: self.value_of(v, scope) for k, v in kw.items()}
+                if mc.mtype == "pmos":
+                    extra.setdefault("type", -1.0)
+                extra.setdefault("w", wv)
+                extra.setdefault("l", lv)
+                self._va_inst(name, va, ws[:4], flat_node,
+                              dict(mc.params, **extra))
+                return
             p = _map_model_params(mc, _MOS_MAP, self._warn_once)
             p["type"] = -1.0 if mc.mtype == "pmos" else 1.0
             p["w"] = wv
@@ -565,6 +617,27 @@ class Elaborator:
             self.cir.add(dv.MOSFET1, name,
                          (flat_node(d), flat_node(g), flat_node(s),
                           flat_node(b)), **p)
+        elif L in ("J", "Z"):
+            # JFET / MESFET: Jname d g s model [area]; resolved through the
+            # tier-1 registry (no built-in devices for these classes)
+            ws = [fld[1] for fld in f if fld[0] == "word"]
+            d_, g_, s_, mname = ws[0], ws[1], ws[2], ws[3]
+            mc = scope.lookup_model(mname)
+            if mc is None:
+                raise ElabError(f"{name}: unknown model {mname!r}")
+            va = scope.lookup_va(mc.mtype) or self._tier1_va(mc)
+            if va is None:
+                raise ElabError(
+                    f"{name}: model type {mc.mtype!r} needs the VA model "
+                    f"package (set CADNIP_VA_MODELS)")
+            extra = {k: self.value_of(v, scope) for k, v in kw.items()}
+            if mc.mtype in ("pjf", "pmf"):
+                extra.setdefault("type", -1.0)
+            if len(ws) > 4:
+                extra.setdefault("area", self.value_of(("word", ws[4]),
+                                                       scope))
+            self._va_inst(name, va, [d_, g_, s_], flat_node,
+                          dict(mc.params, **extra))
         elif L == "X":
             self._subckt_call(card, scope, prefix, flat_node)
         elif L == "B":
@@ -573,9 +646,9 @@ class Elaborator:
             raise ElabError(f"element type {L!r} not supported yet")
 
     def _tier1_va(self, mc: ModelCard):
-        """The JAX package resolves a .model card of another level (or any
-        card under `.option vamodels`) through its tier-1 Verilog-A model
-        registry; the port has only the built-in level-1 devices."""
+        """Tier-1 registry resolution for a model card (reference
+        `src/spc/sema.jl:308-333` fallback to ModelRegistry.getmodel):
+        None where the built-in device serves, or no VA file is found."""
         lvl = 1
         for k, v in mc.params.items():
             if str(k).lower() == "level":
@@ -583,9 +656,44 @@ class Elaborator:
                     lvl = int(float(v))
                 except (TypeError, ValueError):
                     lvl = 1
-        if lvl != 1 or self.options.get("vamodels", 0):
-            _not_ported(f".model {mc.name} ({mc.mtype} level {lvl}): "
-                        f"tier-1 Verilog-A models", "item 3")
+        prefer = bool(self.options.get("vamodels", 0))
+        return getmodel(mc.mtype, lvl, prefer_va=prefer)
+
+    def _va_inst(self, name, model, node_names, flat_node, params: dict):
+        """Instantiate a compiled VA DeviceModel with case-insensitive
+        parameter mapping; overridden params get their __given mask set."""
+        lmap = {k.lower(): k for k in model.defaults
+                if not k.endswith("__given")}
+        kw = {}
+        for k, v in params.items():
+            kl = str(k).lower()
+            if kl in ("level", "version"):
+                continue
+            if kl in lmap:
+                if lmap[kl] in model.structural_params:
+                    self._warn_once(
+                        ("vastruct", model.name, kl),
+                        f"{model.name}: parameter {k!r} is structural "
+                        f"(laplace coefficients / loop bounds are compiled "
+                        f"at default values); the override does NOT affect "
+                        f"those uses")
+                kw[lmap[kl]] = float(v)
+                kw[lmap[kl] + "__given"] = 1.0
+            else:
+                self._warn_once(("vap", model.name, kl),
+                                f"{model.name}: parameter {k!r} ignored")
+        n_term = len(model.terminals)
+        if len(node_names) != n_term:
+            raise ElabError(f"{name}: VA module {model.name} has {n_term} "
+                            f"ports, got {len(node_names)} nodes")
+        if model.va_specialize is not None:
+            # node-collapse specialization for this parameter signature
+            # (reference detect_short_circuits, vasim.jl:2723): `V(a,b)<+0`
+            # branches decided by the instance's effective parameters merge
+            # their nodes instead of carrying a constraint row
+            model = model.va_specialize(kw)
+        self.cir.add(model, name,
+                     tuple(flat_node(n) for n in node_names), **kw)
 
     def _source(self, card: Element, scope, prefix, flat_node):
         name = prefix + card.name
@@ -670,8 +778,14 @@ class Elaborator:
         nodes = words[:-1]
         sub = scope.lookup_subckt(subname)
         if sub is None:
-            raise ElabError(f"unknown subcircuit {subname!r} (Verilog-A "
-                            f"modules are not ported yet)")
+            va = scope.lookup_va(subname)
+            if va is not None:
+                extra = {k: self.value_of(v, scope)
+                         for k, v in card.kwargs.items()}
+                self._va_inst(prefix + card.name, va, nodes, flat_node,
+                              extra)
+                return
+            raise ElabError(f"unknown subcircuit {subname!r}")
         if len(nodes) != len(sub.ports):
             raise ElabError(f"{card.name}: subckt {subname} has "
                             f"{len(sub.ports)} ports, got {len(nodes)}")
@@ -759,11 +873,13 @@ def _looks_like_spectre(text: str) -> bool:
 # public entry points
 
 def elaborate_netlist(source, *, include_dirs=(), section=None, title=None,
-                      rng=None):
+                      rng=None, hdl=()):
     """SPICE text (or a parsed Netlist) -> (Circuit, Elaborator). The
     Elaborator carries the parsed analysis cards, .options and .temp.
     rng: a numpy Generator the statistical functions sample from (None:
-    nominal values)."""
+    nominal values). hdl: Verilog-A file paths preloaded into the root
+    scope (the programmatic `.hdl` card; model cards may then name the
+    modules)."""
     if isinstance(source, Netlist):
         nl = source
     else:
@@ -772,6 +888,9 @@ def elaborate_netlist(source, *, include_dirs=(), section=None, title=None,
         nl = parse_netlist(source)
     el = Elaborator(include_dirs=include_dirs, section=section, rng=rng)
     root = Scope()
+    for path in ([hdl] if isinstance(hdl, str) else hdl):
+        for name, model in load_va_file(path).items():
+            root.va_modules[name.lower()] = model
     elements = el.collect(nl.cards, root)
     el.eval_params(root)
     el.cir = Circuit(title or nl.title or "netlist")
@@ -805,12 +924,12 @@ def spice_spec(el: Elaborator, base: SimSpec | None = None) -> SimSpec:
 
 def parse_spice(source, *, include_dirs=(), section=None,
                 spec: SimSpec | None = None, compile=True,
-                device=DEFAULT_DEVICE):
+                device=DEFAULT_DEVICE, hdl=()):
     """SPICE netlist text -> CompiledCircuit on `device`: the card by
     default (raises where there is none), "cpu" for the host; or the
-    Circuit if compile=False."""
+    Circuit if compile=False. hdl: Verilog-A files to preload."""
     cir, el = elaborate_netlist(source, include_dirs=include_dirs,
-                                section=section)
+                                section=section, hdl=hdl)
     if not compile:
         return cir
     return cir.compile(spice_spec(el, spec), device=device)

@@ -2,7 +2,9 @@
 
 Both packages hold a circuit's parameters as a list over device groups of
 dicts {name: [n_inst] array}, with packed waveforms in a nested "wave"
-dict (int `kind`/`ncoef`, float `coeffs`/`dc`). These helpers move that
+dict (int `kind`/`ncoef`, float `coeffs`/`dc`). A Verilog-A group also
+carries a `<name>__given` mask per parameter and, for a model with a
+hoisted setup pass, the `__setup__` matrix [n_inst, K]. These helpers move that
 structure, converted to numpy, into torch tensors and back, so a test can
 run both packages on the same numbers. Only numpy crosses the boundary:
 this module imports no JAX.

@@ -20,6 +20,14 @@ Every tensor carries a leading lane axis B: x_pad is [B, n+1], the limiter
 state [B, n_lim], parameters [n_inst] (shared) or [B, n_inst] (per lane),
 DynSpec fields 0-d or [B]. B = 1 is the serial case.
 
+Verilog-A groups take two more paths, as in the JAX package: a model with
+`$limit` sites (`residual_lim`) carries one limiter state per probe branch
+and anchors its companion at the limited point through the site hooks
+(`_group_eval_sites`); a model with a hoisted setup pass (`va_setup`)
+takes central-difference Jacobians (`_group_eval_fd`). `ensure_setup`
+computes the setup matrix `p["__setup__"]` ([n_inst, K]) at every solver
+entry.
+
 The scatter is deterministic: on CUDA, `index_add_`/`scatter_add_` on f64
 use atomics whose summation order changes from run to run. Instead the host
 builds, once per circuit, a padded [U, Kmax] gather plan per destination
@@ -76,26 +84,66 @@ def make_sorted_scatter(idx_arrays, out_size, device):
     return scatter
 
 
+def ensure_setup(cc: CompiledCircuit, params, dyn=None):
+    """Inject the host-setup value matrix p['__setup__'] for every group
+    whose model hoists its setup pass (big VA models, see
+    DeviceModel.va_setup). Called at the solver entry points so altered or
+    swept parameters are honored; results are cached per (group, params,
+    temperature). A no-op when no group hoists, or when the parameters are
+    a torch.func transform's tensors (the residual then runs its setup
+    pass inline)."""
+    if not any(g.model.va_setup is not None for g in cc.groups):
+        return params
+    if dyn is None:
+        dyn = cc.spec.dyn(cc.device)
+    try:
+        temp = float(dyn.temp)
+    except (RuntimeError, ValueError, TypeError):
+        return params
+    out = list(params)
+    cache = cc.cache.setdefault("__setup_cache__", {})
+    for gi, g in enumerate(cc.groups):
+        if g.model.va_setup is None:
+            continue
+        p = dict(out[gi])
+        try:
+            arrs = {k: v.detach().cpu().numpy() for k, v in p.items()
+                    if k != "__setup__"}
+        except (RuntimeError, ValueError):
+            continue      # transformed params: leave the inline setup path
+        fp = (gi, temp, tuple(sorted(
+            (k, v.tobytes()) for k, v in arrs.items())))
+        mat = cache.get(fp)
+        if mat is None:
+            mat = cache[fp] = g.model.va_setup(arrs, dyn)
+        p["__setup__"] = torch.as_tensor(mat, dtype=DTYPE, device=cc.device)
+        out[gi] = p
+    return out
+
+
 def _check_model(model):
-    for attr, what in (("residual_lim", "Verilog-A $limit sites"),
-                       ("va_setup", "Verilog-A host setup"),
-                       ("n_delay_sites", "Verilog-A absdelay")):
-        if getattr(model, attr):
-            raise NotImplementedError(
-                f"{model.name}: {what} are not ported to cadnip_tpu_torch "
-                f"yet (ROADMAP, modules still to port, item 3)")
+    if model.n_delay_sites:
+        raise NotImplementedError(
+            f"{model.name}: Verilog-A absdelay is not ported to "
+            f"cadnip_tpu_torch yet (ROADMAP, modules still to port, item "
+            f"3b)")
+
+
+#: leaves whose unbatched rank is 2: waveform coefficients [n_inst, width]
+#: and the host-setup matrix [n_inst, K]
+RANK2_LEAVES = ("coeffs", "__setup__")
 
 
 def _lane_params(p, B, I):
     """Flatten a group's parameter dict to [B*I, ...] leaves: a leaf of the
-    unbatched rank ([n_inst], or [n_inst, width] for waveform coefficients)
-    is shared by every lane; one more axis means one value per lane."""
+    unbatched rank ([n_inst], or [n_inst, width] for `RANK2_LEAVES` leaves) is
+    shared by every lane; one more axis means one value per lane."""
     out = {}
     for k, v in p.items():
         if isinstance(v, dict):
             out[k] = _lane_params(v, B, I)
             continue
-        base = 2 if k == "coeffs" else 1
+        base = 2 if k in RANK2_LEAVES else 1
         if v.ndim == base:
             v = v.expand((B,) + v.shape)
         out[k] = v.reshape((B * I,) + tuple(v.shape[2:]))
@@ -108,12 +156,81 @@ def _lane_dyn(dyn: DynSpec, B, I):
                      .reshape(-1) for f in dyn))
 
 
+def _lim_seed(model, conn, x_pad):
+    """Initial limiter state [B, size] of one group.
+
+    Node-moving models seed with a copy of the gathered state; site-based
+    VA models seed each branch variable with its branch voltage (the
+    reference's tracking-row semantics, `vasim.jl:3097-3140`)."""
+    B = x_pad.shape[0]
+    if model.residual_lim is None:
+        return x_pad[:, conn].reshape(B, -1)
+    cols = []
+    for (pl, nl) in model.lim_branches:
+        vp = x_pad[:, conn[:, pl]]
+        vn = x_pad[:, conn[:, nl]] if nl is not None else 0.0
+        cols.append(vp - vn)
+    return torch.stack(cols, dim=2).reshape(B, -1)
+
+
+def _group_eval_sites(model, u, w_prev, p, dyn):
+    """VA `$limit` site-based limiting for ONE instance (reference dual
+    slots + lim_rhs, `vasim.jl:3012-3146`).
+
+    w_prev [n_branches]: per-branch limiter state (last evaluation
+    voltages). The residual_lim interpreter returns straight-through
+    passthroughs (value at the limited point, conductance wired to the
+    nodes); the companion anchoring F += (dF/dw_site)(vnew - w_site) is the
+    derivative along the site hooks d in that direction. The JAX package
+    takes it as one extra tangent of its linearization; here the one
+    reverse pass that gives the Jacobian in u also gives the d-columns,
+    and their product with vnew - w_site is the same directional
+    derivative without a second evaluation of the device."""
+    zd = torch.zeros(model.n_lim_sites, dtype=u.dtype, device=u.device)
+
+    def fq(uu, dd):
+        (f, q), aux = model.residual_lim(uu, dd, w_prev, p, dyn)
+        return (f, q), ((f, q), aux)
+
+    ((J, Jd), (C, Cd)), ((f, q), (w_new, vnew, wsite)) = jacrev(
+        fq, argnums=(0, 1), has_aux=True)(u, zd)
+    delta = vnew - wsite
+    return f + Jd @ delta, q + Cd @ delta, J, C, w_new
+
+
+#: central-difference step of `va_setup` models, relative to 1 + |u|
+_FD_H = 1e-4
+
+
+def _group_eval_fd(model, u, p, dyn):
+    """Central-difference local Jacobian for ONE instance of a big VA model
+    (PSP/BSIM class, `va_setup` hoisted), as the JAX package computes it:
+    the 2 n_local perturbed points ride one batched evaluation, h =
+    1e-4 (1 + |u|). Newton converges on the exact residual; the Jacobian
+    carries a truncation error of about (h / n vt)^2 / 6 relative."""
+    nl = u.shape[0]
+    f0, q0 = model.residual(u, p, dyn)
+    h = _FD_H * (1.0 + torch.abs(u))
+    E = torch.eye(nl, dtype=u.dtype, device=u.device) * h[None, :]
+    U = torch.cat([u[None, :] + E, u[None, :] - E], 0)
+    fs, qs = vmap(lambda uu: model.residual(uu, p, dyn))(U)
+    inv2h = 1.0 / (2.0 * h)
+    J = (fs[:nl] - fs[nl:]).T * inv2h[None, :]
+    C = (qs[:nl] - qs[nl:]).T * inv2h[None, :]
+    return f0, q0, J, C, u
+
+
 def _group_eval(model, u, u_lim_prev, p, dyn):
     """Residual, charge and their local Jacobians for ONE instance, with
     limiting applied and the companion anchored at the limited point.
 
     `u_lim_prev` is the point the device was limited to on the PREVIOUS
-    Newton iteration (SPICE limiter-state semantics)."""
+    Newton iteration (SPICE limiter-state semantics); for a `$limit` VA
+    model it is the per-branch limiter state."""
+    if model.residual_lim is not None:
+        return _group_eval_sites(model, u, u_lim_prev, p, dyn)
+    if model.va_setup is not None:
+        return _group_eval_fd(model, u, p, dyn)
     u_eval = (model.limit(u, u_lim_prev, p, dyn)
               if model.limit is not None else u)
 
@@ -132,7 +249,9 @@ def make_assembler(cc: CompiledCircuit):
     x_pad is [B, n+1] (ground slot last, always 0). F/Q are [B, n]; G/C
     dense [B, n, n]. `lim` [B, n_lim] holds each limited device's last
     evaluation point, concatenated over groups. The function also carries
-    `init_lim(x_pad)` and `n_lim`."""
+    `init_lim(x_pad)`, `n_lim` and `eval_group(gi, x_pad, lim, p, dyn)`,
+    which evaluates group gi alone -> (f, q, J, C, lim_part) per
+    lane-instance (what the assembly scatters; used to time a group)."""
     n = cc.n
     np1 = n + 1
     dev = cc.device
@@ -143,8 +262,12 @@ def make_assembler(cc: CompiledCircuit):
         conn = torch.as_tensor(g.conn, dtype=ITYPE, device=dev)
         lin = (g.conn[:, :, None] * np1 + g.conn[:, None, :]).reshape(-1)
         sl = None
-        if g.model.limit is not None:
-            sl = (lim_off, lim_off + g.conn.size)
+        if g.model.residual_lim is not None:
+            nb = len(g.model.lim_branches)
+            sl = (lim_off, lim_off + g.conn.shape[0] * nb, nb)
+            lim_off += g.conn.shape[0] * nb
+        elif g.model.limit is not None:
+            sl = (lim_off, lim_off + g.conn.size, g.conn.shape[1])
             lim_off += g.conn.size
         batched = vmap(lambda u, ul, p, d, _m=g.model:
                        _group_eval(_m, u, ul, p, d))
@@ -156,24 +279,28 @@ def make_assembler(cc: CompiledCircuit):
     vmask = torch.as_tensor(cc.classes == CLASS_V, dtype=DTYPE, device=dev)
 
     def init_lim(x_pad):
-        parts = [x_pad[:, conn].reshape(x_pad.shape[0], -1)
-                 for _, conn, _, sl, _ in consts if sl is not None]
+        parts = [_lim_seed(model, conn, x_pad)
+                 for model, conn, _, sl, _ in consts if sl is not None]
         if not parts:
             return torch.zeros((x_pad.shape[0], 0), dtype=DTYPE, device=dev)
         return torch.cat(parts, dim=1)
 
+    def eval_group(gi, x_pad, lim, p, dyn: DynSpec):
+        _, conn, _, sl, batched = consts[gi]
+        B = x_pad.shape[0]
+        I, L = conn.shape
+        u = x_pad[:, conn].reshape(B * I, L)
+        u_lim_prev = (lim[:, sl[0]:sl[1]].reshape(B * I, sl[2])
+                      if sl is not None else u)
+        return batched(u, u_lim_prev, _lane_params(p, B, I),
+                       _lane_dyn(dyn, B, I))
+
     def assemble(x_pad, lim, params, dyn: DynSpec):
         B = x_pad.shape[0]
         fs, qs, Js, Cs, lims = [], [], [], [], []
-        for (model, conn, _, sl, batched), p in zip(consts, params):
-            I, L = conn.shape
-            u = x_pad[:, conn].reshape(B * I, L)
-            u_lim_prev = (lim[:, sl[0]:sl[1]].reshape(B * I, L)
-                          if sl is not None else u)
-            f, q, J, C, u_eval = batched(u, u_lim_prev,
-                                         _lane_params(p, B, I),
-                                         _lane_dyn(dyn, B, I))
-            if sl is not None:
+        for gi, p in enumerate(params):
+            f, q, J, C, u_eval = eval_group(gi, x_pad, lim, p, dyn)
+            if consts[gi][3] is not None:
                 lims.append(u_eval.reshape(B, -1))
             fs.append(f.reshape(B, -1))
             qs.append(q.reshape(B, -1))
@@ -192,6 +319,7 @@ def make_assembler(cc: CompiledCircuit):
 
     assemble.init_lim = init_lim
     assemble.n_lim = n_lim
+    assemble.eval_group = eval_group
     return assemble
 
 

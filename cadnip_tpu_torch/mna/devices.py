@@ -22,6 +22,10 @@ exp)` (S = num / f**exp); `analyses/noise.py` reads both. `opvars(u, p,
 dyn) -> {name: value}` publishes operating-point variables (`op_info`).
 Sources with `ac_rhs` drive the AC excitation vector (`make_ac_rhs`).
 
+Verilog-A models (`va/codegen.py`) are DeviceModels too, with the
+extra hooks below: site-based `$limit` (`residual_lim`), node collapse,
+per-signature specialization and the hoisted host setup pass.
+
 Every function here is branch-free: `torch.where` instead of `if` on a
 tensor, no `.item()`, and `torch.stack` only over tensors, so that
 `torch.func.jacfwd`, `jacrev` and `vmap` can trace it.
@@ -71,11 +75,41 @@ class DeviceModel:
     linear: bool = False
     # optional operating-point info: (u, p, dyn) -> dict of named scalars
     opvars: Optional[Callable] = None
-    # Verilog-A hooks of the JAX package. The port has no VA compiler yet,
-    # so they stay unset; the assembler refuses a model that sets them.
+    # parameter names baked into structure (VA loop bounds, laplace
+    # coefficients): per-instance overrides cannot take effect -> warn
+    structural_params: tuple = ()
+    # VA `$limit` site-based limiting (reference vasim.jl:3012-3146 dual
+    # slots + lim_rhs): residual_lim(u, d, w, p, dyn) -> ((f, q), aux) where
+    # w [n_lim_branches] is per-branch limiter state (previous evaluation
+    # voltages), d [n_lim_sites] is the companion-linearization hook, and
+    # aux = (w_new, vnew, wsite). `limit` above stays the node-moving hook
+    # of the built-in devices.
     residual_lim: Optional[Callable] = None
-    va_setup: Optional[Callable] = None
+    lim_branches: tuple = ()              # ((p_local, n_local|None), ...)
+    n_lim_sites: int = 0
+    # VA `absdelay` transport-delay sites (reference DDE path,
+    # `src/mna/delay.jl:20-28`). The history ring that feeds them in the
+    # transient is a later slice (ROADMAP item 3b): the compiler counts the
+    # sites, leaves `delay_probe` unset, and the assembler refuses a model
+    # with any.
     n_delay_sites: int = 0
+    delay_probe: Optional[Callable] = None
+    # VA node collapse (reference detect_short_circuits, vasim.jl:2723):
+    # ((internal_name, target), ...) where target is a terminal name,
+    # another internal name (chains resolve transitively), or None for
+    # ground. The elaborator wires the collapsed internal's conn column to
+    # the target's global unknown instead of allocating a fresh one.
+    collapses: tuple = ()
+    # (overrides: dict) -> DeviceModel specialized for that parameter
+    # signature (set on base VA models with collapse candidates or a host
+    # setup pass; the frontend calls it per instance)
+    va_specialize: Optional[Callable] = None
+    # Host-setup hoisting for big VA models (PSP/BSIM class): the
+    # (params, temperature)-only setup pass evaluated eagerly on the CPU
+    # once per solve. va_setup(p_arrays, dyn) -> [..., n_inst, K] value
+    # matrix the residual reads back through p['__setup__'];
+    # `mna/assemble.py::ensure_setup` injects it at every solver entry.
+    va_setup: Optional[Callable] = None
 
     @property
     def n_terminals(self):

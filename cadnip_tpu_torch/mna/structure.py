@@ -224,8 +224,11 @@ def elaborate(cir: Circuit, spec: SimSpec,
     internal_idx: dict[tuple, int] = {}   # (inst_name, internal) -> idx
     branch_of: dict[str, int] = {}        # inst -> its 'i' branch unknown
     for model in order:
+        cmap = dict(model.collapses)
         for inst in by_model[model]:
             for iname, icls in model.internals:
+                if iname in cmap:
+                    continue      # merged into its collapse target below
                 idx = next_idx
                 next_idx += 1
                 internal_idx[(inst.name, iname)] = idx
@@ -238,6 +241,36 @@ def elaborate(cir: Circuit, spec: SimSpec,
 
     def node_idx(nd: str) -> int:
         return ground if nd in GROUND_NAMES else node_names[nd]
+
+    # resolve collapsed internals (VA `V(a,b) <+ 0` node merges, reference
+    # detect_short_circuits `src/vasim.jl:2723`): the collapsed internal's
+    # unknown IS its target's: a terminal node, another internal (chains
+    # resolve transitively), or ground
+    for model in order:
+        cmap = dict(model.collapses)
+        if not cmap:
+            continue
+        terms = {t: i for i, t in enumerate(model.terminals)}
+        for inst in by_model[model]:
+            for iname, _ in model.internals:
+                if iname not in cmap:
+                    continue
+                tgt, seen = iname, set()
+                while tgt in cmap and tgt not in seen:
+                    seen.add(tgt)
+                    tgt = cmap[tgt]
+                if tgt is None:
+                    idx = ground
+                elif tgt in terms:
+                    idx = node_idx(inst.nodes[terms[tgt]])
+                elif (inst.name, tgt) in internal_idx:
+                    idx = internal_idx[(inst.name, tgt)]
+                else:
+                    raise ValueError(
+                        f"{inst.name}: cannot resolve collapse target "
+                        f"{tgt!r} for internal node {iname!r}")
+                internal_idx[(inst.name, iname)] = idx
+                names[f"{inst.name}#{iname}"] = idx
 
     # ---- build groups
     groups: list[Group] = []

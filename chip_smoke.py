@@ -24,10 +24,10 @@ Phases, each of which raises (exit code != 0) on failure:
   5. K2's device functions (every model: R, C, V, I, the diodes, MOS1, L,
      K, E, G, F, H and the BJT, limiter branches included, and every
      waveform kind) against the twin's group evaluation;
-  6. K2 against its twin vmem_tran_plain on the card: rc, the DFF over
-     0-60 ns, graetz over 0-20 ms, a 125-section RC ladder over 0-5 us
-     (n = 127: the block solve, and the locals in device memory), the
-     darlington (two BJTs, 0-1 us) and an L/K/E/G/F/H deck (0-0.5 us),
+  6. K2 against its twin vmem_tran_plain on the card: rc over 0-4 ms, the
+     DFF over 0-60 ns, graetz over 0-20 ms, a 125-section RC ladder over
+     0-5 us (n = 127: the block solve, and the locals in device memory),
+     the darlington (two BJTs, 0-1 us) and an L/K/E/G/F/H deck (0-0.25 us),
      on the same operating point, with K2's share of cycles per phase;
   7. the K2 path: vmem_tran() of the full DFF (0-600 ns), cold and warm,
      against the golden, one K2 launch per transient and K1 launches for
@@ -37,15 +37,16 @@ Phases, each of which raises (exit code != 0) on failure:
      save rows) within bench.py's gates, with its phase shares;
  8b. vmem_tran() of the full VACASK darlington span (0-1 ms at 2 ns,
      500,001 save rows) in one K2 launch, within bench.py's physics gate,
-     and its first 4 us against tran() on the card away from the
-     switching edges;
+     and its first 2 us (one period of its pulse) against tran() on the
+     card away from the switching edges;
  8c. AC and noise on the card, 801 frequencies each in one K1 launch,
      against the same calls on the CPU: the DFF's supply rejection, its
      output noise referred to the supply, and a darlington biased ON;
   9. the sweep path: bench.py's 4096-way DFF Monte Carlo (montecarlo_table
      over cq.c, mno1.w and mpo1.w, seed 42), once, through transweep() over
      0-600 ns, unchunked, every Newton iteration of all lanes one K1
-     launch; four lanes held against the same rows run on the host CPU,
+     launch; four lanes held against the same rows run on the host CPU
+     (in a worker process, beside the card),
      the operating point again (bit for bit) and a torch.profiler run of
      the first 10 ns of the transient from it, and
      K1's jvp and vjp rules on every lane's Jacobian at its operating
@@ -54,10 +55,23 @@ Phases, each of which raises (exit code != 0) on failure:
      chain, against the CPU;
  11. derivatives through K1: dc_sensitivity() of the DFF operating point
      (mno1.w, cq.c, vvdd.dc) and torch.func.jacfwd through tran() of an
-     RC, against the CPU;
- 12. the wall time of every phase and of the whole run, a JSON line of the
+     RC, against the CPU (the worker's);
+ 12. the Verilog-A path: the EKV model compiled by the port, and the DFF
+     with every MOSFET an ekv26 instance loaded by `.hdl`, through dc()
+     and tran() over 0-300 ns on the card, every Newton solve a K1
+     launch, gated on q still low before the latching edge (EKV_SPAN)
+     and held against the CPU port over the same span (the worker's);
+     its noise (q referred to vvdd) in one K1 launch against the CPU;
+     the host time of one evaluation of the EKV group on the card and on
+     the CPU; and a ten-diode chain behind `$limit` at DC against the
+     CPU, K1's launches counted per path;
+ 13. the wall time of every phase and of the whole run, a JSON line of the
      kernels, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
+
+From phase 9 on, one spawned worker process replays the CPU references
+beside the card's host loop; it never opens the card, and the script
+shuts it down on every exit.
 """
 import json
 import os
@@ -134,6 +148,140 @@ rh ho 0 1k
 """
 
 
+#: the DFF's level-1 cards as ekv26 (models/ekv.py) cards: EKV has no
+#: junction capacitors, so ekv_dff_netlist() puts each MOSFET's cbd / cbs
+#: back as explicit capacitors from drain and source to its bulk
+EKV_CARDS = {
+    "n1": ("vto=0.8 kp=120u lambda=0.05 cgso=5f cgdo=5f", "10f"),
+    "p1": ("sign=-1 vto=0.9 kp=50u lambda=0.05 cgso=6f cgdo=6f", "12f"),
+}
+
+
+def ekv_dff_netlist(va_path, kf=None):
+    """The DFF of models/dff.py with every MOSFET an ekv26 instance, loaded
+    by `.hdl` from `va_path` (a file holding models/ekv.py's EKV_VA): the
+    same devices, sizes and drive waveforms, `.model n1/p1 ekv26` cards,
+    and a capacitor from each drain and each source to the bulk (none
+    where the two nodes are one). kf: a flicker coefficient for both
+    cards (the noise phase)."""
+    import re
+
+    from cadnip_tpu_torch.models.dff import dff_netlist
+    lines = dff_netlist().splitlines()
+    extra = "" if kf is None else f" kf={kf}"
+    out = [lines[0], f'.hdl "{va_path}"'] + [
+        f".model {m} ekv26 ({card}{extra})"
+        for m, (card, _) in EKV_CARDS.items()]
+    caps = []
+    for line in lines[1:]:
+        if line.startswith((".model", "+ cbd", ".end")) or not line.strip():
+            continue
+        out.append(line)
+        m = re.match(r"^(m\S+) (\S+) \S+ (\S+) (\S+) (n1|p1) ", line)
+        if m:
+            name, d, s, b, card = m.groups()
+            for tag, node in (("d", d), ("s", s)):
+                if node != b:
+                    caps.append(f"c{name}{tag} {node} {b} "
+                                f"{EKV_CARDS[card][1]}")
+    return "\n".join(out + caps + [".end"])
+
+
+#: phase 12: the EKV DFF's span on the card and the time at which its q
+#: must still be low. 0-300 ns (clkn's edges at 50 and 100 ns, d's rise at
+#: 200 ns): the span has no latching edge (that comes at 400 ns), so q
+#: stays at 0 V and this gate does not test the latch. The full 0-600 ns
+#: with phase 9's latch gate ran the whole script to 420.0 s, over its
+#: 414 s limit (PERF.md, section 6); the JAX package holds the latch over
+#: the full span and this gate over this span (tests/test_torch_ekv_dff.py),
+#: and the card is held to the CPU port's replay of the span (counts
+#: exact).
+EKV_SPAN, EKV_LOW_AT, EKV_DT = 3e-7, 290e-9, 3.333e-10
+EKV_KF = 1e-24         # flicker coefficient of both cards for the noise
+VA_DC_TOL = 1e-12      # $limit diode chain at DC: card vs CPU, relative
+#: phases 3 and 3b time a plain twin over at most this many calls: the
+#: twin is no yardstick of speed, and 20 calls give a steady mean
+PLAIN_REPS = 20
+#: torch threads of the CPU reference worker; the card's host loop keeps
+#: the other cores
+CPU_THREADS = 2
+
+#: tests/test_va_advanced.py's exponential junction behind `$limit`
+VA_LIMIT_DIODE = """
+module vadiode_lim(a, c);
+  inout a, c; electrical a, c;
+  parameter real is_ = 1e-15;
+  analog I(a, c) <+ is_ * (limexp($limit(V(a, c), "pnjlim", $vt, 0.7)
+                                  / $vt) - 1.0);
+endmodule
+"""
+
+
+def _cpu_worker_init(root):
+    """Initializer of the CPU reference worker: it replays circuits on the
+    host CPU while the main process drives the card, and never opens the
+    card itself."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, root)
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+
+
+def cpu_worker():
+    """One spawned process for the CPU references of phases 9, 11 and 12.
+    Their jobs run beside the card's host-bound loops, off the script's
+    critical path; main() shuts it down on every exit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init, initargs=(ROOT,))
+
+
+def cpu_mc_lanes(rows):
+    """Phase 9's check lanes on the host CPU, as one B = 4 transweep."""
+    import cadnip_tpu_torch as ct
+    cc = ct.parse_spice(ct.dff_netlist(), device="cpu")
+    t = time.perf_counter()
+    ref = ct.transweep(cc, rows, (0, 6e-7), **MC_KW)
+    return dict(stats=[v.numpy() for v in ref.stats[:3]], xs=ref.xs.numpy(),
+                wall=time.perf_counter() - t)
+
+
+def ekv_circuit(device, kf=None):
+    """ekv_dff_netlist() through parse_spice on `device`, its `.hdl` file
+    models/ekv.py's EKV_VA in a temporary directory."""
+    import tempfile
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.models.ekv import EKV_VA
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ekv26.va")
+        with open(path, "w") as fh:
+            fh.write(EKV_VA)
+        return ct.parse_spice(ekv_dff_netlist(path, kf=kf), device=device)
+
+
+def cpu_ekv_tran():
+    """Phase 12's CPU side: the EKV DFF through tran() over EKV_SPAN."""
+    import cadnip_tpu_torch as ct
+    cc = ekv_circuit("cpu")
+    t = time.perf_counter()
+    r = ct.tran(cc, (0, EKV_SPAN), dt=EKV_DT)
+    return dict(counts=tuple(int(v) for v in r.stats[:3])
+                + (int(r.op_iters),), xs=r.xs.numpy(),
+                converged=bool(r.converged), wall=time.perf_counter() - t)
+
+
+def cpu_ekv_noise(op_x):
+    """Phase 12's CPU noise sweep, at the card's operating point."""
+    import torch
+    import cadnip_tpu_torch as ct
+    r = ct.noise(ekv_circuit("cpu", kf=EKV_KF), "q", ct.acdec(*AC_FREQS),
+                 input="vvdd", op_x=torch.as_tensor(op_x))
+    return np.asarray(r.onoise_psd), np.asarray(r.inoise_psd)
+
+
 def edge_masked(ts, a, b):
     """The darlington's bar away from its switching edges
     (tests/test_vacask_circuits.py::test_darlington_pit_matches_serial):
@@ -148,6 +296,7 @@ def edge_masked(ts, a, b):
 
 #: the edge-masked bar: 99th percentile and maximum, volts
 EDGE_Q99_TOL, EDGE_MAX_TOL = 0.15, 0.6
+DARL_REF_SPAN = 2e-6   # the darlington's tran() reference: one period
 
 
 def nvidia_smi(query):
@@ -301,7 +450,8 @@ def kernel_cases(card):
         # graph replay times the device
         graph_ms = graph_time_ms(lambda: gj_solve(At, Bt), reps) \
             if b == 1 else None
-        plain_ms = cuda_time_ms(lambda: gj_solve_plain(At, Bt), reps)
+        plain_ms = cuda_time_ms(lambda: gj_solve_plain(At, Bt),
+                                min(reps, PLAIN_REPS))
         library_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(At, Bt),
                                   reps)
         bound = roofline(At.element_size() * b * (n * n + 2 * n * k),
@@ -321,9 +471,9 @@ def kernel_cases(card):
 
 
 def rel_err(a, b):
-    """max |a - b| / max |b| (0 where both are 0)."""
-    scale = float(b.abs().max())
-    err = float((a - b).abs().max())
+    """max |a - b| / max |b| (0 where both are 0), of tensors or arrays."""
+    scale = float(abs(b).max())
+    err = float(abs(a - b).max())
     return err / scale if scale > 0 else err
 
 
@@ -368,7 +518,7 @@ def k1_derivative_cases(card):
             err = max(rel_err(a, c) for a, c in zip(got, ref))
             reps = 20 if b > 1 else 100
             ms = cuda_time_ms(kern, reps)
-            plain_ms = cuda_time_ms(plain, reps)
+            plain_ms = cuda_time_ms(plain, min(reps, PLAIN_REPS))
             library_ms = cuda_time_ms(library, reps)
             print(f"K1 {rule} {name}: max relative error {err:.3e}; kernel "
                   f"{ms * 1e3:.1f} us, twin {plain_ms * 1e3:.1f} us, "
@@ -678,7 +828,7 @@ def k2_vs_twin(card):
     from cadnip_tpu_torch.models.vacask import DARLINGTON, GRAETZ, RC_NETLIST
     from cadnip_tpu_torch.ops import vmem_tran as vt
 
-    cases = [("rc", RC_NETLIST, (0, 8e-3), 8e-6, ("2", None), 1.0,
+    cases = [("rc", RC_NETLIST, (0, 4e-3), 8e-6, ("2", None), 1.0,
               ("warp", "shared")),
              ("dff", ct.dff_netlist(), (0, 6e-8), 3.333e-10, ("q", None),
               5.0, ("warp", "shared")),
@@ -689,7 +839,8 @@ def k2_vs_twin(card):
              # the ON half-period of the darlington and its falling edge
              ("darlington", DARLINGTON, (0, 1e-6), 2e-9, ("coll", None), 5.0,
               ("warp", "shared")),
-             ("lkefgh", LKEFGH, (0, 5e-7), 2e-9, ("b", None), 2.0,
+             # the pulse's rise (10-15 ns) and fall (215-220 ns)
+             ("lkefgh", LKEFGH, (0, 2.5e-7), 2e-9, ("b", None), 2.0,
               ("warp", "shared"))]
     out = {}
     for name, net, span, dt, (na, nb), scale, layout in cases:
@@ -855,8 +1006,9 @@ def k2_graetz(card):
 def k2_darlington(card):
     """Phase 8b: the full VACASK darlington span (bench.py's `tran 2n 1m`,
     500,001 save rows) through vmem_tran() in one K2 launch, within
-    bench.py's physics gate, and its first 4 us against tran() on the
-    card at the edge-masked bar."""
+    bench.py's physics gate, and its first DARL_REF_SPAN (one period of
+    the pulse: the ON half and the falling edge at 1 us) against tran()
+    on the card at the edge-masked bar."""
     import torch
     import cadnip_tpu_torch as ct
     from cadnip_tpu_torch.models.vacask import DARLINGTON
@@ -878,10 +1030,11 @@ def k2_darlington(card):
     tm = sol.timings
     k2_ms = tm["integrate"] * 1e3
     t = time.perf_counter()
-    ref = ct.tran(cc, (0, 4e-6), dt=2e-9)
+    ref = ct.tran(cc, (0, DARL_REF_SPAN), dt=2e-9)
     torch.cuda.synchronize()
     tran_wall = time.perf_counter() - t
-    q99, mx = edge_masked(ts[:2001], vc[:2001], ref["coll"].cpu().numpy())
+    rows = ref.xs.shape[0]
+    q99, mx = edge_masked(ts[:rows], vc[:rows], ref["coll"].cpu().numpy())
     bound = span_bound(cc, (0, 1e-3), 2e-9, sol)
     cyc = sum(sol.phase_cycles.values()) / max(nn, 1)
     print(f"darlington vmem_tran() 0-1 ms at 2 ns ({vc.shape[0]} rows, n = "
@@ -891,7 +1044,8 @@ def k2_darlington(card):
           f"{k2_ms * 1e3 / max(nn, 1):.2f} us and {cyc:.0f} cycles per Newton"
           f" iteration, K2 launches {launches}; v(coll) after 0.9 ms in "
           f"[{vc[late].min():.4f}, {vc[late].max():.4f}] V; against tran() "
-          f"0-4 us ({tran_wall:.1f} s, newton {int(ref.stats.nnewton)}) away"
+          f"0-{DARL_REF_SPAN * 1e6:g} us ({tran_wall:.1f} s, newton "
+          f"{int(ref.stats.nnewton)}) away"
           f" from the edges: 99th percentile {q99:.3e} V, max {mx:.3e} V; "
           f"bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}: "
           f"{bound['bytes']} bytes, {bound['flops']} FLOP) [{card}]",
@@ -935,13 +1089,21 @@ def ac_noise(card):
              "noise", "q"),
             ("darlington ON (ac, coll / vs at 3 V)", DARLINGTON,
              {"vs.dc": 3.0, "vs.acmag": 1.0}, "ac", "coll")]
-    out = {}
+    out, circuits = {}, {}
     for label, net, alter, kind, node in runs:
         res = {}
         for dev in ("cuda", "cpu"):
-            cc = ct.parse_spice(net, device=dev)
+            # the DFF's PSRR and noise share a circuit and its operating
+            # point: acmag does not move the DC solution
+            at_dc = {k: v for k, v in alter.items()
+                     if not k.endswith(".acmag")}
+            key = (net, dev, tuple(sorted(at_dc.items())))
+            if key not in circuits:
+                cc = ct.parse_spice(net, device=dev)
+                circuits[key] = (cc, ct.dc(cc, cc.alter(cc.params0(),
+                                                        **at_dc)))
+            cc, op = circuits[key]
             p = cc.alter(cc.params0(), **alter)
-            op = ct.dc(cc, p)
             if dev == "cuda":
                 torch.cuda.synchronize()
             gj_solve.launches = 0
@@ -995,9 +1157,10 @@ def ac_noise(card):
     return out
 
 
-def dff_montecarlo(card, serial_wall):
+def dff_montecarlo(card, serial_wall, cpu):
     """Phase 9: bench.py's 4096-way DFF Monte Carlo through transweep(),
-    on a fresh circuit; its check lanes are held against the host CPU."""
+    on a fresh circuit; its check lanes are held against the host CPU,
+    replayed by the CPU worker `cpu` while the card runs."""
     import torch
     import cadnip_tpu_torch as ct
     from cadnip_tpu_torch.ops.gj_solve import gj_solve
@@ -1006,6 +1169,8 @@ def dff_montecarlo(card, serial_wall):
     # of PR 3, and the script's time goes to the other phases
     cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
     tab = ct.montecarlo_table(cc, MC_SPREADS, MC_LANES, seed=42)
+    lanes_job = cpu.submit(cpu_mc_lanes,
+                           {k: v[MC_CHECK] for k, v in tab.items()})
     torch.cuda.synchronize()
     gj_solve.launches = 0
     t = time.perf_counter()
@@ -1052,16 +1217,15 @@ def dff_montecarlo(card, serial_wall):
                            f"{int(op_iters.max())} DC + {tran_passes} "
                            f"transient passes")
     # the check lanes again on the host CPU, as one B = 4 transweep
-    cpu = ct.parse_spice(ct.dff_netlist(), device="cpu")
     t = time.perf_counter()
-    ref = ct.transweep(cpu, {k: v[MC_CHECK] for k, v in tab.items()},
-                       (0, 6e-7), **MC_KW)
-    cpu_wall = time.perf_counter() - t
-    xs = sol.xs[MC_CHECK].cpu()
+    ref = lanes_job.result()
+    waited = time.perf_counter() - t
+    xs = sol.xs[MC_CHECK].cpu().numpy()
     for j, lane in enumerate(MC_CHECK):
         got = tuple(int(v[lane]) for v in st[:3])
-        want = tuple(int(v[j]) for v in ref.stats[:3])
-        err = float((xs[j] - ref.xs[j]).abs().max()) / 5.0
+        want = tuple(int(v[j]) for v in ref["stats"])
+        dx = xs[j] - ref["xs"][j]
+        err = float(np.abs(dx).max()) / 5.0
         line = (f"DFF Monte Carlo lane {lane}: card / CPU accepted, rejected,"
                 f" newton {got} / {want}, max |dx| / 5 V {err:.3e}")
         if got == want:
@@ -1071,16 +1235,17 @@ def dff_montecarlo(card, serial_wall):
             continue
         # a flipped step decision: report where the two part, then hold the
         # lane to the integrator's reltol (as phase 6 holds graetz)
-        apart = (xs[j] - ref.xs[j]).abs().amax(-1) > MC_TOL * 5.0
-        rmse = float((xs[j] - ref.xs[j]).pow(2).mean().sqrt()) / 5.0
+        apart = np.abs(dx).max(-1) > MC_TOL * 5.0
+        rmse = float(np.sqrt(np.mean(dx ** 2))) / 5.0
         print(f"{line}; counts differ, waveforms first part at "
-              f"{ts[int(np.argmax(apart.numpy()))]:.4e} s, RMSE / 5 V "
+              f"{ts[int(np.argmax(apart))]:.4e} s, RMSE / 5 V "
               f"{rmse:.3e}", flush=True)
         if not rmse <= TWIN_FLIP_TOL:
             raise RuntimeError(f"{line}: RMSE {rmse:.3e} > "
                                f"{TWIN_FLIP_TOL:.0e}")
-    print(f"DFF Monte Carlo check lanes {MC_CHECK} on the host CPU: "
-          f"{cpu_wall:.3f} s", flush=True)
+    print(f"DFF Monte Carlo check lanes {MC_CHECK} on the host CPU (CPU "
+          f"worker, beside the card): {ref['wall']:.3f} s, of which the "
+          f"card's side waited {waited:.3f} s", flush=True)
     return dict(wall=wall, launches=launches, tab=tab, sol=sol, cc=cc)
 
 
@@ -1169,28 +1334,67 @@ def dc_sweep_rescue(card):
         raise RuntimeError(f"dcsweep rescue: card differs from CPU ({err})")
 
 
-def derivatives(card):
-    """Phase 11: dc_sensitivity() and torch.func.jacfwd through tran() on
-    the card, through K1, against the same on the CPU."""
+#: phase 11: the DFF parameters of dc_sensitivity(). A capacitor does not
+#: move the operating point: cq.c's column is exactly zero, and the other
+#: two carry the comparison
+SENS_NAMES = ["mno1.w", "cq.c", "vvdd.dc"]
+
+
+def dff_sensitivity(dev):
+    """dc_sensitivity() of the DFF operating point w.r.t. SENS_NAMES on
+    `dev`, as numpy arrays, and K1's launches in it."""
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    cc = ct.parse_spice(ct.dff_netlist(), device=dev)
+    sol = ct.dc(cc)
+    gj_solve.launches = 0
+    sens = ct.dc_sensitivity(cc, SENS_NAMES, sol=sol)
+    return ({k: v.cpu().numpy() for k, v in sens.items()},
+            gj_solve.launches)
+
+
+def rc_jacfwd(dev):
+    """torch.func.jacfwd through tran() of an RC on `dev`: dv(out, 1 ms)/dR,
+    K1's launches in it and its wall."""
     import torch
     import cadnip_tpu_torch as ct
     from cadnip_tpu_torch.ops.gj_solve import gj_solve
 
-    # a capacitor does not move the operating point: cq.c's column is
-    # exactly zero, and the other two carry the comparison
-    names = ["mno1.w", "cq.c", "vvdd.dc"]
-    sens = {}
-    for dev in ("cuda", "cpu"):
-        cc = ct.parse_spice(ct.dff_netlist(), device=dev)
-        sol = ct.dc(cc)
-        gj_solve.launches = 0
-        sens[dev] = {k: v.cpu() for k, v in ct.dc_sensitivity(
-            cc, names, sol=sol).items()}
-        if dev == "cuda":
-            launches = gj_solve.launches
-    errs = {k: rel_err(sens["cuda"][k], sens["cpu"][k]) for k in names}
-    peak = {k: float(sens["cuda"][k].abs().max()) for k in names}
-    print(f"dc_sensitivity() DFF w.r.t. {', '.join(names)}: max |dx/dp| "
+    cir = ct.Circuit("sens")
+    cir.V("vs", "in", "0", wave=ct.Pulse(0.0, 1.0, tr=1e-9))
+    cir.R("r1", "in", "out", 1e3)
+    cir.C("c1", "out", "0", 1e-6)
+    cc = cir.compile(device=dev)
+
+    def vout(r):
+        p = cc.alter(cc.params0(), **{"r1.r": r})
+        sol = ct.tran(cc, (0, 1e-3), params=p, dt=1e-5, n_save=11)
+        return sol.xs[-1, cc.index_of("out")]
+
+    gj_solve.launches = 0
+    t = time.perf_counter()
+    d = float(torch.func.jacfwd(vout)(
+        torch.tensor(1e3, dtype=torch.float64, device=dev)))
+    return d, gj_solve.launches, time.perf_counter() - t
+
+
+def cpu_derivatives():
+    """Phase 11's CPU side, in the CPU worker."""
+    return dff_sensitivity("cpu")[0], rc_jacfwd("cpu")[0]
+
+
+def derivatives(card, cpu_job):
+    """Phase 11: dc_sensitivity() and torch.func.jacfwd through tran() on
+    the card, through K1, against the same on the CPU (`cpu_job`, the CPU
+    worker's cpu_derivatives())."""
+    sens, launches = dff_sensitivity("cuda")
+    d, jlaunches, wall = rc_jacfwd("cuda")
+    sens_cpu, d_cpu = cpu_job.result()
+
+    errs = {k: rel_err(sens[k], sens_cpu[k]) for k in SENS_NAMES}
+    peak = {k: float(np.abs(sens[k]).max()) for k in SENS_NAMES}
+    print(f"dc_sensitivity() DFF w.r.t. {', '.join(SENS_NAMES)}: max |dx/dp| "
           f"{', '.join(f'{v:.4e}' for v in peak.values())}; relative |card "
           f"- CPU| {', '.join(f'{e:.3e}' for e in errs.values())}; K1 "
           f"launches {launches} [{card}]", flush=True)
@@ -1201,38 +1405,204 @@ def derivatives(card):
             and peak["vvdd.dc"] > 0.0):
         raise RuntimeError(f"dc_sensitivity: columns {peak}: want cq.c "
                            f"zero and the others non-zero")
-
-    def rc(dev):
-        cir = ct.Circuit("sens")
-        cir.V("vs", "in", "0", wave=ct.Pulse(0.0, 1.0, tr=1e-9))
-        cir.R("r1", "in", "out", 1e3)
-        cir.C("c1", "out", "0", 1e-6)
-        return cir.compile(device=dev)
-
-    d = {}
-    for dev in ("cuda", "cpu"):
-        cc = rc(dev)
-
-        def vout(r):
-            p = cc.alter(cc.params0(), **{"r1.r": r})
-            sol = ct.tran(cc, (0, 1e-3), params=p, dt=1e-5, n_save=11)
-            return sol.xs[-1, cc.index_of("out")]
-
-        gj_solve.launches = 0
-        t = time.perf_counter()
-        d[dev] = float(torch.func.jacfwd(vout)(
-            torch.tensor(1e3, dtype=torch.float64, device=dev)))
-        if dev == "cuda":
-            launches, wall = gj_solve.launches, time.perf_counter() - t
     exact = -1e-3 / (1e3 ** 2 * 1e-6) * np.exp(-1.0)
-    err = abs(d["cuda"] - d["cpu"]) / abs(d["cpu"])
-    print(f"jacfwd through tran() RC, dv(out, 1 ms)/dR: card {d['cuda']:.10e}"
-          f", CPU {d['cpu']:.10e}, analytic {exact:.10e}; relative |card - "
-          f"CPU| {err:.3e}; K1 launches {launches}, {wall:.3f} s [{card}]",
+    err = abs(d - d_cpu) / abs(d_cpu)
+    print(f"jacfwd through tran() RC, dv(out, 1 ms)/dR: card {d:.10e}, CPU "
+          f"{d_cpu:.10e}, analytic {exact:.10e}; relative |card - CPU| "
+          f"{err:.3e}; K1 launches {jlaunches}, {wall:.3f} s [{card}]",
           flush=True)
-    if not (launches > 0 and err <= CPU_TOL
-            and abs(d["cuda"] - exact) <= 5e-2 * abs(exact)):
+    if not (jlaunches > 0 and err <= CPU_TOL
+            and abs(d - exact) <= 5e-2 * abs(exact)):
         raise RuntimeError("jacfwd through tran: card result off")
+
+
+def _ekv_group_ms(cc, x, reps):
+    """Host milliseconds of one evaluation of the EKV group alone (its
+    residual, charge and local Jacobians, as the assembler computes them)
+    at the state x, averaged over `reps` calls after one warm-up."""
+    import torch
+    from cadnip_tpu_torch.mna.assemble import make_assembler, pad_state
+    from cadnip_tpu_torch.mna.spec import MODE_TRAN
+
+    asm = make_assembler(cc)
+    gi = next(i for i, g in enumerate(cc.groups)
+              if g.model.name == "va:ekv26")
+    xp = pad_state(x.reshape(1, -1))
+    args = (gi, xp, asm.init_lim(xp), cc.params0()[gi],
+            cc.spec.dyn(cc.device, mode=MODE_TRAN))
+    asm.eval_group(*args)
+    if cc.device.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        asm.eval_group(*args)
+    if cc.device.type == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def va_ekv(card, tran_job, cpu):
+    """Phase 12: the Verilog-A path. The EKV model (models/ekv.py)
+    compiled by the port; the DFF on ekv26 instances, loaded by `.hdl`,
+    through dc() and tran() on the card over EKV_SPAN, every Newton solve
+    a K1 launch, held against the CPU port over the same span (`tran_job`:
+    the CPU worker's cpu_ekv_tran()); its noise at the DC operating point
+    (q referred to vvdd, EKV_KF on both cards) in one K1 launch, against
+    the CPU worker's; the host time of one evaluation of the EKV group on
+    the card and on the CPU; and the ten-diode `$limit` chain at DC
+    against the CPU."""
+    import torch
+    from torch.func import vmap
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.mna.assemble import pad_state
+    from cadnip_tpu_torch.mna.spec import MODE_AC, MODE_TRANOP
+    from cadnip_tpu_torch.models.ekv import EKV_VA
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    t = time.perf_counter()
+    ct.compile_va(EKV_VA)
+    compile_s = time.perf_counter() - t
+    cc, kg = ekv_circuit("cuda"), ekv_circuit("cuda", kf=EKV_KF)
+    print(f"EKV compile (ekv26, compile_va) {compile_s * 1e3:.1f} ms; DFF "
+          f"on ekv26: n = {cc.n}, groups "
+          f"{[(g.model.name, g.n_inst) for g in cc.groups]}", flush=True)
+
+    # the operating point and the transient on the card
+    torch.cuda.synchronize()
+    gj_solve.launches = 0
+    t = time.perf_counter()
+    op = ct.dc(cc, mode=MODE_TRANOP, time=0.0)
+    torch.cuda.synchronize()
+    op_wall = time.perf_counter() - t
+    sol = ct.tran(cc, (0, EKV_SPAN), dt=EKV_DT, x0=op.x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = gj_solve.launches
+    st = sol.stats
+    nnewton, op_iters = int(st.nnewton), int(op.iters)
+    ts, q = np.asarray(sol.ts), sol["q"].cpu().numpy()
+    lo = float(q[np.argmin(np.abs(ts - EKV_LOW_AT))])
+    print(f"EKV DFF dc() + tran() 0-{EKV_SPAN * 1e9:.0f} ns on the card: "
+          f"wall {wall:.3f} s (operating point {op_wall:.3f} s), accepted "
+          f"{int(st.naccept)}, rejected {int(st.nreject)}, newton {nnewton}"
+          f" + DC {op_iters}, K1 launches {launches}; q {lo:.4f} V at "
+          f"{EKV_LOW_AT * 1e9:.0f} ns [{card}]", flush=True)
+    if not (bool(op.converged) and bool(sol.converged)
+            and np.isfinite(sol.xs.cpu().numpy()).all()):
+        raise RuntimeError("EKV DFF: the operating point or the transient "
+                           "failed")
+    if not lo < 1.0:
+        raise RuntimeError(f"EKV DFF: q {lo} V at {EKV_LOW_AT} s, want < 1 V")
+    if launches < op_iters + nnewton:
+        raise RuntimeError(f"EKV DFF: {launches} K1 launches < {op_iters} DC"
+                           f" + {nnewton} transient Newton iterations")
+
+    # noise at the DC operating point (kf moves no DC current), found from
+    # the transient's: its sources start at their DC values
+    nop = ct.dc(kg, x0=op.x)
+    noise_job = cpu.submit(cpu_ekv_noise, nop.x.cpu().numpy())
+    freqs = ct.acdec(*AC_FREQS)
+    torch.cuda.synchronize()
+    gj_solve.launches = 0
+    t = time.perf_counter()
+    ng = ct.noise(kg, "q", freqs, input="vvdd", op_x=nop.x)
+    nwall = time.perf_counter() - t
+    nlaunch = gj_solve.launches
+    gi = next(i for i, g in enumerate(kg.groups)
+              if g.model.name == "va:ekv26")
+    g = kg.groups[gi]
+    u = pad_state(nop.x)[torch.as_tensor(g.conn, device="cuda")]
+    p, dyn = kg.params0()[gi], kg.spec.dyn("cuda", mode=MODE_AC)
+    white = vmap(g.model.noise, in_dims=(0, 0, None))(u, p, dyn)
+    flick = vmap(g.model.flicker, in_dims=(0, 0, None))(u, p, dyn)[0]
+
+    # the card against the CPU port over the same span
+    ref = tran_job.result()
+    got = tuple(int(v) for v in st[:3]) + (op_iters,)
+    dx = sol.xs.cpu().numpy() - ref["xs"]
+    err = float(np.abs(dx).max()) / 5.0
+    line = (f"EKV DFF 0-{EKV_SPAN * 1e9:.0f} ns, card / CPU accepted, "
+            f"rejected, newton, DC {got} / {ref['counts']}, max |dx| / 5 V "
+            f"{err:.3e}; CPU wall {ref['wall']:.3f} s (CPU worker) [{card}]")
+    if not ref["converged"]:
+        raise RuntimeError(f"{line}: the CPU transient failed")
+    if got == ref["counts"]:
+        print(line, flush=True)
+        if not err <= MC_TOL:
+            raise RuntimeError(f"{line} > {MC_TOL:.0e}")
+    else:
+        # a flipped step decision: held to the integrator's reltol, as
+        # phase 9 holds a Monte Carlo lane
+        apart = np.abs(dx).max(-1) > MC_TOL * 5.0
+        rmse = float(np.sqrt(np.mean(dx ** 2))) / 5.0
+        print(f"{line}; counts differ, waveforms first part at "
+              f"{ts[int(np.argmax(apart))]:.4e} s, RMSE / 5 V {rmse:.3e}",
+              flush=True)
+        if not rmse <= TWIN_FLIP_TOL:
+            raise RuntimeError(f"{line}: RMSE {rmse:.3e} > "
+                               f"{TWIN_FLIP_TOL:.0e}")
+
+    nc = noise_job.result()
+    nerr = max(float((np.abs(a - c) / np.abs(c)).max()) for a, c in
+               zip((ng.onoise_psd, ng.inoise_psd), nc))
+    print(f"EKV DFF noise (q, input vvdd, kf {EKV_KF:g}), {len(freqs)} "
+          f"frequencies: output PSD {ng.onoise_psd.min():.4e}-"
+          f"{ng.onoise_psd.max():.4e} V^2/Hz; EKV thermal PSD sum "
+          f"{float(white.sum()):.4e} A^2/Hz, flicker numerator sum "
+          f"{float(flick.sum()):.4e}; card against CPU {nerr:.3e}; K1 "
+          f"launches {nlaunch}; wall {nwall * 1e3:.1f} ms (operating point "
+          f"DC {int(nop.iters)} iterations from the transient's) [{card}]",
+          flush=True)
+    if not (bool(nop.converged) and nlaunch == 1 and nerr <= AC_TOL
+            and np.isfinite(ng.onoise_psd).all()):
+        raise RuntimeError(f"EKV DFF noise: {nlaunch} K1 launches, card "
+                           f"against CPU {nerr:.3e}")
+    if not (float(white.sum()) > 0 and float(flick.sum()) > 0):
+        raise RuntimeError("EKV DFF noise: a VA noise channel is zero")
+
+    # host time of the interpreter: one evaluation of the EKV group, with
+    # the CPU worker idle
+    ms_card = _ekv_group_ms(cc, sol.xs[-1], 20)
+    ms_cpu = _ekv_group_ms(ekv_circuit("cpu"), sol.xs[-1].cpu(), 20)
+    print(f"EKV group (26 instances): {ms_card:.1f} ms of host time per "
+          f"evaluation on the card, {ms_cpu:.1f} ms on the CPU; "
+          f"{wall / max(op_iters + nnewton, 1) * 1e3:.1f} ms of wall per "
+          f"Newton iteration on the card [{card}]", flush=True)
+
+    # the ten-diode $limit chain at DC
+    chain = {}
+    for dev in ("cuda", "cpu"):
+        model = ct.compile_va(VA_LIMIT_DIODE)["vadiode_lim"]
+        cir = ct.Circuit("valim")
+        cir.V("v1", "in", "0", dc=30.0)
+        prev = "in"
+        for k in range(10):
+            cir.add(model, f"d{k}", (prev, f"n{k}"))
+            prev = f"n{k}"
+        cir.R("rl", prev, "0", 10.0)
+        chain[dev] = cir.compile(device=dev)
+    torch.cuda.synchronize()
+    gj_solve.launches = 0
+    dg = ct.dc(chain["cuda"])
+    torch.cuda.synchronize()
+    llaunch = gj_solve.launches
+    dcpu = ct.dc(chain["cpu"])
+    derr = float(((dg.x.cpu() - dcpu.x).abs() / dcpu.x.abs().clamp(
+        min=1e-300)).max())
+    print(f"$limit diode chain (10 x vadiode_lim, 30 V, 10 ohm) dc: n4 "
+          f"{float(dg['n4']):.6f} V, card / CPU Newton {int(dg.iters)} / "
+          f"{int(dcpu.iters)}, max relative difference {derr:.3e}, K1 "
+          f"launches {llaunch} [{card}]", flush=True)
+    if not (bool(dg.converged) and bool(dcpu.converged)
+            and int(dg.iters) == int(dcpu.iters) and derr <= VA_DC_TOL):
+        raise RuntimeError("$limit diode chain: card against CPU off")
+    if llaunch < int(dg.iters):
+        raise RuntimeError(f"$limit diode chain: {llaunch} K1 launches < "
+                           f"{int(dg.iters)} Newton iterations")
+    return dict(launches={"VA EKV DFF dc + tran (phase 12)": launches,
+                          "VA EKV DFF noise (phase 12)": nlaunch,
+                          "VA $limit diode chain dc (phase 12)": llaunch},
+                wall=wall, ms_card=ms_card, ms_cpu=ms_cpu)
 
 
 def main():
@@ -1274,12 +1644,24 @@ def main():
     phase("8 graetz", k2_graetz, card)
     dar = phase("8b darlington", k2_darlington, card)
     phase("8c AC + noise", ac_noise, card)
-    mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"])
-    phase("9b profile", profile_montecarlo, card, mc["tab"], mc["sol"])
-    phase("9c K1 rules on Jacobians", k1_dff_jacobian_cases, card, mc["cc"],
-          mc["sol"], mc["tab"])
-    phase("10 dcsweep", dc_sweep_rescue, card)
-    phase("11 derivatives", derivatives, card)
+    # from here on, the CPU references run in a worker process beside the
+    # card's host loop; it is idle until phase 9, so that the kernel
+    # timings and host-bound walls of phases 3-8c see no neighbour
+    cpu = cpu_worker()
+    try:
+        mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"],
+                   cpu)
+        # queued behind phase 9's lanes, done long before they are read
+        deriv_job = cpu.submit(cpu_derivatives)
+        ekv_job = cpu.submit(cpu_ekv_tran)
+        phase("9b profile", profile_montecarlo, card, mc["tab"], mc["sol"])
+        phase("9c K1 rules on Jacobians", k1_dff_jacobian_cases, card,
+              mc["cc"], mc["sol"], mc["tab"])
+        phase("10 dcsweep", dc_sweep_rescue, card)
+        phase("11 derivatives", derivatives, card, deriv_job)
+        va = phase("12 VA (EKV DFF)", va_ekv, card, ekv_job, cpu)
+    finally:
+        cpu.shutdown(wait=True, cancel_futures=True)
     print("wall per phase (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; whole run {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1289,7 +1671,9 @@ def main():
                 "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/gj_solve.cu",
                 "replaces": "cadnip_tpu/ops/pallas_solve.py:35",
-                "launches": mc["launches"],
+                "launches": mc["launches"] + sum(va["launches"].values()),
+                "launches_by_path": {"Monte Carlo (phase 9)": mc["launches"],
+                                     **va["launches"]},
                 "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
                 "bound_us": k1["bound_ms"] * 1e3,

@@ -77,6 +77,7 @@ def test_package_imports_no_jax():
         "for m in pkgutil.walk_packages(cadnip_tpu_torch.__path__,\n"
         "                               'cadnip_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'cadnip_tpu_torch.va.codegen' in sys.modules\n"
         "assert had or 'jax' not in sys.modules\n"
         "assert 'cadnip_tpu' not in sys.modules\n"
         "print('ok')\n")
