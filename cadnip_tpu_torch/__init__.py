@@ -11,6 +11,16 @@ operating point through the gmin/source homotopy -> adaptive trapezoidal
 transient. `vmem_tran` runs the whole transient of a small circuit
 (n <= 127) in one launch of kernel K2 instead.
 
+Two fixed-step transients save every step: `tran_linear` runs a linear
+circuit as blocked prefix products (K^-1 one K1 launch, the rest f64
+matmuls), and `tran_pit` a nonlinear one as windows of W timepoints
+Newton-iterated at once, each window iteration one K1 launch over the
+window's [W, n, n + 1] systems and a prefix scan:
+
+    sol = tran_linear(parse_spice(RC_NETLIST), (0, 1.0), 1e-6)
+    sol = tran_pit(parse_spice(GRAETZ), (0, 1.0), 1e-6, window=8192,
+                   windows_per_exec=16)
+
 AC and noise linearize at the operating point and solve every frequency
 of the sweep in one K1 launch (the real 2n x 2n embedding of
 G + jωC, and its transpose for the noise adjoint).
@@ -60,6 +70,8 @@ from .mna.waveforms import (  # noqa: F401
     DC as DCWave, Pulse, Sin, PWL, Exp, Sffm)
 from .analyses.dc import dc, op_tran, DCSolution  # noqa: F401
 from .analyses.tran import tran, TranSolution  # noqa: F401
+from .analyses.tran_linear import is_linear, tran_linear  # noqa: F401
+from .analyses.tran_pit import tran_pit  # noqa: F401
 from .analyses.ac import (  # noqa: F401
     ac, acdec, ACSolution, subsystem, DescriptorSISO)
 from .analyses.noise import noise, NoiseSolution  # noqa: F401
@@ -81,7 +93,7 @@ __all__ = [
     "VCCS", "CCCS", "CCVS", "DIODE", "DIODE_RS", "BJT", "MOSFET1", "MUTUAL",
     "DCWave", "Pulse", "Sin", "PWL", "Exp", "Sffm",
     "dc", "op_tran", "DCSolution", "tran", "TranSolution", "vmem_tran",
-    "supported",
+    "supported", "tran_linear", "is_linear", "tran_pit",
     "ac", "acdec", "ACSolution", "subsystem", "DescriptorSISO",
     "noise", "NoiseSolution",
     "Sweep", "ProductSweep", "TandemSweep", "SerialSweep",

@@ -24,11 +24,14 @@ Phases, each of which raises (exit code != 0) on failure:
   5. K2's device functions (every model: R, C, V, I, the diodes, MOS1, L,
      K, E, G, F, H and the BJT, limiter branches included, and every
      waveform kind) against the twin's group evaluation;
-  6. K2 against its twin vmem_tran_plain on the card: rc over 0-4 ms, the
-     DFF over 0-60 ns, graetz over 0-20 ms, a 125-section RC ladder over
-     0-5 us (n = 127: the block solve, and the locals in device memory),
-     the darlington (two BJTs, 0-1 us) and an L/K/E/G/F/H deck (0-0.25 us),
-     on the same operating point, with K2's share of cycles per phase;
+  6. K2 on the card: rc over 0-4 ms, the DFF over 0-60 ns, graetz over
+     0-20 ms, a 125-section RC ladder over 0-5 us (n = 127: the block
+     solve, and the locals in device memory), the darlington (two BJTs,
+     0-1 us) and an L/K/E/G/F/H deck (0-0.25 us), with K2's share of
+     cycles per phase; each case's plain twin runs on the host CPU in a
+     worker from the card's own set-up (the same operating point; graetz's
+     on the card, TWIN_ON_CARD says why), and the two are held against
+     each other in phase 14;
   7. the K2 path: vmem_tran() of the full DFF (0-600 ns), cold and warm,
      against the golden, one K2 launch per transient and K1 launches for
      the operating point; then once at the reference's 512-row chunks;
@@ -36,9 +39,9 @@ Phases, each of which raises (exit code != 0) on failure:
   8. vmem_tran() of the full VACASK graetz span (0-1 s at 1 us, 1,000,001
      save rows) within bench.py's gates, with its phase shares;
  8b. vmem_tran() of the full VACASK darlington span (0-1 ms at 2 ns,
-     500,001 save rows) in one K2 launch, within bench.py's physics gate,
-     and its first 2 us (one period of its pulse) against tran() on the
-     card away from the switching edges;
+     500,001 save rows) in one K2 launch, within bench.py's physics gate;
+     its first 2 us (one period of its pulse) are held against tran() on
+     the host CPU (a worker) away from the switching edges in phase 14;
  8c. AC and noise on the card, 801 frequencies each in one K1 launch,
      against the same calls on the CPU: the DFF's supply rejection, its
      output noise referred to the supply, and a darlington biased ON;
@@ -65,13 +68,35 @@ Phases, each of which raises (exit code != 0) on failure:
      the host time of one evaluation of the EKV group on the card and on
      the CPU; and a ten-diode chain behind `$limit` at DC against the
      CPU, K1's launches counted per path;
- 13. the wall time of every phase and of the whole run, a JSON line of the
-     kernels, the card's name and power limit, and the last line
+ 13. the fixed-step engines at bench.py's settings: the VACASK rc through
+     tran_linear() (0-1 s at 1 us, 1,000,001 points, K^-1 one K1 launch)
+     against the closed form; graetz (0-1 s at 1 us) and the darlington
+     (0-1 ms at 2 ns), full spans, and mul over its first two windows only
+     (0-40 us at 10 ns, not bench.py's 0-5 ms: MUL_SPAN says why) through
+     tran_pit(), every window-Newton iteration one K1 launch of
+     [W, n, n + 1] (gated: the windows' launches equal the iterations):
+     the wall split into the operating point, the periodic seed's serial
+     tran() and the windows, ms per window iteration, K1 launches per part
+     and peak device memory; bench.py's gates (graetz's ripple and golden,
+     mul's v(20), the darlington's switching over its last period); mul's
+     golden over its span (MUL_GOLDEN_TOL) and against the same
+     trapezoidal recursion solved step by step on the CPU (serial_trap, a
+     worker); graetz against phase 8's K2 waveform, the darlington against
+     phase 8b's at the edge-masked bar; the first two windows of graetz
+     and mul replayed by the CPU port's tran_pit() from the card's
+     operating point and window-0 seed (a worker, beside the card's later
+     runs); and K1 at each path's shape against its twin, its bound and
+     solve_ex;
+ 14. phase 6's and 8b's comparisons with their CPU twins, the wall time of
+     every phase and of the whole run, a JSON line of the kernels, the
+     card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 
-From phase 9 on, one spawned worker process replays the CPU references
-beside the card's host loop; it never opens the card, and the script
-shuts it down on every exit.
+From phase 9 on, two spawned worker processes replay the CPU references
+beside the card's host loop: worker A phase 9's check lanes, phases 11 and
+12, then phase 6's twins; worker B mul's serial_trap witness and phase
+8b's reference, then phase 13's replays. Every read of a worker's result prints its wait. They never
+open the card, and the script shuts them down on every exit.
 """
 import json
 import os
@@ -89,6 +114,12 @@ EVAL_TOL = 1e-10       # K2 device functions vs the twin, normwise relative
 TWIN_RMSE_TOL = 1e-7   # K2 vs twin waveform RMSE, relative to the scale
 TWIN_FLIP_TOL = 1e-4   # the same after a flipped step decision (reltol)
 TWIN_COUNT_TOL = 0.02  # K2 vs twin accepted / rejected / Newton counts
+#: phase 6's cases whose twin runs on the card, the others' on the host CPU
+#: (a worker). graetz's: on the host the twin takes K2's counts exactly and
+#: yet parts by 1.8e-6 of 20 V RMSE on an H100 (PERF.md), over
+#: TWIN_RMSE_TOL: the host's libm rounds exp otherwise than the card, and
+#: graetz's system (c0*C near 10 S beside 1e-12 S) amplifies the last bit
+TWIN_ON_CARD = ("graetz",)
 GRAETZ_TOL = 2e-3      # bench.py's golden gate for graetz (scale 20 V)
 DERIV_TOL = 1e-12      # K1 jvp / vjp vs autodiff of the twin, relative
 VARIANT_TOL = 1e-14    # K1 warp vs block variant, relative (0 expected)
@@ -228,9 +259,9 @@ def _cpu_worker_init(root):
 
 
 def cpu_worker():
-    """One spawned process for the CPU references of phases 9, 11 and 12.
-    Their jobs run beside the card's host-bound loops, off the script's
-    critical path; main() shuts it down on every exit."""
+    """One spawned process for CPU references (main() starts two). Their
+    jobs run beside the card's host-bound loops, off the script's critical
+    path; main() shuts them down on every exit."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     return ProcessPoolExecutor(
@@ -297,6 +328,64 @@ def edge_masked(ts, a, b):
 #: the edge-masked bar: 99th percentile and maximum, volts
 EDGE_Q99_TOL, EDGE_MAX_TOL = 0.15, 0.6
 DARL_REF_SPAN = 2e-6   # the darlington's tran() reference: one period
+
+#: phase 13: the fixed-step engines at bench.py's settings. rc through
+#: tran_linear (bench.py:147-187); graetz, mul and the darlington through
+#: tran_pit (bench.py:190-269, 411-443): the models/vacask netlist, span,
+#: step, tran_pit's arguments, the waveform's nodes and its scale
+RC_SPAN, RC_DT, RC_TOL = (0, 1.0), 1e-6, 1e-6
+DARL_PIT_SPAN = 1e-3
+#: mul runs its first two windows (two 100 kHz periods each), not bench.py's
+#: 0-5 ms: through the pump's startup the window Newton's converged prefix
+#: stalls at a diode's switching onset, in the JAX package as in the port
+#: and at either residual floor (1e-9 or 3e-7), so every window after the
+#: first falls to the rescue ladder, about 600 window iterations each (the
+#: CPU port over five windows: 2874), and the 250 windows of 0-5 ms would
+#: take hours on the card (PERF.md). At the span's end the pump has passed
+#: bench.py's 40 V (the golden: 69.2 V)
+MUL_SPAN = 4e-5
+#: mul's golden gate over MUL_SPAN. bench.py's 5e-3 holds over 0-5 ms, where
+#: the steady state dominates; over the startup the trapezoidal recursion
+#: at 10 ns, solved one step at a time (serial_trap), itself reads 5.294e-3
+#: of 50 V (scripts/torch_pit_windows.py mul 2 --serial, CPU): the step's
+#: discretization error, which the window solver cannot beat
+MUL_GOLDEN_TOL = 5.5e-3
+#: mul's voltages on the card against serial_trap of the same recursion on
+#: the host CPU (a worker), max |dv| / 50 V: each point of either lies
+#: within Newton's tolerance (reltol 1e-4 of up to 97 V) of the recursion's
+#: solution. The CPU port reads 3.6e-4; the JAX package's CPU run, which
+#: takes a backward-Euler rescue window at 20 us, 8.7e-2 (PERF.md)
+MUL_WITNESS_TOL = 1e-3
+PIT_RUNS = {
+    "graetz": ("GRAETZ", (0, 1.0), 1e-6,
+               dict(window=8192, windows_per_exec=16), ("outp", "outn"), 20.0),
+    "mul": ("MUL", (0, MUL_SPAN), 1e-8,
+            dict(window=2000, windows_per_exec=64, max_iters=96),
+            ("20", None), 50.0),
+    "darlington": ("DARLINGTON", (0, DARL_PIT_SPAN), 2e-9,
+                   dict(window=8000, windows_per_exec=32, max_iters=96),
+                   ("coll", None), 5.0),
+}
+#: the CPU port's replay of the card's tran_pit, in a worker, compared over
+#: the first two windows (graetz: one 50 Hz period each; mul: two 100 kHz
+#: periods each). The span gives the replay the card's first execution:
+#: graetz's 16 windows (windows_per_exec) share one pooled trip budget, and
+#: over two windows alone window 1 would run out of trips and restart
+#: (6.25e-5 of 20 V apart at equal counts on an H100, PERF.md); mul's whole
+#: span
+PIT_CPU_SPAN = {"graetz": 0.32, "mul": MUL_SPAN}
+#: card against that replay, both from the card's operating point and
+#: window-0 seed (a host copy): max |dx| / scale with equal window-Newton
+#: iterations PIT_CPU_TOL, where one decision flips (the counts differ) the
+#: runner's own tolerance TWIN_FLIP_TOL (reltol); RMSE / scale always
+#: PIT_CPU_RMSE_TOL. graetz's bar is its runner's tolerance even at equal
+#: counts: its off-state diodes put D's condition near 1e15, so the card's
+#: and the host's last-bit differences (exp; K1's FMA) move an accepted
+#: point within Newton's tolerance (on an H100, PERF.md: 8.9e-6 apart at
+#: 41 / 41 iterations, RMSE 3.4e-6); mul 289 / 290 iterations, 2.9e-10
+#: apart, RMSE 1.5e-11
+PIT_CPU_TOL = {"graetz": TWIN_FLIP_TOL, "mul": 1e-9}
+PIT_CPU_RMSE_TOL = 1e-5
 
 
 def nvidia_smi(query):
@@ -817,12 +906,43 @@ def k2_layout(vt, S):
             "shared" if in_smem else "device")
 
 
+def host_setup(S):
+    """A K2 set-up's fields without its circuit and parameters, as numpy:
+    what the CPU worker needs to run the twin from the card's operating
+    point."""
+    import dataclasses
+    return {f.name: (getattr(S, f.name).cpu().numpy()
+                     if hasattr(getattr(S, f.name), "cpu")
+                     else getattr(S, f.name))
+            for f in dataclasses.fields(S) if f.name not in ("cc", "params")}
+
+
+def cpu_k2_twin(net, setup):
+    """Phase 6's twin on the host CPU (in a worker): K2's plain twin on a
+    CPU circuit of `net`, from the card's set-up `setup` (host_setup)."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.ops import vmem_tran as vt
+
+    cc = ct.parse_spice(net, device="cpu")
+    S = vt.Setup(cc=cc, params=cc.params0(), **{
+        k: torch.as_tensor(v) if isinstance(v, np.ndarray) and k != "bp"
+        else v for k, v in setup.items()})
+    t = time.perf_counter()
+    r = vt.integrate_plain(S)
+    return dict(xs=r.xs.numpy(), stats=tuple(int(v) for v in r.stats),
+                ms=(time.perf_counter() - t) * 1e3, where="on the host CPU")
+
+
 def k2_vs_twin(card):
-    """Phase 6: one K2 launch against the twin on the same set-up. The
-    ladder is the largest circuit K2 takes (n = 127): it runs the block
-    solve with its locals in device memory, the other cases the warp
-    solve with them in shared memory. The darlington (BJTs) and the
-    L/K/E/G/F/H deck run the device functions this slice added."""
+    """Phase 6: one K2 launch per case on the card. The ladder is the
+    largest circuit K2 takes (n = 127): it runs the block solve with its
+    locals in device memory, the other cases the warp solve with them in
+    shared memory. The darlington (BJTs) and the L/K/E/G/F/H deck run the
+    BJT and linear-model device functions. Each case's twin runs on the
+    host CPU in a worker, from the card's own set-up (host_setup), except
+    those of TWIN_ON_CARD, which run here; twin_check holds the two against
+    each other in the summary phase."""
     import torch
     import cadnip_tpu_torch as ct
     from cadnip_tpu_torch.models.vacask import DARLINGTON, GRAETZ, RC_NETLIST
@@ -856,49 +976,73 @@ def k2_vs_twin(card):
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end)
-        t = time.perf_counter()
-        rp = vt.integrate_plain(S)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t) * 1e3
-
-        def wave(r):
-            v = r.xs[:, cc.index_of(na)]
-            return v if nb is None else v - r.xs[:, cc.index_of(nb)]
-
-        rmse = float((wave(rk) - wave(rp)).pow(2).mean().sqrt()) / scale
-        err = float((rk.xs - rp.xs).abs().max())
-        bound = k2_bound(S, rk.stats[2])
-        # within 2 %, and at least one count apart (2 % of the 5 rejects of
-        # rc is a tenth of a step)
-        counts_ok = all(abs(a - b) <= max(1.0, TWIN_COUNT_TOL * b)
-                        for a, b in zip(rk.stats[:3], rp.stats[:3]))
-        print(f"K2 vs twin {name} {span[1]:g} s (n = {cc.n}, {layout[0]} "
-              f"solve, locals in {layout[1]} memory): kernel {ms:.3f} ms, "
-              f"twin {plain_ms:.1f} ms; kernel / twin accepted, rejected, "
-              f"newton {rk.stats[:3]} / {rp.stats[:3]}; waveform RMSE/scale "
-              f"{rmse:.2e}, max |dx| {err:.2e}; bound "
+        stats = tuple(int(v) for v in rk.stats)
+        bound = k2_bound(S, stats[2])
+        print(f"K2 {name} {span[1]:g} s (n = {cc.n}, {layout[0]} solve, "
+              f"locals in {layout[1]} memory): kernel {ms:.3f} ms, accepted,"
+              f" rejected, newton {stats[:3]}; bound "
               f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) "
               f"[{card}]", flush=True)
-        print(f"   K2 phases: {phase_shares(rk.phases, rk.stats[2])}",
+        print(f"   K2 phases: {phase_shares(rk.phases, stats[2])}",
               flush=True)
-        if rk.stats[3] or rp.stats[3]:
-            raise RuntimeError(f"K2 vs twin {name}: the integrator failed")
-        # the bar holds while both take the same steps. Last-bit
-        # differences (dual-number against reverse-mode derivatives,
-        # summation order, FMA), amplified by an ill-conditioned system
-        # (graetz: c0*C near 10 S beside 1e-12 S), can flip one step
-        # decision; from there the two are two step sequences of one
-        # integrator, held to its reltol
-        tol = (TWIN_RMSE_TOL if rk.stats[:3] == rp.stats[:3]
-               else TWIN_FLIP_TOL)
+        if stats[3]:
+            raise RuntimeError(f"K2 {name}: the integrator failed")
+        out[name] = dict(ms=ms, net=net, setup=host_setup(S),
+                         xs=rk.xs.cpu().numpy(), stats=stats, scale=scale,
+                         cols=[cc.index_of(k) for k in (na, nb) if k],
+                         **bound)
+        if name in TWIN_ON_CARD:
+            t = time.perf_counter()
+            rp = vt.integrate_plain(S)
+            torch.cuda.synchronize()
+            out[name]["twin"] = dict(
+                xs=rp.xs.cpu().numpy(), where="on the card",
+                stats=tuple(int(v) for v in rp.stats),
+                ms=(time.perf_counter() - t) * 1e3)
+    return out
+
+
+def twin_check(card, cases, jobs):
+    """The summary phase's half of phase 6: each K2 run against its twin
+    (`jobs`: the worker's cpu_k2_twin by case; TWIN_ON_CARD's twins ran in
+    phase 6). The bar holds
+    while both take the same steps. Last-bit differences (dual-number
+    against reverse-mode derivatives, summation order, FMA, the card's
+    against the host's libm), amplified by an ill-conditioned system
+    (graetz: c0*C near 10 S beside 1e-12 S), can flip one step decision;
+    from there the two are two step sequences of one integrator, held to
+    its reltol. Counts within 2 %, and at least one count apart (2 % of
+    the 5 rejects of rc is a tenth of a step)."""
+    for name, case in cases.items():
+        t = time.perf_counter()
+        rp = case["twin"] if name in TWIN_ON_CARD else jobs[name].result()
+        waited = time.perf_counter() - t
+
+        def wave(xs):
+            v = xs[:, case["cols"][0]]
+            return v if len(case["cols"]) == 1 else v - xs[:, case["cols"][1]]
+
+        rk_stats, rp_stats = case["stats"][:3], rp["stats"][:3]
+        rmse = float(np.sqrt(np.mean((wave(case["xs"]) - wave(rp["xs"]))
+                                     ** 2))) / case["scale"]
+        err = float(np.abs(case["xs"] - rp["xs"]).max())
+        counts_ok = all(abs(a - b) <= max(1.0, TWIN_COUNT_TOL * b)
+                        for a, b in zip(rk_stats, rp_stats))
+        print(f"K2 vs twin {name}: kernel {case['ms']:.3f} ms, twin "
+              f"{rp['where']} {rp['ms']:.1f} ms (read after a wait of "
+              f"{waited:.3f} s); kernel / twin accepted, rejected, newton "
+              f"{rk_stats} / {rp_stats}; waveform RMSE/scale {rmse:.2e}, max "
+              f"|dx| {err:.2e} [{card}]", flush=True)
+        if rp["stats"][3]:
+            raise RuntimeError(f"K2 vs twin {name}: the twin failed")
+        tol = TWIN_RMSE_TOL if rk_stats == rp_stats else TWIN_FLIP_TOL
         if not rmse <= tol:
             raise RuntimeError(f"K2 vs twin {name}: RMSE {rmse:.3e} > "
                                f"{tol:.0e}")
         if not counts_ok:
-            raise RuntimeError(f"K2 vs twin {name}: counts {rk.stats[:3]} vs"
-                               f" {rp.stats[:3]} differ by more than 2 %")
-        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **bound)
-    return out
+            raise RuntimeError(f"K2 vs twin {name}: counts {rk_stats} vs "
+                               f"{rp_stats} differ by more than 2 %")
+        case.update(plain_ms=rp["ms"], max_abs_err=err)
 
 
 def k2_dff(card):
@@ -1001,6 +1145,9 @@ def k2_graetz(card):
                            f" RMSE {rmse:.3e} (gate {GRAETZ_TOL:.0e})")
     if ct.vmem_tran.launches != 1:
         raise RuntimeError(f"graetz K2: {ct.vmem_tran.launches} launches")
+    # v(outp, outn) at the golden's instants, for phase 13
+    gts = np.load(os.path.join(GOLDENS, "graetz.npz"))["ts"]
+    return np.interp(gts, np.asarray(sol.ts), v)
 
 
 def k2_darlington(card):
@@ -1029,12 +1176,6 @@ def k2_darlington(card):
     physics = bool(vc[late].min() < 1.0 and vc[late].max() > 4.5)
     tm = sol.timings
     k2_ms = tm["integrate"] * 1e3
-    t = time.perf_counter()
-    ref = ct.tran(cc, (0, DARL_REF_SPAN), dt=2e-9)
-    torch.cuda.synchronize()
-    tran_wall = time.perf_counter() - t
-    rows = ref.xs.shape[0]
-    q99, mx = edge_masked(ts[:rows], vc[:rows], ref["coll"].cpu().numpy())
     bound = span_bound(cc, (0, 1e-3), 2e-9, sol)
     cyc = sum(sol.phase_cycles.values()) / max(nn, 1)
     print(f"darlington vmem_tran() 0-1 ms at 2 ns ({vc.shape[0]} rows, n = "
@@ -1043,16 +1184,13 @@ def k2_darlington(card):
           f"{int(st.naccept)}, rejected {int(st.nreject)}, newton {nn}, "
           f"{k2_ms * 1e3 / max(nn, 1):.2f} us and {cyc:.0f} cycles per Newton"
           f" iteration, K2 launches {launches}; v(coll) after 0.9 ms in "
-          f"[{vc[late].min():.4f}, {vc[late].max():.4f}] V; against tran() "
-          f"0-{DARL_REF_SPAN * 1e6:g} us ({tran_wall:.1f} s, newton "
-          f"{int(ref.stats.nnewton)}) away"
-          f" from the edges: 99th percentile {q99:.3e} V, max {mx:.3e} V; "
-          f"bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}: "
+          f"[{vc[late].min():.4f}, {vc[late].max():.4f}] V; bound "
+          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}: "
           f"{bound['bytes']} bytes, {bound['flops']} FLOP) [{card}]",
           flush=True)
     print(f"   K2 phases: {phase_shares(sol.phase_cycles, nn)}", flush=True)
-    if not (bool(sol.converged) and bool(ref.converged)
-            and np.isfinite(vc).all() and vc.shape == (500001,)):
+    if not (bool(sol.converged) and np.isfinite(vc).all()
+            and vc.shape == (500001,)):
         raise RuntimeError("darlington K2: transient failed")
     if not physics:
         raise RuntimeError(f"darlington K2: v(coll) after 0.9 ms in "
@@ -1060,11 +1198,43 @@ def k2_darlington(card):
                            f" < 1.0 V and max > 4.5 V")
     if launches != 1:
         raise RuntimeError(f"darlington K2: {launches} launches (want 1)")
+    return dict(launches=launches, ms=k2_ms, wall=wall, nnewton=nn, ts=ts,
+                coll=vc, **bound)
+
+
+def cpu_darlington_ref():
+    """Phase 8b's reference on the host CPU (in a worker): tran() of the
+    darlington over DARL_REF_SPAN, its collector waveform."""
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.models.vacask import DARLINGTON
+
+    cc = ct.parse_spice(DARLINGTON, device="cpu")
+    t = time.perf_counter()
+    ref = ct.tran(cc, (0, DARL_REF_SPAN), dt=2e-9)
+    return dict(coll=ref["coll"].numpy(), converged=bool(ref.converged),
+                nnewton=int(ref.stats.nnewton), wall=time.perf_counter() - t)
+
+
+def darlington_ref_check(card, dar, job):
+    """The summary phase's half of phase 8b: K2's first DARL_REF_SPAN (one
+    period of the pulse: the ON half and the falling edge at 1 us) against
+    tran() on the host CPU (`job`, the worker's cpu_darlington_ref()) at
+    the edge-masked bar."""
+    t = time.perf_counter()
+    ref = job.result()
+    waited = time.perf_counter() - t
+    rows = ref["coll"].shape[0]
+    q99, mx = edge_masked(dar["ts"][:rows], dar["coll"][:rows], ref["coll"])
+    print(f"darlington K2 against tran() 0-{DARL_REF_SPAN * 1e6:g} us on the "
+          f"host CPU ({ref['wall']:.1f} s in the worker, newton "
+          f"{ref['nnewton']}; read after a wait of {waited:.3f} s) away from "
+          f"the edges: 99th percentile {q99:.3e} V, max {mx:.3e} V [{card}]",
+          flush=True)
+    if not ref["converged"]:
+        raise RuntimeError("darlington tran() reference failed")
     if not (q99 < EDGE_Q99_TOL and mx < EDGE_MAX_TOL):
         raise RuntimeError(f"darlington K2 against tran(): {q99:.3e} / "
                            f"{mx:.3e} V over {EDGE_Q99_TOL} / {EDGE_MAX_TOL}")
-    return dict(launches=launches, ms=k2_ms, wall=wall, nnewton=nn,
-                **bound)
 
 
 def ac_noise(card):
@@ -1605,6 +1775,277 @@ def va_ekv(card, tran_job, cpu):
                 wall=wall, ms_card=ms_card, ms_cpu=ms_cpu)
 
 
+def cpu_pit(name, x0, xseed):
+    """Phase 13's CPU side (in a worker): the CPU port's tran_pit of
+    PIT_RUNS[name] over PIT_CPU_SPAN from the card's operating point x0
+    and window-0 seed xseed; its first two windows' rows are returned."""
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.models import vacask
+
+    net, _, dt, kw, _, _ = PIT_RUNS[name]
+    cc = ct.parse_spice(getattr(vacask, net), device="cpu")
+    t = time.perf_counter()
+    sol = ct.tran_pit(cc, (0, PIT_CPU_SPAN[name]), dt, x0=x0, xseed=xseed,
+                      **kw)
+    return dict(xs=sol.xs[:2 * sol.window + 1].numpy(),
+                window_iters=sol.window_iters, window=sol.window,
+                fail=bool(sol.stats.fail), wall=time.perf_counter() - t)
+
+
+def cpu_mul_witness():
+    """Phase 13's witness for mul (in a worker): serial_trap over MUL_SPAN
+    on the host CPU, the same trapezoidal recursion one step at a time."""
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.analyses.tran_pit import serial_trap
+    from cadnip_tpu_torch.mna.devices import CLASS_V
+    from cadnip_tpu_torch.models.vacask import MUL
+
+    cc = ct.parse_spice(MUL, device="cpu")
+    t = time.perf_counter()
+    xs, ok = serial_trap(cc, (0, MUL_SPAN), PIT_RUNS["mul"][2])
+    return dict(xs=xs.numpy(), ok=ok, is_v=cc.classes == CLASS_V,
+                wall=time.perf_counter() - t)
+
+
+def rc_linear(card):
+    """Phase 13, rc: bench.py's bench_rc through tran_linear on the card,
+    1,000,001 points, against the closed form of the first pulse."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.models.vacask import RC_NETLIST
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    cc = ct.parse_spice(RC_NETLIST, device="cuda")
+    torch.cuda.synchronize()
+    gj_solve.launches = 0
+    t = time.perf_counter()
+    sol = ct.tran_linear(cc, RC_SPAN, RC_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = gj_solve.launches
+    v2, ts = sol["2"].cpu().numpy(), np.asarray(sol.ts)
+    seg = (ts >= 5e-6) & (ts <= 9e-4)
+    tau, tr = 1e-3, 1e-6
+    v_ramp_end = 1.0 - tau / tr * (1 - np.exp(-tr / tau))
+    v_exact = 1.0 + (v_ramp_end - 1.0) * np.exp(-(ts[seg] - 2e-6) / tau)
+    rmse = float(np.sqrt(np.mean((v2[seg] - v_exact) ** 2)))
+    print(f"rc tran_linear() 0-1 s at 1 us ({v2.shape[0]} points): wall "
+          f"{wall:.3f} s (operating point {sol.timings['op']:.3f} s), K1 "
+          f"launches {launches}; closed-form RMSE on [5 us, 0.9 ms] "
+          f"{rmse:.3e} [{card}]", flush=True)
+    if v2.shape[0] != 1_000_001 or not np.isfinite(v2).all():
+        raise RuntimeError(f"rc tran_linear: bad waveform {v2.shape}")
+    if not rmse < RC_TOL:
+        raise RuntimeError(f"rc tran_linear: RMSE {rmse:.3e} >= {RC_TOL}")
+    if launches < 1:
+        raise RuntimeError("rc tran_linear: no K1 launch")
+    return dict(launches=launches, wall=wall)
+
+
+def pit_k1(card, cc, X, dt):
+    """K1 at a tran_pit path's shape: the [W, n, n + 1] systems of one
+    trapezoidal window iteration at the window's own solution X [W, n]
+    (rows scaled as `_window_dx` scales them), against the plain twin and
+    torch.linalg.solve_ex on the same tensors, beside the bound."""
+    import torch
+    from cadnip_tpu_torch.mna.assemble import make_assembler, pad_state
+    from cadnip_tpu_torch.mna.spec import MODE_TRAN
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve, gj_solve_plain
+
+    asm = make_assembler(cc)
+    W, n = X.shape
+    xp = pad_state(X)
+    tw = dt * (1.0 + torch.arange(W, dtype=torch.float64, device=cc.device))
+    F, _, G, C, _ = asm(xp, asm.init_lim(xp), cc.params0(),
+                        cc.spec.dyn(cc.device, mode=MODE_TRAN, time=tw))
+    D = G + (2.0 / dt) * C
+    L = torch.cat([torch.zeros_like(D[:1]), G[:-1] - (2.0 / dt) * C[:-1]])
+    rinv = 1.0 / torch.clamp(D.abs().amax(2, keepdim=True), min=1e-30)
+    A = (D * rinv).contiguous()
+    B = torch.cat([L * rinv, F[..., None] * rinv], -1).contiguous()
+    Xp = gj_solve_plain(A, B)
+    # the kernel rounds a - f*b as one FMA and the twin does not; on the
+    # path's own systems (the off-state diodes' rows leave cond(A) far
+    # above phase 3's random ones) each system is held, as phase 9c holds
+    # the Jacobians, to JAC_DERIV_FACTOR * n * cond(A) * eps of its size
+    rel = ((gj_solve(A, B) - Xp).abs().amax((1, 2))
+           / Xp.abs().amax((1, 2)).clamp(min=1e-300)).cpu().numpy()
+    cond = np.linalg.cond(A.cpu().numpy())
+    ratio = rel / (JAC_DERIV_FACTOR * n * cond * np.finfo(np.float64).eps)
+    err, tol = float(rel.max()), float(ratio.max())
+    ms = cuda_time_ms(lambda: gj_solve(A, B), 20)
+    plain_ms = cuda_time_ms(lambda: gj_solve_plain(A, B), 3)
+    library_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(A, B), 20)
+    bound = roofline(8 * W * (n * n + 2 * n * (n + 1)),
+                     W * solve_flops(n, n + 1), 8)
+    shape = f"f64 n={n} k={n + 1} b={W}"
+    print(f"K1 at the tran_pit shape {shape}: max |kernel - plain| "
+          f"relative {err:.3e}, cond(A) {cond.min():.2e}-{cond.max():.2e},"
+          f" worst error / bound {tol:.3e}; kernel {ms * 1e3:.1f} us, plain "
+          f"{plain_ms * 1e3:.1f} "
+          f"us, torch.linalg.solve_ex {library_ms * 1e3:.1f} us; "
+          f"{bound['bytes']} bytes, {bound['flops']} FLOP, bound "
+          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) [{card}]",
+          flush=True)
+    if not tol <= 1.0:
+        raise RuntimeError(f"K1 at {shape}: |kernel - plain| over its "
+                           f"bound by {tol:.3e}")
+    return dict(shape=shape, max_rel_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bound)
+
+
+def pit_against_cpu(card, name, head, window_iters, window, scale, job):
+    """The card's first two windows of PIT_RUNS[name] (`head`, a host copy
+    of their rows) against the CPU port's run of them from the card's
+    operating point and seed (`job`, the worker's cpu_pit), with both runs'
+    window-Newton iterations over those windows: equal, and then within
+    PIT_CPU_TOL of the scale; or a flipped decision, and then within
+    TWIN_FLIP_TOL; the RMSE within PIT_CPU_RMSE_TOL."""
+    t = time.perf_counter()
+    ref = job.result()
+    waited = time.perf_counter() - t
+    rows = head.shape[0]
+    end = 2 * ref["window"]
+    card_it = sum(i for o, i in window_iters if o < end)
+    cpu_it = sum(i for o, i in ref["window_iters"] if o < end)
+    dx = head - ref["xs"][:rows]
+    err = float(np.abs(dx).max()) / scale
+    rmse = float(np.sqrt(np.mean(dx ** 2))) / scale
+    tol = PIT_CPU_TOL[name] if card_it == cpu_it else TWIN_FLIP_TOL
+    line = (f"tran_pit {name} on the card against the CPU port's first two "
+            f"windows from the card's operating point and seed ({rows - 1} "
+            f"steps; {ref['wall']:.1f} s in the worker, read after a wait of "
+            f"{waited:.3f} s): window-Newton iterations {card_it} / {cpu_it},"
+            f" max |dx| / scale {err:.3e} (bar {tol:.0e}), RMSE / scale "
+            f"{rmse:.3e} (bar {PIT_CPU_RMSE_TOL:.0e}) [{card}]")
+    print(line, flush=True)
+    if ref["fail"] or ref["window"] != window:
+        raise RuntimeError(f"{line}: the CPU run failed or took another "
+                           f"window")
+    if ref["xs"].shape[0] != rows or not (err <= tol
+                                          and rmse <= PIT_CPU_RMSE_TOL):
+        raise RuntimeError(f"{line}: over a bar")
+    return dict(card_it=card_it, cpu_it=cpu_it, err=err, wall=ref["wall"])
+
+
+def pit_engines(card, cpu2, graetz_k2, dar, witness_job):
+    """Phase 13: graetz, mul and the darlington through tran_pit on the
+    card at bench.py's settings (PIT_RUNS), each window iteration one K1
+    launch of [W, n, n + 1]: wall, the periodic seed's serial tran(), the
+    windows, iterations, ms per window iteration, K1 launches per part,
+    peak device memory; bench.py's gates; graetz against phase 8's K2
+    waveform, mul against serial_trap on the CPU (`witness_job`) and the
+    golden over its span, the darlington against phase 8b's; K1 at each
+    path's shape. The first two windows of graetz and mul are replayed by
+    the CPU port in worker `cpu2` from the card's operating point and seed
+    while the card runs on, and compared at the end."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.models import vacask
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    out, replays = {}, {}
+    for name, (net, span, dt, kw, (na, nb), scale) in PIT_RUNS.items():
+        cc = ct.parse_spice(getattr(vacask, net), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gj_solve.launches = 0
+        t = time.perf_counter()
+        sol = ct.tran_pit(cc, span, dt, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = gj_solve.launches
+        peak = torch.cuda.max_memory_allocated()
+        nn = int(sol.stats.nnewton)
+        tm, k1l = sol.timings, sol.k1_launches
+        if name in PIT_CPU_SPAN:
+            head = sol.xs[:2 * sol.window + 1].cpu().numpy()
+            replays[name] = (head, sol.window_iters, sol.window, scale,
+                             cpu2.submit(cpu_pit, name, head[0],
+                                         sol.xseed.cpu().numpy()))
+        ts = np.asarray(sol.ts)
+        v = sol[na].cpu().numpy()
+        if nb is not None:
+            v = v - sol[nb].cpu().numpy()
+        print(f"{name} tran_pit() {span[1]:g} s at {dt:g} s ({v.shape[0]} "
+              f"rows, n = {cc.n}, window {sol.window}): wall {wall:.3f} s = "
+              f"operating point {tm['op']:.3f} s + periodic seed (serial "
+              f"tran) {tm['seed']:.3f} s ({tm['seed'] / wall * 100:.1f} %) + "
+              f"windows {tm['windows']:.3f} s; window-Newton iterations {nn},"
+              f" {tm['windows'] / max(nn, 1) * 1e3:.2f} ms each; K1 launches "
+              f"{launches} (operating point {k1l['op']}, seed {k1l['seed']}, "
+              f"windows {k1l['windows']}); host syncs {sol.host_syncs}; peak "
+              f"device memory {peak / 2**20:.0f} MiB [{card}]", flush=True)
+        print(f"   first pieces (step offset, iterations): "
+              f"{sol.window_iters[:8]}", flush=True)
+        if bool(sol.stats.fail) or not np.isfinite(v).all():
+            raise RuntimeError(f"{name} tran_pit: failed")
+        if k1l["windows"] != nn or sum(k1l.values()) != launches:
+            raise RuntimeError(f"{name} tran_pit: K1 launches {k1l} (of "
+                               f"{launches}) against {nn} window-Newton "
+                               f"iterations")
+        k1 = pit_k1(card, cc, sol.xs[1:sol.window + 1].contiguous(), dt)
+        if name == "graetz":
+            late = ts > 0.06
+            ripple_ok = 16.0 < v[late].min() < v[late].max() < 19.5
+            rmse = golden_rmse(sol, "graetz", "outp", "outn", scale=20.0)
+            g = np.load(os.path.join(GOLDENS, "graetz.npz"))
+            k2 = float(np.sqrt(np.mean((np.interp(g["ts"], ts, v)
+                                        - graetz_k2) ** 2))) / 20.0
+            print(f"   graetz: v(outp,outn) after 0.06 s in "
+                  f"[{v[late].min():.4f}, {v[late].max():.4f}] V, golden rel "
+                  f"RMSE {rmse:.3e} (gate {GRAETZ_TOL:.0e}); against phase "
+                  f"8's K2 at the golden's instants {k2:.3e}", flush=True)
+            if not (ripple_ok and rmse <= GRAETZ_TOL):
+                raise RuntimeError(f"graetz tran_pit: ripple in range "
+                                   f"{ripple_ok}, golden RMSE {rmse:.3e}")
+        elif name == "mul":
+            v20 = float(v[-1])
+            g = np.load(os.path.join(GOLDENS, "mul.npz"))
+            m = g["ts"] <= span[1]
+            rmse = float(np.sqrt(np.mean((np.interp(g["ts"][m], ts, v)
+                                          - g["20"][m]) ** 2))) / 50.0
+            tw = time.perf_counter()
+            ref = witness_job.result()
+            waited = time.perf_counter() - tw
+            xs = sol.xs.cpu().numpy()
+            wit = float(np.abs(xs - ref["xs"])[:, ref["is_v"]].max()) / 50.0
+            print(f"   mul: v(20) at {span[1] * 1e6:g} us {v20:.3f} V "
+                  f"(golden {np.interp(span[1], g['ts'], g['20']):.3f} V), "
+                  f"golden rel RMSE over the span {rmse:.3e} (gate "
+                  f"{MUL_GOLDEN_TOL:.1e}); against serial_trap on the host "
+                  f"CPU ({ref['wall']:.1f} s in the worker, read after a wait"
+                  f" of {waited:.3f} s) max |dv| / 50 V {wit:.3e} (gate "
+                  f"{MUL_WITNESS_TOL:.0e})", flush=True)
+            if not (v20 > 40.0 and rmse <= MUL_GOLDEN_TOL and ref["ok"]
+                    and wit <= MUL_WITNESS_TOL):
+                raise RuntimeError(f"mul tran_pit: v(20) {v20} V at the "
+                                   f"span's end, golden RMSE {rmse:.3e}, "
+                                   f"witness converged {ref['ok']}, "
+                                   f"{wit:.3e} from it")
+        else:
+            last = ts > span[1] - 2e-6
+            switch = bool(v[last].min() < 1.0 and v[last].max() > 4.5)
+            rows = v.shape[0]
+            q99, mx = edge_masked(ts, v, dar["coll"][:rows])
+            print(f"   darlington: v(coll) over the last period in "
+                  f"[{v[last].min():.4f}, {v[last].max():.4f}] V; against "
+                  f"phase 8b's K2 away from the edges: 99th percentile "
+                  f"{q99:.3e} V, max {mx:.3e} V", flush=True)
+            if not switch:
+                raise RuntimeError("darlington tran_pit: no switching over "
+                                   "the last period")
+            if not (q99 < EDGE_Q99_TOL and mx < EDGE_MAX_TOL):
+                raise RuntimeError(f"darlington tran_pit against K2: "
+                                   f"{q99:.3e} / {mx:.3e} V")
+        out[name] = dict(launches=k1l, nnewton=nn, wall=wall,
+                         seed=tm["seed"], peak=peak,
+                         ms_per_it=tm["windows"] / max(nn, 1) * 1e3, k1=k1)
+    for name, args in replays.items():
+        out[name]["cpu"] = pit_against_cpu(card, name, *args)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1641,14 +2082,19 @@ def main():
     phase("5 K2 device eval", device_eval, card)
     twin = phase("6 K2 vs twin", k2_vs_twin, card)
     k2 = phase("7 DFF vmem_tran", k2_dff, card)
-    phase("8 graetz", k2_graetz, card)
+    graetz_k2 = phase("8 graetz", k2_graetz, card)
     dar = phase("8b darlington", k2_darlington, card)
     phase("8c AC + noise", ac_noise, card)
-    # from here on, the CPU references run in a worker process beside the
-    # card's host loop; it is idle until phase 9, so that the kernel
-    # timings and host-bound walls of phases 3-8c see no neighbour
-    cpu = cpu_worker()
+    # from here on, the CPU references run in two worker processes beside
+    # the card's host loop; they are idle until phase 9, so that the
+    # kernel timings and host-bound walls of phases 3-8c see no neighbour.
+    # Worker A: phase 9's lanes, phases 11 and 12, then phase 6's twins
+    # (queued after phase 12's jobs, so that phase 12 never waits); worker
+    # B: phase 13's first windows and phase 8b's reference
+    cpu, cpu2 = cpu_worker(), cpu_worker()
     try:
+        witness_job = cpu2.submit(cpu_mul_witness)
+        dar_job = cpu2.submit(cpu_darlington_ref)
         mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"],
                    cpu)
         # queued behind phase 9's lanes, done long before they are read
@@ -1660,27 +2106,46 @@ def main():
         phase("10 dcsweep", dc_sweep_rescue, card)
         phase("11 derivatives", derivatives, card, deriv_job)
         va = phase("12 VA (EKV DFF)", va_ekv, card, ekv_job, cpu)
+        twin_jobs = {name: cpu.submit(cpu_k2_twin, c["net"], c["setup"])
+                     for name, c in twin.items() if name not in TWIN_ON_CARD}
+        lin = phase("13 rc tran_linear", rc_linear, card)
+        pit = phase("13 tran_pit", pit_engines, card, cpu2, graetz_k2, dar,
+                    witness_job)
+        phase("14 twins (6, 8b)", lambda: (
+            twin_check(card, twin, twin_jobs),
+            darlington_ref_check(card, dar, dar_job)))
     finally:
         cpu.shutdown(wait=True, cancel_futures=True)
+        cpu2.shutdown(wait=True, cancel_futures=True)
     print("wall per phase (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     k1, k2d = cases["f64 n=19 k=1 b=4096"], twin["dff"]
-    k1ac = cases[AC_DFF_ROW]
+    k1ac, k1pit = cases[AC_DFF_ROW], pit["graetz"]["k1"]
+    by_path = {"Monte Carlo (phase 9)": mc["launches"], **va["launches"],
+               "rc tran_linear (phase 13)": lin["launches"],
+               **{f"{name} tran_pit {part} (phase 13)": r["launches"][k]
+                  for name, r in pit.items()
+                  for k, part in (("op", "operating point"),
+                                  ("seed", "periodic seed"),
+                                  ("windows", "windows"))}}
     kernels = [{"name": "K1 gj_solve (warp and block variants; jvp, vjp)",
                 "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/gj_solve.cu",
                 "replaces": "cadnip_tpu/ops/pallas_solve.py:35",
-                "launches": mc["launches"] + sum(va["launches"].values()),
-                "launches_by_path": {"Monte Carlo (phase 9)": mc["launches"],
-                                     **va["launches"]},
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
                 "bound_us": k1["bound_ms"] * 1e3,
                 "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
                 "ac_shape": AC_DFF_ROW, "ac_ms": k1ac["ms"],
                 "ac_bound_ms": k1ac["bound_ms"],
-                "ac_library_ms": k1ac["library_ms"]},
+                "ac_library_ms": k1ac["library_ms"],
+                "pit_shape": k1pit["shape"], "pit_ms": k1pit["ms"],
+                "pit_bound_ms": k1pit["bound_ms"],
+                "pit_library_ms": k1pit["library_ms"],
+                "pit_plain_ms": k1pit["plain_ms"]},
                {"name": "K2 vmem_tran", "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/vmem_tran.cu",
                 "replaces": "archive/pallas_tran.py:372",

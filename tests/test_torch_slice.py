@@ -78,6 +78,8 @@ def test_package_imports_no_jax():
         "                               'cadnip_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'cadnip_tpu_torch.va.codegen' in sys.modules\n"
+        "assert 'cadnip_tpu_torch.analyses.tran_pit' in sys.modules\n"
+        "assert 'cadnip_tpu_torch.analyses.tran_linear' in sys.modules\n"
         "assert had or 'jax' not in sys.modules\n"
         "assert 'cadnip_tpu' not in sys.modules\n"
         "print('ok')\n")

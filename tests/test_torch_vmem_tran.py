@@ -423,3 +423,15 @@ def test_k2_locals_in_device_memory_give_the_same_bits_on_gpu(cuda):
     assert err == 0
     assert tuple(t["stats"].tolist()[:4]) == ref.stats
     assert torch.equal(t["xs"][:S.n_save], ref.xs)
+
+
+def test_twin_from_a_host_copy_of_the_setup():
+    """chip_smoke.py's phase 6 runs the twin in a worker from a host copy
+    of the card's set-up (host_setup, cpu_k2_twin): on the CPU the copy
+    gives the same transient as the set-up itself, bit for bit."""
+    S = vt.prepare(tct.parse_spice(RC_NETLIST, device="cpu"), (0, 1e-3),
+                   dt=8e-6)
+    ref = vt.integrate_plain(S)
+    got = chip_smoke.cpu_k2_twin(RC_NETLIST, chip_smoke.host_setup(S))
+    np.testing.assert_array_equal(got["xs"], ref.xs.numpy())
+    assert got["stats"] == tuple(int(v) for v in ref.stats)
