@@ -3,9 +3,11 @@
 Linearize at the DC operating point (G = df/dx, C = dq/dx), then solve
 (G + jωC) x = b_ac at every frequency. The frequency axis is the batch of
 one real 2N x 2N solve (`ops/linalg.py::solve_complex`): on a CUDA circuit
-the whole sweep is one launch of kernel K1, [n_f, 2n, 2n] with [n_f, 2n].
-K1's block variant holds one system in shared memory, so a circuit whose
-2n does not fit (about n = 82 unknowns in f64) raises with its size.
+the whole sweep is one launch of kernel K1, [n_f, 2n, 2n] with [n_f, 2n]:
+its block variant while one system fits a block's shared memory (up to
+about n = 84 unknowns in f64), its grid variant beyond. A large circuit
+compiled to the block-bordered-diagonal backend keeps the dense
+linearization here, as in the JAX package.
 
 `subsystem` exports the single-output descriptor system (A = -G, E = C,
 B = b_ac) as numpy for control-systems tooling; its `freqresp` is host

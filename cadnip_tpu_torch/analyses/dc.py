@@ -4,7 +4,9 @@
 The chain is Newton -> gmin stepping -> source stepping
 (`mna/newton.py::make_dc_solver`). Where it fails on some lane, `dc` runs
 the rescue tiers of the JAX package in its order: pseudo-transient
-continuation, then Levenberg-Marquardt. Where they fail too, `dc` returns
+continuation, then Levenberg-Marquardt (dense circuits only: on a
+block-bordered-diagonal circuit the chain ends with the pseudo-transient
+tier, as in the JAX package). Where they fail too, `dc` returns
 `converged=False`; it does not guess. The JAX package's host-driven
 pseudo-transient tier for Verilog-A circuits (`_ptran_rescue_host`) is
 item 3b of the ROADMAP; a circuit with a hoisted Verilog-A setup pass
@@ -169,10 +171,11 @@ def dc(cc: CompiledCircuit, params=None, x0=None, *, mode: int = MODE_DCOP,
     if rescue and not bool(r.converged.all()):
         r = _take(r, _cached(cc, "dc_ptran_rescue", make_ptran_rescue)(
             x, params, dyn))
-    if rescue and not bool(r.converged.all()):
+    if rescue and cc.bbd is None and not bool(r.converged.all()):
         # LM after pseudo-transient: ptran's charge damping selects the
         # physically reachable basin on bistable circuits, while LM handles
-        # the near-singular Jacobians of charge-free circuits
+        # the near-singular Jacobians of charge-free circuits. Dense
+        # circuits only, as in the JAX package (`analyses/dc.py:146`)
         r = _take(r, _cached(cc, "dc_lm_rescue", make_lm_rescue)(
             r.x, params, dyn))
     if B is None:

@@ -27,11 +27,10 @@ import numpy as np
 import torch
 
 from ..config import DTYPE, ITYPE
-from ..mna.assemble import (ensure_setup, make_assembler, make_rhs_assembler,
-                             pad_state)
+from ..mna.assemble import ensure_setup, make_rhs_assembler, pad_state
 from ..mna.devices import CLASS_V
 from ..mna.newton import (_make_assemble_solve, abstol_vector, damp_step,
-                          make_uic_warmup)
+                          make_system_assembler, make_uic_warmup)
 from ..mna.spec import MODE_TRAN, MODE_TRANOP
 from ..mna.structure import CompiledCircuit
 from .dc import dc, param_lanes
@@ -395,7 +394,7 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     dt_min = float(np.min(np.diff(save_np))) if n_save > 1 else dtmax
     W = min(int(np.ceil(dtmax / max(dt_min, 1e-300))) + 2, n_save)
 
-    assemble = make_assembler(cc)
+    assemble = make_system_assembler(cc)
     rhs = make_rhs_assembler(cc)
     runner = make_tran_runner(cc, n_save, int(max_steps), W, method=method,
                               integ=integ, assemble=assemble)
@@ -404,7 +403,12 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     dyn_op = cc.spec.dyn(dev, mode=MODE_TRANOP, time=t0)
     f0, q0 = rhs(xp, params, dyn_op)
     _, _, _, C0, _ = assemble(xp, lim0, params, dyn_op)
-    diff_mask = C0.abs().sum(-1) > 0.0
+    # the differential rows: those with a charge entry
+    if cc.bbd is None:
+        diff_mask = C0.abs().sum(-1) > 0.0
+    else:
+        from ..ops.bbd import global_row_sums
+        diff_mask = global_row_sums(cc.bbd, C0) > 0.0
     dyn0 = cc.spec.dyn(dev, mode=MODE_TRAN, time=t0)
     # hmin floor: below ~1e-5*dt the trapezoidal system becomes so stiff
     # that f64 Newton cannot converge

@@ -960,7 +960,10 @@ def montecarlo_elaborate(source, n: int, seed: int = 0, *,
     for k in range(n):
         cir, _ = elaborate_netlist(source, rng=np.random.default_rng(
             [seed, k]), **kw)
-        plist.append(cir.compile(spec, device=device).params0())
+        # only the sample's parameters are kept, and they do not depend on
+        # the solver: no sample is partitioned
+        plist.append(cir.compile(spec, solver="dense",
+                                 device=device).params0())
 
     def stack(leaves):
         if isinstance(leaves[0], dict):

@@ -51,21 +51,24 @@ def pad_state(x):
                                      device=x.device)], dim=-1)
 
 
-def make_sorted_scatter(idx_arrays, out_size, device):
+def make_sorted_scatter(idx_arrays, out_size, device, skip=None):
     """Host-precomputed deterministic scatter-add plan.
 
     The flattened stamp destinations of every group are concatenated and
     stably sorted once; destination u gathers its contributions through
     row u of a [U, Kmax] index table (pad entries point at an appended
-    zero) and sums them over the last axis. Returns
+    zero) and sums them over the last axis. Entries whose destination is
+    `skip` (a trash slot) take no part. Returns
     scatter(vals_list) -> [B, out_size] for values of shape [B, ...]."""
     idx = np.concatenate([np.asarray(a, np.int64).reshape(-1)
                           for a in idx_arrays])
-    perm = np.argsort(idx, kind="stable")
+    keep = (np.arange(len(idx)) if skip is None
+            else np.flatnonzero(idx != skip))
+    perm = keep[np.argsort(idx[keep], kind="stable")]
     uniq, starts, counts = np.unique(idx[perm], return_index=True,
                                      return_counts=True)
     seg = np.repeat(np.arange(len(uniq)), counts)
-    pos = np.arange(len(idx)) - starts[seg]
+    pos = np.arange(len(perm)) - starts[seg]
     plan = np.full((len(uniq), int(counts.max(initial=1))), len(idx),
                    np.int64)
     plan[seg, pos] = perm
@@ -243,6 +246,69 @@ def _group_eval(model, u, u_lim_prev, p, dyn):
     return f + J @ du, q + C @ du, J, C, u_eval
 
 
+class GroupEvaluator:
+    """The gather -> vmapped evaluation half of an assembly, shared by the
+    dense assembler and the block-bordered-diagonal one
+    (`mna/bbd_assemble.py`): `evaluate(x_pad, lim, params, dyn)` gives per
+    group the flattened [B, ...] residual, charge, local Jacobians and
+    limiter state, which each assembler scatters into its own form."""
+
+    def __init__(self, cc: CompiledCircuit):
+        dev = cc.device
+        self.device = dev
+        self.consts = []
+        lim_off = 0
+        for g in cc.groups:
+            _check_model(g.model)
+            conn = torch.as_tensor(g.conn, dtype=ITYPE, device=dev)
+            sl = None
+            if g.model.residual_lim is not None:
+                nb = len(g.model.lim_branches)
+                sl = (lim_off, lim_off + g.conn.shape[0] * nb, nb)
+                lim_off += g.conn.shape[0] * nb
+            elif g.model.limit is not None:
+                sl = (lim_off, lim_off + g.conn.size, g.conn.shape[1])
+                lim_off += g.conn.size
+            batched = vmap(lambda u, ul, p, d, _m=g.model:
+                           _group_eval(_m, u, ul, p, d))
+            self.consts.append((g.model, conn, sl, batched))
+        self.n_lim = lim_off
+
+    def init_lim(self, x_pad):
+        parts = [_lim_seed(model, conn, x_pad)
+                 for model, conn, sl, _ in self.consts if sl is not None]
+        if not parts:
+            return torch.zeros((x_pad.shape[0], 0), dtype=DTYPE,
+                               device=self.device)
+        return torch.cat(parts, dim=1)
+
+    def eval_group(self, gi, x_pad, lim, p, dyn: DynSpec):
+        """Group gi alone -> (f, q, J, C, lim_part) per lane-instance."""
+        _, conn, sl, batched = self.consts[gi]
+        B = x_pad.shape[0]
+        I, L = conn.shape
+        u = x_pad[:, conn].reshape(B * I, L)
+        u_lim_prev = (lim[:, sl[0]:sl[1]].reshape(B * I, sl[2])
+                      if sl is not None else u)
+        return batched(u, u_lim_prev, _lane_params(p, B, I),
+                       _lane_dyn(dyn, B, I))
+
+    def evaluate(self, x_pad, lim, params, dyn: DynSpec):
+        """(fs, qs, Js, Cs, lim_new): per group [B, ...] lists, flattened
+        instance-major, and the new limiter state [B, n_lim]."""
+        B = x_pad.shape[0]
+        fs, qs, Js, Cs, lims = [], [], [], [], []
+        for gi, p in enumerate(params):
+            f, q, J, C, u_eval = self.eval_group(gi, x_pad, lim, p, dyn)
+            if self.consts[gi][2] is not None:
+                lims.append(u_eval.reshape(B, -1))
+            fs.append(f.reshape(B, -1))
+            qs.append(q.reshape(B, -1))
+            Js.append(J.reshape(B, -1))
+            Cs.append(C.reshape(B, -1))
+        return fs, qs, Js, Cs, torch.cat(lims, dim=1) if lims else lim
+
+
 def make_assembler(cc: CompiledCircuit):
     """Build assemble(x_pad, lim, params, dyn) -> (F, Q, G, C, lim_new).
 
@@ -255,57 +321,17 @@ def make_assembler(cc: CompiledCircuit):
     n = cc.n
     np1 = n + 1
     dev = cc.device
-    consts = []
-    lim_off = 0
-    for g in cc.groups:
-        _check_model(g.model)
-        conn = torch.as_tensor(g.conn, dtype=ITYPE, device=dev)
-        lin = (g.conn[:, :, None] * np1 + g.conn[:, None, :]).reshape(-1)
-        sl = None
-        if g.model.residual_lim is not None:
-            nb = len(g.model.lim_branches)
-            sl = (lim_off, lim_off + g.conn.shape[0] * nb, nb)
-            lim_off += g.conn.shape[0] * nb
-        elif g.model.limit is not None:
-            sl = (lim_off, lim_off + g.conn.size, g.conn.shape[1])
-            lim_off += g.conn.size
-        batched = vmap(lambda u, ul, p, d, _m=g.model:
-                       _group_eval(_m, u, ul, p, d))
-        consts.append((g.model, conn, lin, sl, batched))
-    n_lim = lim_off
+    ev = GroupEvaluator(cc)
     fq_scatter = make_sorted_scatter([g.conn for g in cc.groups], np1, dev)
-    gc_scatter = make_sorted_scatter([c[2] for c in consts], np1 * np1, dev)
+    gc_scatter = make_sorted_scatter(
+        [(g.conn[:, :, None] * np1 + g.conn[:, None, :]).reshape(-1)
+         for g in cc.groups], np1 * np1, dev)
     # gshunt lands on node-voltage diagonals only (reference build.jl)
     vmask = torch.as_tensor(cc.classes == CLASS_V, dtype=DTYPE, device=dev)
 
-    def init_lim(x_pad):
-        parts = [_lim_seed(model, conn, x_pad)
-                 for model, conn, _, sl, _ in consts if sl is not None]
-        if not parts:
-            return torch.zeros((x_pad.shape[0], 0), dtype=DTYPE, device=dev)
-        return torch.cat(parts, dim=1)
-
-    def eval_group(gi, x_pad, lim, p, dyn: DynSpec):
-        _, conn, _, sl, batched = consts[gi]
-        B = x_pad.shape[0]
-        I, L = conn.shape
-        u = x_pad[:, conn].reshape(B * I, L)
-        u_lim_prev = (lim[:, sl[0]:sl[1]].reshape(B * I, sl[2])
-                      if sl is not None else u)
-        return batched(u, u_lim_prev, _lane_params(p, B, I),
-                       _lane_dyn(dyn, B, I))
-
     def assemble(x_pad, lim, params, dyn: DynSpec):
         B = x_pad.shape[0]
-        fs, qs, Js, Cs, lims = [], [], [], [], []
-        for gi, p in enumerate(params):
-            f, q, J, C, u_eval = eval_group(gi, x_pad, lim, p, dyn)
-            if consts[gi][3] is not None:
-                lims.append(u_eval.reshape(B, -1))
-            fs.append(f.reshape(B, -1))
-            qs.append(q.reshape(B, -1))
-            Js.append(J.reshape(B, -1))
-            Cs.append(C.reshape(B, -1))
+        fs, qs, Js, Cs, lim_new = ev.evaluate(x_pad, lim, params, dyn)
         F = fq_scatter(fs)[:, :n]
         Q = fq_scatter(qs)[:, :n]
         G = gc_scatter(Js).reshape(B, np1, np1)[:, :n, :n]
@@ -314,12 +340,11 @@ def make_assembler(cc: CompiledCircuit):
         gs = torch.as_tensor(dyn.gshunt).reshape(-1, 1) * vmask
         F = F + gs * x_pad[:, :n]
         G = G + torch.diag_embed(gs.expand(B, n))
-        lim_new = torch.cat(lims, dim=1) if lims else lim
         return F, Q, G, C, lim_new
 
-    assemble.init_lim = init_lim
-    assemble.n_lim = n_lim
-    assemble.eval_group = eval_group
+    assemble.init_lim = ev.init_lim
+    assemble.n_lim = ev.n_lim
+    assemble.eval_group = ev.eval_group
     return assemble
 
 

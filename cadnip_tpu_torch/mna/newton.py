@@ -1,5 +1,6 @@
 """Newton–Raphson with the SPICE DC robustness chain and its rescue tiers
-(PyTorch port of `cadnip_tpu/mna/newton.py`, dense path).
+(PyTorch port of `cadnip_tpu/mna/newton.py`), on the dense backend or the
+block-bordered-diagonal one (`ops/bbd.py`) for a partitioned circuit.
 
 Batch-first: the state is [B, n] with per-lane done masks, B = 1 being the
 serial case. The JAX package's `lax.while_loop`s become Python loops that
@@ -52,14 +53,42 @@ class NewtonResult(NamedTuple):
     resnorm: torch.Tensor    # [B] max-abs KCL residual at the solution
 
 
+def make_system_assembler(cc: CompiledCircuit):
+    """The assembler of cc's backend: the BBD tensors of a partitioned
+    circuit (built once per circuit: its host stamp maps are the costly
+    part), else the dense matrices."""
+    if cc.bbd is None:
+        return make_assembler(cc)
+    if "bbd_assembler" not in cc.cache:
+        from .bbd_assemble import make_bbd_assembler
+        cc.cache["bbd_assembler"] = make_bbd_assembler(cc, cc.bbd)
+    return cc.cache["bbd_assembler"]
+
+
 def _make_assemble_solve(cc: CompiledCircuit, assemble, method):
     """Returns (assemble, solve_J, matvec): solve_J(G, C, c0, rhs) solves
-    (G + c0*C) dx = rhs per lane; matvec(M, v) applies M [B, n, n] to
-    v [B, n]."""
+    (G + c0*C) dx = rhs per lane; matvec(M, v) applies M to v [B, n]. G, C
+    and M are the backend's form: dense [B, n, n], or the BBD tensors
+    (D, E, F, B), each with its lane axis."""
     if cc.bbd is not None:
-        raise NotImplementedError("the block-bordered-diagonal backend is "
-                                  "not ported to cadnip_tpu_torch yet "
-                                  "(ROADMAP, modules still to port, item 8)")
+        from ..ops.bbd import bbd_matvec, make_bbd_solver
+        assemble = assemble or make_system_assembler(cc)
+        key = ("bbd_solver", method)
+        if key not in cc.cache:
+            cc.cache[key] = make_bbd_solver(cc.bbd, cc.device, method,
+                                            nested=cc.bbd_nested)
+        bbd_solve = cc.cache[key]
+
+        def solve_J(G, C, c0, rhs):
+            c0 = torch.as_tensor(c0, dtype=DTYPE, device=rhs.device)
+            J = tuple(g + c0.reshape((-1,) + (1,) * (g.ndim - 1)) * c
+                      for g, c in zip(G, C))
+            return bbd_solve(*J, rhs)
+
+        def matvec(M, v):
+            return bbd_matvec(cc.bbd, M, v)
+
+        return assemble, solve_J, matvec
     assemble = assemble or make_assembler(cc)
 
     def solve_J(G, C, c0, rhs):
@@ -183,7 +212,7 @@ def _make_be_march(cc: CompiledCircuit, method: str | None):
     """Build march(x0 [B, n], params, dyn, hs) -> (x, lim): one implicit
     Euler step of size h from the previous state for each h in hs, every
     lane at once. A lane whose step fails to converge keeps its state."""
-    assemble = make_assembler(cc)
+    assemble = make_system_assembler(cc)
     newton_t = make_tran_newton(cc, assemble=assemble, method=method)
     rhs = make_rhs_assembler(cc)
 
@@ -250,8 +279,11 @@ def make_lm_rescue(cc: CompiledCircuit):
     scales. A step that reduces ||F||_2 is accepted and shrinks that lane's
     lam toward plain Newton; a rejected step grows it toward steepest
     descent. A lane converges on an accepted, nearly undamped step
-    (lam < 1e-6) that passes the usual dx test."""
+    (lam < 1e-6) that passes the usual dx test. Dense circuits only: the
+    BBD backend's block form has no cheap diagonal-shift solve."""
     spec = cc.spec
+    if cc.bbd is not None:
+        raise ValueError("LM rescue supports the dense backend only")
     assemble, solve_J, _ = _make_assemble_solve(cc, None, None)
     atol = abstol_vector(cc)
     is_v = torch.as_tensor(cc.classes == CLASS_V, device=cc.device)

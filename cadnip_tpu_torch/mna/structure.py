@@ -120,12 +120,37 @@ class Circuit:
         from .devices import MOSFET1
         return self.add(MOSFET1, name, (d, g, s, b), **params)
 
-    def compile(self, spec: SimSpec | None = None, *,
+    def compile(self, spec: SimSpec | None = None, *, solver: str = "auto",
+                block_size: int | None = None,
                 device=DEFAULT_DEVICE) -> "CompiledCircuit":
         """Elaborate for one torch device: the card by default (raises
-        where there is none), "cpu" for the host."""
-        return elaborate(self, spec or SimSpec(),
-                         device=resolve_device(device))
+        where there is none), "cpu" for the host.
+
+        solver: "dense", "bbd" or "auto". The block-bordered-diagonal
+        decomposition (`mna/bbd_assemble.py`, blocks of `block_size`
+        unknowns, 32 by default) is taken when asked, and by "auto" above
+        BBD_AUTO_N unknowns; a second BBD level over the border
+        (`bbd_nested`) where the border reaches NESTED_AUTO_NB."""
+        if solver not in ("auto", "dense", "bbd"):
+            raise ValueError(f"solver must be 'auto', 'dense' or 'bbd', got "
+                             f"{solver!r}")
+        cc = elaborate(self, spec or SimSpec(), device=resolve_device(device))
+        if solver == "bbd" or (solver == "auto" and cc.n > BBD_AUTO_N):
+            from .bbd_assemble import (nested_border_partition,
+                                       partition_circuit)
+            cc.bbd = partition_circuit(cc, block_size=block_size)
+            if cc.bbd.nb >= NESTED_AUTO_NB:
+                # past about a thousand border unknowns the one dense Schur
+                # solve starts to dominate
+                cc.bbd_nested = nested_border_partition(cc, cc.bbd)
+        return cc
+
+
+#: "auto" compiles to the block-bordered-diagonal backend above this many
+#: unknowns, and adds its nested level from this border size on (the JAX
+#: package's thresholds, `cadnip_tpu/mna/structure.py:139-145`)
+BBD_AUTO_N = 1536
+NESTED_AUTO_NB = 1024
 
 
 @dataclasses.dataclass
@@ -143,8 +168,8 @@ class CompiledCircuit:
     inst_group: dict                    # inst name -> (gi, slot)
     device: torch.device
     cache: dict = dataclasses.field(default_factory=dict)
-    # block-bordered-diagonal partition: a later slice; always None here
-    bbd: object = None
+    bbd: object = None                  # BBDPartition for large circuits
+    bbd_nested: object = None           # level-2 border partition (Schur)
 
     # ------------------------------------------------------------------ params
     def params0(self):

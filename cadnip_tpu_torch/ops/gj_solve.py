@@ -4,11 +4,17 @@
 CUDA tensor it launches the hand-written Hopper kernel in
 `csrc/gj_solve.cu`; on a CPU tensor it runs `gj_solve_plain`, the same
 algorithm in torch ops. There is no fallback between the two: a CUDA
-tensor launches the kernel or raises. The kernel has two variants with
-one arithmetic (`variant(n, k)` picks): "warp", one warp per system with
-the rows in registers, for the circuit-sized systems (n <= 32,
-n + k <= 64); "block", one thread block per system with the augmented
-block in shared memory, for the rest.
+tensor launches the kernel or raises. The kernel has three variants with
+one arithmetic (`variant(n, k, itemsize)` picks): "warp", one warp per
+system with the rows in registers, for the circuit-sized systems
+(n <= 32, n + k <= 64); "block", one thread block per system with the
+augmented block in shared memory, up to what one block's shared memory
+holds; "grid", one cooperative launch whose teams of blocks keep the
+augmented block in device memory (L2-resident at these sizes) with a
+grid-wide barrier between the phases of each pivot, for the systems
+beyond that: the Schur complement of the block-bordered-diagonal solve,
+an AC sweep of a circuit above about 84 unknowns, a dense solve up to
+the BBD threshold (n = 1536).
 
 `gj_solve` is differentiable, forward and reverse, through `GJSolve`
 (a `torch.autograd.Function` that `torch.func` transforms accept). Each
@@ -57,6 +63,14 @@ def load_library():
     for fn in (lib.gj_solve_warp_f64, lib.gj_solve_warp_f32):
         fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, vp]
         fn.restype = ci
+    pi = ctypes.POINTER(ci)
+    for fn in (lib.gj_grid_plan_f64, lib.gj_grid_plan_f32):
+        fn.argtypes = [ll, ci, ci, pi, pi]
+        fn.restype = ci
+    for fn in (lib.gj_solve_grid_f64, lib.gj_solve_grid_f32):
+        fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, vp, vp, ll,
+                       ci, ci, ci, ci, vp]
+        fn.restype = ci
     _lib = lib
     return lib
 
@@ -90,27 +104,62 @@ def gj_solve_plain(A, B):
 WARP_ROWS, WARP_COLS = 32, 64
 
 
-def variant(n: int, k: int) -> str:
-    """The kernel variant for an [n, n] system with k right-hand sides."""
-    return "warp" if n <= WARP_ROWS and n + k <= WARP_COLS else "block"
+def variant(n: int, k: int, itemsize: int = 8) -> str:
+    """The kernel variant for an [n, n] system with k right-hand sides of
+    `itemsize` bytes (8: f64, 4: f32)."""
+    if n <= WARP_ROWS and n + k <= WARP_COLS:
+        return "warp"
+    return "block" if itemsize * n * (n + k) <= MAX_SMEM else "grid"
+
+
+def _grid_launch(lib, A, B, X, stream):
+    """The grid variant: a plan from the library (blocks per system,
+    systems at once), its work area and candidates, one cooperative
+    launch on `stream`."""
+    batch, n, _ = A.shape
+    k = B.shape[-1]
+    f64 = A.dtype == DTYPE
+    team, teams = ctypes.c_int(0), ctypes.c_int(0)
+    plan = lib.gj_grid_plan_f64 if f64 else lib.gj_grid_plan_f32
+    err = plan(batch, n, k, ctypes.byref(team), ctypes.byref(teams))
+    if err != 0:
+        raise RuntimeError(f"gj_solve: the grid variant cannot be planned "
+                           f"on this card (cudaError {err}; it needs a "
+                           f"cooperative launch)")
+    work = torch.empty((teams.value, n, n + k), dtype=A.dtype,
+                       device=A.device)
+    cand_v = torch.empty(teams.value * team.value, dtype=A.dtype,
+                         device=A.device)
+    cand_i = torch.empty(teams.value * team.value, dtype=torch.int32,
+                         device=A.device)
+    fn = lib.gj_solve_grid_f64 if f64 else lib.gj_solve_grid_f32
+    return fn(A.data_ptr(), *A.stride(), B.data_ptr(), *B.stride(),
+              X.data_ptr(), work.data_ptr(), cand_v.data_ptr(),
+              cand_i.data_ptr(), batch, n, k, team.value, teams.value,
+              stream)
 
 
 def launch(A, B, which=None):
     """One kernel launch on CUDA tensors A [b, n, n], B [b, n, k]; `which`
-    forces "warp" or "block" (default `variant(n, k)`)."""
+    forces "warp", "block" or "grid" (default `variant(n, k, itemsize)`)."""
     lib = load_library()
     batch, n, _ = A.shape
     k = B.shape[-1]
-    which = which or variant(n, k)
     itemsize = A.element_size()
+    which = which or variant(n, k, itemsize)
     if which == "block" and itemsize * n * (n + k) > MAX_SMEM:
         raise ValueError(
             f"gj_solve: [{n}, {n}+{k}] does not fit one block's shared "
-            f"memory ({MAX_SMEM} bytes); larger systems are later work")
+            f"memory ({MAX_SMEM} bytes); the grid variant takes it")
     if which == "warp" and variant(n, k) != "warp":
         raise ValueError(f"gj_solve: the warp variant takes n <= "
                          f"{WARP_ROWS} and n + k <= {WARP_COLS}, got "
                          f"[{n}, {n}+{k}]")
+    if which == "grid" and itemsize * (n + k) > MAX_SMEM:
+        raise ValueError(
+            f"gj_solve: the grid variant stages one row of [A | B] in "
+            f"shared memory, so it takes n + k <= {MAX_SMEM // itemsize} "
+            f"at {itemsize} bytes an element, got [{n}, {n}+{k}]")
     X = torch.empty((batch, n, k), dtype=A.dtype, device=A.device)
     f64 = A.dtype == DTYPE
     stream = torch.cuda.current_stream(A.device).cuda_stream
@@ -119,9 +168,11 @@ def launch(A, B, which=None):
     if which == "warp":
         fn = lib.gj_solve_warp_f64 if f64 else lib.gj_solve_warp_f32
         err = fn(*args, stream)
-    else:
+    elif which == "block":
         fn = lib.gj_solve_f64 if f64 else lib.gj_solve_f32
         err = fn(*args, 32 * min(8, n), stream)
+    else:
+        err = _grid_launch(lib, A, B, X, stream)
     if err != 0:
         raise RuntimeError(f"gj_solve kernel launch failed: cudaError {err}")
     gj_solve.launches += 1
@@ -217,6 +268,6 @@ def gj_solve(A, B):
     return X[..., 0] if vec else X
 
 
-#: kernel launches since the last reset, both variants and the derivative
+#: kernel launches since the last reset, every variant and the derivative
 #: rules included (plain-twin calls do not count)
 gj_solve.launches = 0

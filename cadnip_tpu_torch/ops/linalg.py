@@ -2,9 +2,12 @@
 `cadnip_tpu/ops/linalg.py`, two methods).
 
   * "gauss" — full-f64 Gauss-Jordan with partial pivoting through kernel K1
-    (`ops/gj_solve.py`): the hand-written Hopper kernel on a CUDA tensor,
-    its plain twin on a CPU tensor. The port's default on every device; it
-    is the counterpart of the JAX method of the same name.
+    (`ops/gj_solve.py`): the hand-written Hopper kernel on a CUDA tensor
+    (its warp, block or grid variant by size, so every n), its plain twin
+    on a CPU tensor. The port's default on every device and size; it is
+    the counterpart of the JAX method of the same name, and takes the
+    sizes the JAX package sent to its TPU kernel (method gjpl32ir, up to
+    n = 1024) too.
   * "lu64" — `torch.linalg.lu_factor`/`lu_solve` in f64, the JAX package's
     CPU default (the method that produced the checked-in goldens).
 
@@ -37,8 +40,7 @@ class DenseLU:
 
 
 def resolve_method(method: str | None, n: int) -> str:
-    """'auto'/None -> "gauss" (K1) on every device and size that one
-    block's shared memory holds."""
+    """'auto'/None -> "gauss" (K1) on every device and size."""
     if method in (None, "auto"):
         return "gauss"
     if method not in METHODS:

@@ -9,9 +9,12 @@ Phases, each of which raises (exit code != 0) on failure:
   2. builds kernels K1 (ops/csrc/gj_solve.cu) and K2 (ops/csrc/vmem_tran.cu)
      with nvcc for sm_90a, one nvcc each, started together;
   3. K1 against its plain PyTorch twin on the card, at the DFF's shape and
-     at a batch, an inverse, a larger system, a forced pivot and in f32;
-     where the warp variant takes the shape, it against the block variant
-     (the same bits expected); kernel, block, plain and
+     at a batch, an inverse, a larger system, a forced pivot and in f32,
+     and the grid variant's shapes (n = 512 and 1024, and the 125-section
+     ladder's AC shape [801, 254, 255]); where the warp variant takes the
+     shape, it against the block variant, and where the block variant
+     takes a shape above n = 64, the grid variant against it (the same
+     bits expected); kernel, block, grid, plain and
      torch.linalg.solve_ex times from CUDA events beside the bound from the
      shape (bytes over 3.35 TB/s, or the operations of an LU solve over 67
      TFLOP/s, FP64 or FP32);
@@ -44,7 +47,9 @@ Phases, each of which raises (exit code != 0) on failure:
      the host CPU (a worker) away from the switching edges in phase 14;
  8c. AC and noise on the card, 801 frequencies each in one K1 launch,
      against the same calls on the CPU: the DFF's supply rejection, its
-     output noise referred to the supply, and a darlington biased ON;
+     output noise referred to the supply, and a darlington biased ON; and
+     the 125-section RC ladder's AC (n = 127: one launch of K1's grid
+     variant), against the CPU port in a worker (compared in phase 14);
   9. the sweep path: bench.py's 4096-way DFF Monte Carlo (montecarlo_table
      over cq.c, mno1.w and mpo1.w, seed 42), once, through transweep() over
      0-600 ns, unchunked, every Newton iteration of all lanes one K1
@@ -68,7 +73,9 @@ Phases, each of which raises (exit code != 0) on failure:
      the host time of one evaluation of the EKV group on the card and on
      the CPU; and a ten-diode chain behind `$limit` at DC against the
      CPU, K1's launches counted per path;
- 13. the fixed-step engines at bench.py's settings: the VACASK rc through
+ 13. (in a process of its own on the same card, started before phase 9,
+     its output printed when it is joined after phase 15) the fixed-step
+     engines at bench.py's settings: the VACASK rc through
      tran_linear() (0-1 s at 1 us, 1,000,001 points, K^-1 one K1 launch)
      against the closed form; graetz (0-1 s at 1 us) and the darlington
      (0-1 ms at 2 ns), full spans, and mul over its first two windows only
@@ -87,16 +94,28 @@ Phases, each of which raises (exit code != 0) on failure:
      operating point and window-0 seed (a worker, beside the card's later
      runs); and K1 at each path's shape against its twin, its bound and
      solve_ex;
- 14. phase 6's and 8b's comparisons with their CPU twins, the wall time of
-     every phase and of the whole run, a JSON line of the kernels, the
-     card's name and power limit, and the last line
-     {"ok": true, "device": {...}}.
+ 15. the block-bordered-diagonal backend: a 64 x 64 power-delivery mesh
+     (n = 4097) as SPICE text through parse_spice, which selects BBD; dc
+     and tran over 0-3 ns on the card, every block solve and Schur solve a
+     K1 launch (two per Newton iteration, gated per window); one Newton
+     Jacobian through the nested Schur level against the single level;
+     the same mesh compiled dense and solved with the explicit lu64 method
+     as the witness; after phase 13's process has ended, K1 at the mesh's
+     block and Schur shapes against its twin, bound and solve_ex;
+ 14. phase 6's and 8b's comparisons with their CPU twins and phase 8c's
+     ladder against the CPU port, the wall time of every phase and of the
+     whole run, a JSON line of the kernels, the card's name and power
+     limit, and the last line {"ok": true, "device": {...}}.
 
 From phase 9 on, two spawned worker processes replay the CPU references
 beside the card's host loop: worker A phase 9's check lanes, phases 11 and
-12, then phase 6's twins; worker B mul's serial_trap witness and phase
-8b's reference, then phase 13's replays. Every read of a worker's result prints its wait. They never
-open the card, and the script shuts them down on every exit.
+12, then phase 6's twins; worker B phase 8b's reference and phase 8c's
+ladder. Phase 13 runs at the same time in a spawned process on the card
+(the card must be in the Default compute mode), with a worker of its own
+for mul's serial_trap witness and its replays; its gates and launch counts
+come back to the main process, and its failure fails the run. Every read
+of a worker's result prints its wait. The workers never open the card,
+and the script stops every process it started on every exit.
 """
 import json
 import os
@@ -142,6 +161,8 @@ CPU_TOL = 1e-9         # DC sweep, sensitivities, jacfwd: card vs CPU
 AC_TOL = 1e-9          # AC card vs CPU, of max |H|; noise PSD, relative
 AC_FREQS = (100, 1e3, 1e11)    # acdec: 801 points, 1 kHz to 100 GHz
 AC_DFF_ROW = "f64 n=38 k=1 b=801 (AC sweep, DFF)"
+AC_LADDER_ROW = "f64 n=254 k=1 b=801 (AC sweep, 125-section ladder)"
+GRID_ROW = "f64 n=1024 k=1 b=1"
 DIODE_CHAIN = """diode chain
 .model dd d is=1e-15 n=1
 vs in 0 dc 0
@@ -248,10 +269,26 @@ endmodule
 """
 
 
+def _exit_with_parent():
+    """End this process within a second of its parent's end, so that no
+    worker outlives a run that failed (it would hold the run's output
+    open)."""
+    import threading
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
 def _cpu_worker_init(root):
     """Initializer of the CPU reference worker: it replays circuits on the
     host CPU while the main process drives the card, and never opens the
     card itself."""
+    _exit_with_parent()
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     sys.path.insert(0, root)
     import torch
@@ -387,6 +424,26 @@ PIT_CPU_SPAN = {"graetz": 0.32, "mul": MUL_SPAN}
 PIT_CPU_TOL = {"graetz": TWIN_FLIP_TOL, "mul": 1e-9}
 PIT_CPU_RMSE_TOL = 1e-5
 
+#: phase 15: an on-chip power-delivery mesh, the textbook large sparse
+#: circuit (IR drop): PG_SIDE x PG_SIDE nodes, 1 kOhm between neighbours,
+#: 1 pF from every node to ground, a diode (is = 1e-14) from every third
+#: node in each direction to ground, 1 kOhm from the far corner to ground,
+#: driven at one corner by a pulse whose first edge runs from 1 to 2 ns.
+#: n = 4097 unknowns, so Circuit.compile's "auto" takes the
+#: block-bordered-diagonal backend: at 4096 nodes it stands at the scale
+#: of the reference's first c6288 point (5,156 unknowns), whose netlist
+#: neither machine has
+PG_SIDE = 64
+#: its transient: 0-3 ns (the first edge and a nanosecond after) at 10 ps
+PG_SPAN, PG_DT = 3e-9, 1e-11
+#: the BBD run against the dense witness (`lu64`, the one library path of
+#: the phase, off the BBD path): dc in volts; tran at the JAX package's
+#: BBD-against-dense bar (tests/test_bbd.py), and tighter where both take
+#: the same steps; the nested Schur solve against the single level
+PG_DC_TOL, PG_TRAN_TOL, PG_TRAN_SAME_TOL = 1e-9, 1e-3, 1e-8
+PG_CURRENT_TOL = 1e-9  # the source's branch current, relative
+PG_NESTED_TOL = 1e-10
+
 
 def nvidia_smi(query):
     out = subprocess.run(
@@ -470,8 +527,9 @@ def kernel_cases(card):
     bound and torch.linalg.solve_ex (timed only: the port never calls
     it)."""
     import torch
-    from cadnip_tpu_torch.ops.gj_solve import (gj_solve, gj_solve_plain,
-                                               launch, variant)
+    from cadnip_tpu_torch.ops.gj_solve import (WARP_ROWS, gj_solve,
+                                               gj_solve_plain, launch,
+                                               variant)
 
     rng = np.random.default_rng(0)
     cases = [("f64 n=19 k=1 b=1", 19, 1, 1, torch.float64, False),
@@ -485,7 +543,15 @@ def kernel_cases(card):
              # embedding of the DFF (n = 19) and of the darlington (n = 7)
              (AC_DFF_ROW, 38, 1, 801, torch.float64, False),
              ("f64 n=14 k=1 b=801 (AC sweep, darlington)", 14, 1, 801,
-              torch.float64, False)]
+              torch.float64, False),
+             # the grid variant: beyond one block's shared memory; the
+             # 125-section ladder's AC shape (n = 127, 2n = 254)
+             ("f64 n=512 k=1 b=1", 512, 1, 1, torch.float64, False),
+             (GRID_ROW, 1024, 1, 1, torch.float64, False),
+             (AC_LADDER_ROW, 254, 1, 801, torch.float64, False),
+             # the grid variant against the block variant where both take
+             # the shape
+             ("f64 n=160 k=1 b=1", 160, 1, 1, torch.float64, False)]
     results = {}
     for name, n, k, b, dtype, zero_diag in cases:
         # well-conditioned (eigenvalues within ~1 of 2), so the residual
@@ -512,7 +578,7 @@ def kernel_cases(card):
         if not err <= tol:
             raise RuntimeError(f"K1 {name}: max |kernel - plain| {err:.3e} "
                                f"> {tol:.1e}")
-        which = variant(n, k)
+        which = variant(n, k, At.element_size())
         line = f"K1 {name} ({which}): max_abs_err {err:.3e} (tol {tol:.1e})"
         if dtype == torch.float64:
             x64 = X.cpu().numpy()
@@ -525,7 +591,9 @@ def kernel_cases(card):
                                    f"{RESID_TOL:.0e}")
             line += f", residual {rel:.3e}"
         reps = 20 if b * n > 10000 else 200
-        block_ms = None
+        if which == "grid":
+            reps = 5 if b * n * n > 1e7 else 20
+        block_ms = grid_ms = None
         if which == "warp":
             Xb = launch(At, Bt, "block")
             vdiff = rel_err(X, Xb)
@@ -534,18 +602,29 @@ def kernel_cases(card):
                 raise RuntimeError(f"K1 {name}: warp vs block {vdiff:.3e} "
                                    f"> {VARIANT_TOL:.0e}")
             block_ms = cuda_time_ms(lambda: launch(At, Bt, "block"), reps)
+        if which == "block" and n > 2 * WARP_ROWS:
+            Xg = launch(At, Bt, "grid")
+            vdiff = rel_err(Xg, X)
+            line += f", grid vs block {vdiff:.3e}"
+            if not vdiff <= VARIANT_TOL:
+                raise RuntimeError(f"K1 {name}: grid vs block {vdiff:.3e} "
+                                   f"> {VARIANT_TOL:.0e}")
+            grid_ms = cuda_time_ms(lambda: launch(At, Bt, "grid"), reps)
         ms = cuda_time_ms(lambda: gj_solve(At, Bt), reps)
         # one system: a loop of launches times the host's launch rate; a
         # graph replay times the device
         graph_ms = graph_time_ms(lambda: gj_solve(At, Bt), reps) \
             if b == 1 else None
         plain_ms = cuda_time_ms(lambda: gj_solve_plain(At, Bt),
-                                min(reps, PLAIN_REPS))
+                                min(reps, PLAIN_REPS, 3 if b * n > 1e5
+                                    else PLAIN_REPS))
         library_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(At, Bt),
                                   reps)
         bound = roofline(At.element_size() * b * (n * n + 2 * n * k),
                          b * solve_flops(n, k), At.element_size())
         blk = "" if block_ms is None else f", block {block_ms * 1e3:.1f} us"
+        if grid_ms is not None:
+            blk += f", grid {grid_ms * 1e3:.1f} us"
         if graph_ms is not None:
             blk += f", graph replay {graph_ms * 1e3:.1f} us"
         print(f"{line}; kernel {ms * 1e3:.1f} us{blk}, plain "
@@ -554,8 +633,9 @@ def kernel_cases(card):
               f"{bound['flops']} FLOP, bound {bound['bound_ms'] * 1e3:.2f} "
               f"us ({bound['bound_by']}) [{card}]", flush=True)
         results[name] = dict(max_abs_err=err, ms=ms, block_ms=block_ms,
-                             graph_ms=graph_ms, plain_ms=plain_ms,
-                             library_ms=library_ms, **bound)
+                             grid_ms=grid_ms, graph_ms=graph_ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             **bound)
     return results
 
 
@@ -1324,7 +1404,71 @@ def ac_noise(card):
             raise RuntimeError(f"{label}: card against CPU {err:.3e} > "
                                f"{AC_TOL:.0e}")
         out[label] = dict(wall=wall, k1_ms=k1_ms, err=err)
+    out["ladder"] = ladder_ac(card)
     return out
+
+
+#: phase 8c's 125-section RC ladder (n = 127; K2's largest circuit): its
+#: input source and output node for the AC sweep
+LADDER_SECTIONS, LADDER_OUT = 125, "n125"
+
+
+def ladder_ac(card, device="cuda"):
+    """The 125-section ladder's AC sweep (acmag 1 on vs, output n125) over
+    801 frequencies: one K1 launch of [801, 254, 255], the grid variant on
+    the card. On "cpu" (in a worker) the CPU port's same call, held against
+    the card's in phase 14 (ladder_ac_check)."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    cc = ct.parse_spice(rc_ladder(LADDER_SECTIONS), device=device)
+    op = ct.dc(cc)
+    p = cc.alter(cc.params0(), **{"vs.acmag": 1.0})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    gj_solve.launches = 0
+    t = time.perf_counter()
+    y = ct.ac(cc, ct.acdec(*AC_FREQS), p, op_x=op.x)[LADDER_OUT]
+    y = np.asarray(y)
+    wall = time.perf_counter() - t
+    res = dict(y=y, wall=wall, launches=gj_solve.launches, n=cc.n,
+               converged=bool(op.converged))
+    if device == "cuda":
+        print(f"ladder AC (ac, {LADDER_OUT} / vs, n = {cc.n}), {len(y)} "
+              f"frequencies: |H| {np.abs(y).min():.4e}-{np.abs(y).max():.4e};"
+              f" K1 launches {res['launches']} (grid variant, [{len(y)}, "
+              f"{2 * cc.n}, {2 * cc.n + 1}]); wall {wall * 1e3:.1f} ms; the "
+              f"CPU port's run in a worker is compared in phase 14 [{card}]",
+              flush=True)
+        if not res["converged"] or res["launches"] != 1:
+            raise RuntimeError(f"ladder AC: operating point converged "
+                               f"{res['converged']}, {res['launches']} K1 "
+                               f"launches (want 1)")
+        if not np.isfinite(y).all():
+            raise RuntimeError("ladder AC: non-finite response")
+    return res
+
+
+def cpu_ladder_ac():
+    """Phase 8c's ladder AC on the host CPU (in a worker)."""
+    return ladder_ac(None, device="cpu")
+
+
+def ladder_ac_check(card, lad, job):
+    """Phase 14's half of the ladder AC: the card's response against the
+    CPU port's, within AC_TOL of max |H|."""
+    t = time.perf_counter()
+    ref = job.result()
+    waited = time.perf_counter() - t
+    err = float(np.abs(lad["y"] - ref["y"]).max() / np.abs(ref["y"]).max())
+    print(f"ladder AC on the card against the CPU port ({ref['wall']:.1f} s "
+          f"in the worker, read after a wait of {waited:.3f} s): "
+          f"{err:.3e} of max |H| (bar {AC_TOL:.0e}) [{card}]", flush=True)
+    if not (ref["converged"] and err <= AC_TOL):
+        raise RuntimeError(f"ladder AC: card against CPU {err:.3e} > "
+                           f"{AC_TOL:.0e}")
+    return err
 
 
 def dff_montecarlo(card, serial_wall, cpu):
@@ -1807,6 +1951,306 @@ def cpu_mul_witness():
                 wall=time.perf_counter() - t)
 
 
+def power_grid_netlist(side=PG_SIDE):
+    """The phase-15 mesh as SPICE text (see PG_SIDE)."""
+    lines = [f"power-delivery mesh {side} x {side}",
+             ".model dl d is=1e-14",
+             "vs n0_0 0 PULSE(1 2 1n 1n 1n 20n 40n)"]
+    for i in range(side):
+        for j in range(side):
+            if i + 1 < side:
+                lines.append(f"rx{i}_{j} n{i}_{j} n{i + 1}_{j} 1k")
+            if j + 1 < side:
+                lines.append(f"ry{i}_{j} n{i}_{j} n{i}_{j + 1} 1k")
+            lines.append(f"c{i}_{j} n{i}_{j} 0 1p")
+            if i % 3 == 0 and j % 3 == 0:
+                lines.append(f"d{i}_{j} n{i}_{j} 0 dl")
+    lines.append(f"rl n{side - 1}_{side - 1} 0 1k")
+    return "\n".join(lines + [".end", ""])
+
+
+def _record_bbd_solves(fn):
+    """Run fn() with the BBD solver's dense solves recorded: returns
+    (fn's result, [(A, B), ...] in launch order)."""
+    from cadnip_tpu_torch.ops import bbd
+    seen, solve = [], bbd.dense_solve
+
+    def record(A, B, method=None):
+        seen.append((A.clone(), B.clone()))
+        return solve(A, B, method)
+
+    bbd.dense_solve = record
+    try:
+        return fn(), seen
+    finally:
+        bbd.dense_solve = solve
+
+
+def power_grid(card):
+    """Phase 15: the PG_SIDE x PG_SIDE power-delivery mesh through
+    parse_spice (which selects the BBD backend), dc and tran over PG_SPAN
+    on the card, every block solve and Schur solve a K1 launch: two per
+    Newton iteration (three with the nested level), gated per window. Its
+    witness is the same mesh compiled dense and solved with the explicit
+    `lu64` method (torch.linalg), operating point and transient. Where the
+    border stays below the nested threshold, one Newton Jacobian of the
+    operating point is also solved through the nested Schur level and held
+    to the single level. The K1 systems of one BBD solve are kept for
+    phase 14, which times them once the phase-13 process has ended."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.mna.assemble import pad_state
+    from cadnip_tpu_torch.mna.bbd_assemble import nested_border_partition
+    from cadnip_tpu_torch.mna.devices import CLASS_V
+    from cadnip_tpu_torch.mna.newton import (make_dc_solver,
+                                              make_system_assembler)
+    from cadnip_tpu_torch.mna.spec import MODE_DCOP, MODE_TRANOP
+    from cadnip_tpu_torch.ops.bbd import make_bbd_solver
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    net = power_grid_netlist()
+    t = time.perf_counter()
+    cc = ct.parse_spice(net, device="cuda")
+    parse_s = time.perf_counter() - t
+    part, p2 = cc.bbd, cc.bbd_nested
+    if part is None:
+        raise RuntimeError(f"power grid (n = {cc.n}): parse_spice did not "
+                           f"select the BBD backend")
+    # the block solves and the Schur solve; with the nested level the
+    # Schur solve is the level-2 block solves and level-2 Schur solve
+    per_it = 3 if p2 is not None else 2
+    print(f"power grid {PG_SIDE} x {PG_SIDE} through parse_spice: n = "
+          f"{cc.n}, BBD K = {part.K}, bs = {part.bs}, nb = {part.nb}, nbl = "
+          f"{part.nbl}; nested level "
+          f"{'on, nb2 = %d' % p2.nb if p2 is not None else 'off'} (parse, "
+          f"elaborate and partition {parse_s:.2f} s) [{card}]", flush=True)
+
+    def window(fn):
+        torch.cuda.synchronize()
+        gj_solve.launches = 0
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, gj_solve.launches, time.perf_counter() - t
+
+    op, dc_l, dc_s = window(lambda: ct.dc(cc))
+    it = int(op.iters)
+    print(f"   dc: converged {bool(op.converged)}, {it} Newton iterations, "
+          f"K1 launches {dc_l} ({per_it} per iteration), wall {dc_s:.3f} s "
+          f"({dc_s / max(it, 1) * 1e3:.1f} ms per iteration)", flush=True)
+    if not bool(op.converged) or dc_l != per_it * it:
+        raise RuntimeError(f"power grid dc: converged {bool(op.converged)}, "
+                           f"{dc_l} K1 launches for {it} iterations")
+    sol, tr_l, tr_s = window(lambda: ct.tran(cc, (0, PG_SPAN), dt=PG_DT))
+    counts = tuple(int(v) for v in sol.stats[:3])
+    op_it = int(sol.op_iters)
+    xs = sol.xs.cpu().numpy()
+    v_drive = float(xs[-1, cc.index_of("n0_0")])
+    far = f"n{PG_SIDE - 1}_{PG_SIDE - 1}"
+    print(f"   tran 0-{PG_SPAN * 1e9:g} ns at {PG_DT * 1e12:g} ps: "
+          f"converged {bool(sol.converged)}, accepted, rejected, newton "
+          f"{counts}, operating point {op_it} iterations; K1 launches "
+          f"{tr_l}; wall {tr_s:.3f} s ({tr_s / max(counts[2] + op_it, 1) * 1e3:.1f}"
+          f" ms per Newton iteration); v(n0_0) at the end {v_drive:.6f} V, "
+          f"v({far}) {float(xs[-1, cc.index_of(far)]):.6f} V", flush=True)
+    if not bool(sol.converged) or not np.isfinite(xs).all():
+        raise RuntimeError("power grid tran: failed")
+    if tr_l != per_it * (counts[2] + op_it):
+        raise RuntimeError(f"power grid tran: {tr_l} K1 launches for "
+                           f"{counts[2]} + {op_it} Newton iterations")
+    if abs(v_drive - 2.0) > 1e-9:
+        raise RuntimeError(f"power grid tran: v(n0_0) {v_drive} V at the "
+                           f"span's end, the source drives 2 V")
+
+    # one Newton Jacobian of the operating point through both Schur forms;
+    # the single level's K1 systems are kept for phase 14's timings
+    asm = make_system_assembler(cc)
+    xp = pad_state(op.x[None])
+    F, _, G, _, _ = asm(xp, asm.init_lim(xp), cc.params0(),
+                        cc.spec.dyn("cuda"))
+    single = make_bbd_solver(part, "cuda")
+    (dx1, l1, _), systems = _record_bbd_solves(
+        lambda: window(lambda: single(*G, -F)))
+    nested = {}
+    if p2 is None:
+        q = nested_border_partition(cc, part)
+        dx2, l2, _ = window(lambda: make_bbd_solver(
+            part, "cuda", nested=q)(*G, -F))
+        rel = rel_err(dx2, dx1)
+        print(f"   nested Schur level (K2 = {q.K}, bs2 = {q.bs}, nb2 = "
+              f"{q.nb}, nbl2 = {q.nbl}) on one Newton Jacobian of the "
+              f"operating point: K1 launches {l2} (single level {l1}); dx "
+              f"against the single level {rel:.3e} (bar "
+              f"{PG_NESTED_TOL:.0e})", flush=True)
+        if l1 != 2 or l2 != 3 or not rel <= PG_NESTED_TOL:
+            raise RuntimeError(f"power grid nested Schur: {rel:.3e}, "
+                               f"launches {l1} / {l2}")
+        nested = dict(K2=q.K, bs2=q.bs, nb2=q.nb, nbl2=q.nbl, rel=rel)
+
+    # the witness: dense, lu64
+    t = time.perf_counter()
+    ccd = ct.parse_spice(net, compile=False).compile(solver="dense",
+                                                     device="cuda")
+    dcs = make_dc_solver(ccd, method="lu64")
+    z = torch.zeros((1, ccd.n), dtype=torch.float64, device="cuda")
+    pd = ccd.params0()
+    wop, w_l, _ = window(lambda: dcs(z, pd, ccd.spec.dyn("cuda",
+                                                         mode=MODE_DCOP)))
+    wop0 = dcs(z, pd, ccd.spec.dyn("cuda", mode=MODE_TRANOP, time=0.0))
+    wsol, wt_l, wt_s = window(lambda: ct.tran(
+        ccd, (0, PG_SPAN), dt=PG_DT, method="lu64", x0=wop0.x[0]))
+    w_s = time.perf_counter() - t
+    # the bars are in volts, on the node voltages; the source's branch
+    # current (up to about 1e19 A: the diode across the driven corner at
+    # 2 V) is held relative to its size
+    v = cc.classes == CLASS_V
+    dc_err = float((op.x - wop.x[0])[v].abs().max())
+    wcounts = tuple(int(c) for c in wsol.stats[:3])
+    wxs = wsol.xs.cpu().numpy()
+    tr_err = float(np.abs(xs - wxs)[:, v].max())
+    i_err = max(rel_err(op.x[~v], wop.x[0][~v]),
+                rel_err(xs[:, ~v], wxs[:, ~v]))
+    tr_tol = PG_TRAN_SAME_TOL if wcounts == counts else PG_TRAN_TOL
+    print(f"   dense witness (lu64, torch.linalg; {w_s:.1f} s with its "
+          f"build): dc {int(wop.iters)} iterations, node voltages max "
+          f"|x - x_bbd| {dc_err:.3e} V (bar {PG_DC_TOL:.0e}); tran accepted,"
+          f" rejected, newton {wcounts} (BBD {counts}), node voltages max "
+          f"|dx| {tr_err:.3e} V (bar {tr_tol:.0e}); the branch current "
+          f"{i_err:.3e} of its size (bar {PG_CURRENT_TOL:.0e}); K1 launches "
+          f"{w_l + wt_l}", flush=True)
+    if not (bool(wop.converged.all()) and bool(wsol.converged)):
+        raise RuntimeError("power grid witness: did not converge")
+    if (not (dc_err <= PG_DC_TOL and tr_err <= tr_tol
+             and i_err <= PG_CURRENT_TOL) or w_l + wt_l):
+        raise RuntimeError(f"power grid against the dense witness: dc "
+                           f"{dc_err:.3e} V, tran {tr_err:.3e} V, current "
+                           f"{i_err:.3e}, K1 launches {w_l + wt_l} (want 0)")
+    return dict(launches=dc_l + tr_l, dc=dict(iters=it, wall=dc_s),
+                tran=dict(counts=counts, op_iters=op_it, wall=tr_s),
+                n=cc.n, K=part.K, bs=part.bs, nb=part.nb, nbl=part.nbl,
+                nested=nested, systems=systems, witness_s=w_s,
+                dc_err=dc_err, tran_err=tr_err)
+
+
+def bbd_k1_rows(card, pg):
+    """Phase 14's half of phase 15: K1 at the power grid's BBD shapes (the
+    recorded block and Schur systems of one Newton solve), against its
+    plain twin, torch.linalg.solve_ex and its bound; timed after the
+    phase-13 process has left the card."""
+    import torch
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve, gj_solve_plain, \
+        variant
+
+    rows = {}
+    for what, (A, B) in zip(("block solves", "Schur solve"), pg["systems"]):
+        b, n, _ = A.shape
+        k = B.shape[-1] if B.ndim == 3 else 1
+        B3 = B if B.ndim == 3 else B[..., None].contiguous()
+        X, Xp = gj_solve(A, B3), gj_solve_plain(A, B3)
+        err = rel_err(X, Xp)
+        reps = 5 if n > 500 else 50
+        ms = cuda_time_ms(lambda: gj_solve(A, B3), reps)
+        plain_ms = cuda_time_ms(lambda: gj_solve_plain(A, B3), 3)
+        library_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(A, B3), reps)
+        bound = roofline(8 * b * (n * n + 2 * n * k), b * solve_flops(n, k),
+                         8)
+        shape = f"f64 n={n} k={k} b={b}"
+        print(f"K1 at the power grid's {what} {shape} "
+              f"({variant(n, k)}): |kernel - plain| / max {err:.3e}; kernel "
+              f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+              f"torch.linalg.solve_ex {library_ms * 1e3:.1f} us; bound "
+              f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) "
+              f"[{card}]", flush=True)
+        if not err <= 1e-10:
+            raise RuntimeError(f"K1 at {shape}: {err:.3e} from the twin")
+        rows[what] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                          library_ms=library_ms, max_abs_err=err, **bound)
+    return rows
+
+
+def pit_child(log_path, graetz_k2, dar_coll, results):
+    """Phase 13 in a process of its own on the same card, started before
+    phase 9 so that its host-bound periodic seeds overlap phases 9-12 and
+    15: rc through tran_linear, then pit_engines with its own CPU worker
+    (mul's witness and the replays). Its output goes to `log_path`; its
+    results, or the traceback of its failure, to the queue `results`."""
+    import contextlib
+    import traceback
+    _exit_with_parent()
+    sys.path.insert(0, ROOT)
+    cpu = None
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+        try:
+            card = nvidia_smi("name,power.limit")
+            from cadnip_tpu_torch.ops.gj_solve import load_library
+            load_library()
+            cpu = cpu_worker()
+            witness_job = cpu.submit(cpu_mul_witness)
+            walls = {}
+            t = time.perf_counter()
+            lin = rc_linear(card)
+            walls["13 rc tran_linear"] = time.perf_counter() - t
+            t = time.perf_counter()
+            pit = pit_engines(card, cpu, graetz_k2, {"coll": dar_coll},
+                              witness_job)
+            walls["13 tran_pit"] = time.perf_counter() - t
+            results.put(("ok", dict(lin=lin, pit=pit, walls=walls)))
+        except Exception:
+            results.put(("failed", traceback.format_exc()))
+        finally:
+            if cpu is not None:
+                cpu.shutdown(wait=True, cancel_futures=True)
+
+
+def start_pit_child(graetz_k2, dar):
+    """Start pit_child (spawned) and return (process, queue, log path).
+    The card must be in the Default compute mode, where two processes
+    share it."""
+    import multiprocessing
+    import tempfile
+    mode = nvidia_smi("compute_mode")
+    print(f"compute mode: {mode}", flush=True)
+    if mode != "Default":
+        raise RuntimeError(f"compute mode {mode!r}: phase 13's process "
+                           f"needs the card shared (Default)")
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    fd, log_path = tempfile.mkstemp(prefix="chip_smoke_13_", suffix=".log")
+    os.close(fd)
+    proc = ctx.Process(target=pit_child,
+                       args=(log_path, graetz_k2, np.asarray(dar["coll"]), q))
+    proc.start()
+    return proc, q, log_path
+
+
+def join_pit_child(child):
+    """Wait for phase 13's process, print its output, and return its
+    results; its failure fails the run."""
+    import queue
+    proc, q, log_path = child
+    t = time.perf_counter()
+    while True:
+        try:
+            status, payload = q.get(timeout=5)
+            break
+        except queue.Empty:
+            if not proc.is_alive():
+                status, payload = "failed", (f"its process ended with exit "
+                                             f"code {proc.exitcode}")
+                break
+    proc.join(timeout=60)
+    waited = time.perf_counter() - t
+    with open(log_path) as fh:
+        text = fh.read()
+    os.unlink(log_path)
+    print(f"---- phase 13 (its own process, read after a wait of "
+          f"{waited:.1f} s) ----\n{text.rstrip()}\n---- end of phase 13 ----",
+          flush=True)
+    if status != "ok":
+        raise RuntimeError(f"phase 13 failed:\n{payload}")
+    return payload
+
+
 def rc_linear(card):
     """Phase 13, rc: bench.py's bench_rc through tran_linear on the card,
     1,000,001 points, against the closed form of the first pulse."""
@@ -2084,17 +2528,19 @@ def main():
     k2 = phase("7 DFF vmem_tran", k2_dff, card)
     graetz_k2 = phase("8 graetz", k2_graetz, card)
     dar = phase("8b darlington", k2_darlington, card)
-    phase("8c AC + noise", ac_noise, card)
+    ac = phase("8c AC + noise", ac_noise, card)
     # from here on, the CPU references run in two worker processes beside
-    # the card's host loop; they are idle until phase 9, so that the
-    # kernel timings and host-bound walls of phases 3-8c see no neighbour.
-    # Worker A: phase 9's lanes, phases 11 and 12, then phase 6's twins
-    # (queued after phase 12's jobs, so that phase 12 never waits); worker
-    # B: phase 13's first windows and phase 8b's reference
-    cpu, cpu2 = cpu_worker(), cpu_worker()
+    # the card's host loop, and phase 13 in a process of its own on the
+    # card; they are idle until now, so that the kernel timings and
+    # host-bound walls of phases 3-8c see no neighbour. Worker A: phase 9's
+    # lanes, phases 11 and 12, then phase 6's twins (queued after phase
+    # 12's jobs, so that phase 12 never waits); worker B: phase 8b's
+    # reference and phase 8c's ladder; phase 13's process has its own
+    cpu, cpu2, child, done = cpu_worker(), cpu_worker(), None, False
     try:
-        witness_job = cpu2.submit(cpu_mul_witness)
         dar_job = cpu2.submit(cpu_darlington_ref)
+        ladder_job = cpu2.submit(cpu_ladder_ac)
+        child = start_pit_child(graetz_k2, dar)
         mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"],
                    cpu)
         # queued behind phase 9's lanes, done long before they are read
@@ -2108,28 +2554,42 @@ def main():
         va = phase("12 VA (EKV DFF)", va_ekv, card, ekv_job, cpu)
         twin_jobs = {name: cpu.submit(cpu_k2_twin, c["net"], c["setup"])
                      for name, c in twin.items() if name not in TWIN_ON_CARD}
-        lin = phase("13 rc tran_linear", rc_linear, card)
-        pit = phase("13 tran_pit", pit_engines, card, cpu2, graetz_k2, dar,
-                    witness_job)
-        phase("14 twins (6, 8b)", lambda: (
+        pg = phase("15 BBD power grid", power_grid, card)
+        res13 = phase("13 (its process: the wait)", join_pit_child, child)
+        lin, pit = res13["lin"], res13["pit"]
+        walls.update({f"{k} (own process)": v
+                      for k, v in res13["walls"].items()})
+        bbd_rows = phase("15 K1 rows", bbd_k1_rows, card, pg)
+        phase("14 twins (6, 8b), ladder AC", lambda: (
             twin_check(card, twin, twin_jobs),
-            darlington_ref_check(card, dar, dar_job)))
+            darlington_ref_check(card, dar, dar_job),
+            ladder_ac_check(card, ac["ladder"], ladder_job)))
+        done = True
     finally:
-        cpu.shutdown(wait=True, cancel_futures=True)
-        cpu2.shutdown(wait=True, cancel_futures=True)
+        if child is not None and child[0].is_alive():
+            child[0].terminate()
+            child[0].join()
+        # after a failure nothing waits for a worker's running job: the
+        # workers end with this process (_exit_with_parent)
+        cpu.shutdown(wait=done, cancel_futures=True)
+        cpu2.shutdown(wait=done, cancel_futures=True)
     print("wall per phase (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items())
         + f"; whole run {time.perf_counter() - t_start:.1f} s", flush=True)
     k1, k2d = cases["f64 n=19 k=1 b=4096"], twin["dff"]
-    k1ac, k1pit = cases[AC_DFF_ROW], pit["graetz"]["k1"]
+    k1ac, k1pit, k1grid = cases[AC_DFF_ROW], pit["graetz"]["k1"], \
+        cases[GRID_ROW]
     by_path = {"Monte Carlo (phase 9)": mc["launches"], **va["launches"],
                "rc tran_linear (phase 13)": lin["launches"],
                **{f"{name} tran_pit {part} (phase 13)": r["launches"][k]
                   for name, r in pit.items()
                   for k, part in (("op", "operating point"),
                                   ("seed", "periodic seed"),
-                                  ("windows", "windows"))}}
-    kernels = [{"name": "K1 gj_solve (warp and block variants; jvp, vjp)",
+                                  ("windows", "windows"))},
+               "ladder AC (phase 8c)": ac["ladder"]["launches"],
+               "power grid BBD dc + tran (phase 15)": pg["launches"]}
+    kernels = [{"name": "K1 gj_solve (warp, block and grid variants; jvp, "
+                        "vjp)",
                 "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/gj_solve.cu",
                 "replaces": "cadnip_tpu/ops/pallas_solve.py:35",
@@ -2145,7 +2605,14 @@ def main():
                 "pit_shape": k1pit["shape"], "pit_ms": k1pit["ms"],
                 "pit_bound_ms": k1pit["bound_ms"],
                 "pit_library_ms": k1pit["library_ms"],
-                "pit_plain_ms": k1pit["plain_ms"]},
+                "pit_plain_ms": k1pit["plain_ms"],
+                "grid_shape": GRID_ROW, "grid_ms": k1grid["ms"],
+                "grid_bound_ms": k1grid["bound_ms"],
+                "grid_library_ms": k1grid["library_ms"],
+                "grid_plain_ms": k1grid["plain_ms"],
+                "bbd": {what: {k: r[k] for k in ("shape", "ms", "bound_ms",
+                                                 "library_ms", "plain_ms")}
+                        for what, r in bbd_rows.items()}},
                {"name": "K2 vmem_tran", "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/vmem_tran.cu",
                 "replaces": "archive/pallas_tran.py:372",
@@ -2162,4 +2629,13 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except Exception:
+        # end at once: the interpreter's exit would wait for the workers'
+        # running jobs, which end themselves once this process is gone
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)

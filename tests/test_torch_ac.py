@@ -218,12 +218,24 @@ def test_ac_on_cuda_matches_jax_in_one_k1_launch():
 
 @pytest.mark.gpu
 def test_ac_too_large_for_k1_raises_with_the_size():
+    """A sweep whose 2n x 2n system outgrows one block's shared memory
+    (n = 102) once raised; it now takes K1's grid variant in one launch
+    and matches the CPU port."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (kernel K1 has no CPU mode)")
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve, variant
     cir = tct.Circuit("ladder")
     cir.V("v0", "n0", "0", dc=1.0, acmag=1.0)
     for i in range(100):
         cir.R(f"r{i}", f"n{i}", f"n{i + 1}", 10.0)
         cir.C(f"c{i}", f"n{i + 1}", "0", 1e-9)
-    with pytest.raises(ValueError, match="shared memory"):
-        tct.ac(cir.compile(device="cuda"), [1e3, 1e6])
+    got = {}
+    for dev in ("cuda", "cpu"):
+        cc = cir.compile(device=dev)
+        op = tct.dc(cc)
+        gj_solve.launches = 0
+        got[dev] = (tct.ac(cc, [1e3, 1e6], op_x=op.x)["n100"],
+                    gj_solve.launches)
+    assert variant(2 * cc.n, 1) == "grid" and got["cuda"][1] == 1
+    assert np.abs(got["cuda"][0] - got["cpu"][0]).max() <= \
+        TOL * np.abs(got["cpu"][0]).max()

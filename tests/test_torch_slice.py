@@ -80,6 +80,8 @@ def test_package_imports_no_jax():
         "assert 'cadnip_tpu_torch.va.codegen' in sys.modules\n"
         "assert 'cadnip_tpu_torch.analyses.tran_pit' in sys.modules\n"
         "assert 'cadnip_tpu_torch.analyses.tran_linear' in sys.modules\n"
+        "assert 'cadnip_tpu_torch.ops.bbd' in sys.modules\n"
+        "assert 'cadnip_tpu_torch.mna.bbd_assemble' in sys.modules\n"
         "assert had or 'jax' not in sys.modules\n"
         "assert 'cadnip_tpu' not in sys.modules\n"
         "print('ok')\n")
