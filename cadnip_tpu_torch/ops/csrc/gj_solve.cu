@@ -9,7 +9,8 @@
 // row; finally X = B / diag(A). It is not a tile-by-tile copy of the Pallas
 // kernel: no lane padding to 128 and no identity pad rows.
 //
-// Two entries with one arithmetic, so they give the same bits:
+// Three variants. The warp and block variants have one arithmetic, so
+// they give the same bits:
 //
 // * gj_solve_warp_*: one warp per system, for n <= 32 and n + k <= 64,
 //   the circuit-sized systems every path solves. WARPS systems per block,
@@ -25,21 +26,37 @@
 //   does not: n > 32 or n + k > 64, up to one block's shared memory (about
 //   n = 169 in f64 with k = 1).
 // * gj_solve_grid_*: the systems that one block's shared memory does not
-//   hold. It replaces the large-n use of the TPU kernel (method gjpl32ir,
-//   cadnip_tpu/ops/linalg.py:138-142,170-176, whose VMEM held systems up to
-//   n = 1024), and takes the Schur complement of the block-bordered-diagonal
-//   solve. The augmented block lives in device memory (L2 holds it at these
-//   sizes: n = 1536, k = 1 is 18.9 MB of the 50 MB), copied once from A and
-//   B. One cooperative launch per call: a team of co-resident blocks per
-//   system, one warp per row as in the block entry, with a grid-wide
-//   barrier between the phases of each pivot (two per pivot: after every
-//   block's pivot candidate, after the row swap). Where the batch covers
-//   the co-resident grid, a team is one block, its barriers block
-//   barriers, and each block walks over its systems in turn. What bounds
-//   it: n grid barriers' latencies and n sweeps of the block through L2;
-//   a blocked right-looking LU on wgmma tiles is later Hopper work.
-//   Element for element it does the block entry's arithmetic in the block
-//   entry's order, so where both take a shape they give the same bits.
+//   hold, by the blocked Gauss-Jordan of gj_blocked.cuh (panels of NB = 16
+//   columns; the same pivots as the unblocked algorithm, X to rounding: a
+//   blocked product sums in another order). It replaces the large-n use of
+//   the TPU kernel (method gjpl32ir, cadnip_tpu/ops/linalg.py:138-142,
+//   170-176, whose VMEM held systems up to n = 1024), and takes the Schur
+//   complement of the block-bordered-diagonal solve, the AC and noise
+//   sweeps of circuits above about 84 unknowns and tran_pit's window
+//   systems above n = 120. Gauss-Jordan rather than a blocked LU with two
+//   triangular solves: it keeps the pivots and the one-pass form of the
+//   other variants and of the JAX kernel, and its trailing update is one
+//   product over all rows. One launch per call, cooperative: a team of
+//   co-resident blocks per system (one block per system in rounds where
+//   the batch covers the card), [A | B] in device memory (L2 holds it: n =
+//   1536, k = 1 is 18.9 MB of the 50 MB). The n-step pivot chain, which
+//   partial pivoting needs, stays inside one SM: the team's owner block
+//   factors each [n, 16] panel in its shared memory with one block barrier
+//   per pivot (rows never move: each slot carries its logical row, so the
+//   deferred swaps cost nothing). The O(n^3) work is the trailing update,
+//   T -= G Z over every row and trailing column, on the f64 tensor cores
+//   (mma.sync m8n8k4; FFMA in f32), tiled over the team's blocks, the
+//   panel's G staged once per block. Barriers: one team barrier per panel,
+//   with look-ahead (the owner updates and factors panel p + 1 while the
+//   others apply panel p), n / 16 + 3 per solve instead of the 2n of the
+//   unblocked grid kernel; the matrix goes through L2 once per panel
+//   instead of once per pivot. What bounds it now: the pivot chain's
+//   latency at b = 1 (a few thousand cycles per pivot in the owner block),
+//   not the 2n^3/3 operations of the bound. A batch of mid-size systems
+//   (the ladder's AC sweep, [801, 254, 255]) takes one block per system in
+//   rounds, not a thread-block cluster per system: a cluster entry, each
+//   system in the cluster's distributed shared memory with one cluster
+//   barrier per pivot, measured 1.9-3.0x slower on the H100 (PERF.md).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (plain C interface, bound by ctypes)
@@ -49,6 +66,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "gj_blocked.cuh"
 #include "gj_core.cuh"
 
 namespace {
@@ -190,108 +208,192 @@ int launch_warp(const void* A, long long sab, long long sar, long long sac,
 }
 
 
-// ---- the grid entry ------------------------------------------------------
+// ---- the grid entries: blocked Gauss-Jordan (gj_blocked.cuh) --------------
 
-constexpr int GRID_THREADS = 256;   // threads of a block of the grid entry
+using gjb::Cand;
+using gjb::CW;
+using gjb::NB;
 
-// The candidate of block `t` for the pivot of its team: the argmax of
-// |ab[i, kk]| over its rows i >= kk (value -1 and row n where it has none).
-// The rows of a block are those of its warps: row i belongs to the warp
-// i mod (team * nwarps) of the team.
+// Threads of a block of the cooperative grid entry, its warps and the
+// 8-row tiles a warp updates at once.
+constexpr int GT = 512, GW = GT / 32, GRT = 4;
+
+// The entries of the grid variant, as the plan names them.
+enum Entry { GRID_SMEM_PANEL = 0, GRID_L2_PANEL = 1 };
+
+// Shared memory of a block of the cooperative grid entry, in bytes: Z of
+// zw trailing columns and L, the candidates and pivot slots of the panel,
+// the slots' logical indices ([n], rounded to 8 bytes) and, where the owner
+// keeps the panel on chip, the panel ([n][NB + 1]).
 template <typename T>
-__device__ void block_candidate(const T* ab, int n, int m, int kk, int t,
-                                int team, gj::Scratch<T>& s, T* cand_v,
-                                int* cand_i) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int wstride = team * nwarps;
-  T bv = T(-1);
-  int bi = n;
-  for (int e = tid;; e += blockDim.x) {
-    const int i = (e / nwarps) * wstride + t * nwarps + e % nwarps;
-    if (i >= n) break;
-    if (i < kk) continue;
-    const T v = fabs(__ldcg(ab + (long long)i * m + kk));
-    if (gj::beats(v, i, bv, bi)) { bv = v; bi = i; }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const T ov = __shfl_down_sync(gj::FULL, bv, off);
-    const int oi = __shfl_down_sync(gj::FULL, bi, off);
-    if (gj::beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-  }
-  if (lane == 0) { s.red_v[warp] = bv; s.red_i[warp] = bi; }
-  __syncthreads();
-  if (warp == 0) {
-    bv = lane < nwarps ? s.red_v[lane] : T(-1);
-    bi = lane < nwarps ? s.red_i[lane] : n;
-    for (int off = 16; off > 0; off >>= 1) {
-      const T ov = __shfl_down_sync(gj::FULL, bv, off);
-      const int oi = __shfl_down_sync(gj::FULL, bi, off);
-      if (gj::beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
-    if (lane == 0) { __stcg(cand_v, bv); __stcg(cand_i, bi); }
-  }
-}
-
-// The pivot row of a team from its blocks' candidates, into s.piv_row.
-// `beats` is a total order, so every block of the team finds the same row,
-// the one the block entry's reduction finds.
-template <typename T>
-__device__ void team_pivot(const T* cand_v, const int* cand_i, int team,
-                           int n, gj::Scratch<T>& s) {
-  const int lane = threadIdx.x & 31;
-  if ((threadIdx.x >> 5) == 0) {
-    T bv = T(-1);
-    int bi = n;
-    for (int c = lane; c < team; c += 32) {
-      const T v = __ldcg(cand_v + c);
-      const int i = __ldcg(cand_i + c);
-      if (gj::beats(v, i, bv, bi)) { bv = v; bi = i; }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const T ov = __shfl_down_sync(gj::FULL, bv, off);
-      const int oi = __shfl_down_sync(gj::FULL, bi, off);
-      if (gj::beats(ov, oi, bv, bi)) { bv = ov; bi = oi; }
-    }
-    if (lane == 0) s.piv_row = bi;
-  }
-  __syncthreads();
+size_t grid_smem(int n, bool panel_on_chip, int zw) {
+  size_t b = sizeof(T) * ((size_t)NB * zw + NB * NB) +
+             sizeof(Cand) * 2 * GW + sizeof(int) * (NB + ((n + 1) & ~1));
+  if (panel_on_chip) b += sizeof(T) * (size_t)n * (NB + 1);
+  return b;
 }
 
 // One cooperative launch: `teams` teams of `team` blocks, team r taking the
-// systems r, r + teams, ... in rounds; its augmented block is work[r]
-// ([n][n + k], device memory), its blocks' candidates cand_*[r * team ..].
-// The matrix is read and written through L2 (__ldcg / __stcg): other SMs
-// write it between the barriers.
-template <typename T>
-__global__ void __launch_bounds__(GRID_THREADS)
+// systems r, r + teams, ... in rounds; its [A | B] is work[r] ([n][ldw],
+// rows padded to 16 bytes; device memory, read and written through L2:
+// other SMs write it between the barriers), its pivot slots ps and pivots
+// dg, [n] each; the slots' logical indices are in the owner's shared
+// memory. Block 0 of a team owns the panels; the trailing columns go in tiles of CW, in
+// contiguous runs, to the team's other blocks, which first stage the
+// panel's G on chip (a team of one block does all, zw columns at a time).
+// Look-ahead: in the round of panel p the owner first updates panel
+// p + 1's columns (trailing tile 0, written straight into its on-chip
+// panel), factors them while the other blocks update the rest, and the
+// round ends at one team barrier: a solve takes n / NB + 3 of them.
+template <typename T, bool PANEL_ON_CHIP>
+__global__ void __launch_bounds__(GT, 1)
     gj_grid_kernel(const T* __restrict__ A, long long sab, long long sar,
                    long long sac, const T* __restrict__ Bm, long long sbb,
                    long long sbr, long long sbc, T* __restrict__ X, T* work,
-                   T* cand_v, int* cand_i, long long batch, int n, int k,
-                   int team) {
-  extern __shared__ unsigned char smem_raw[];
-  T* prow = reinterpret_cast<T*>(smem_raw);   // the pivot row, [n + k]
-  __shared__ gj::Scratch<T> s;
+                   int* pslot, T* dgw, long long batch, int n, int k,
+                   int ldw, int team, int zw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Zs = reinterpret_cast<T*>(smem_raw);   // [NB][zw]
+  T* Ls = Zs + (size_t)NB * zw;             // [NB][NB]
+  auto* wc = reinterpret_cast<Cand(*)[GW]>(Ls + NB * NB);
+  int* psl = reinterpret_cast<int*>(wc + 2);   // [NB]
+  int* lg = psl + NB;                          // [n]
+  T* pan = reinterpret_cast<T*>(lg + ((n + 1) & ~1));   // [n][NB + 1]
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
 
   const int m = n + k;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
   const int t = blockIdx.x % team;
   const long long r = blockIdx.x / team;
   const long long teams = gridDim.x / team;
-  const int wstride = team * nwarps;
-  const int w0 = t * nwarps + warp;   // this warp's first row
-  const int t0 = t * blockDim.x + tid, tstride = team * blockDim.x;
-  T* ab = work + r * (long long)n * m;
-  T* cv = cand_v + r * team;
-  int* ci = cand_i + r * team;
-  // a team of one block needs only block barriers
+  T* w = work + r * (long long)n * ldw;
+  int* ps = pslot + r * n;
+  T* dg = dgw + r * n;
+  gjb::Panel<T, PANEL_ON_CHIP> P;
+  P.p = PANEL_ON_CHIP ? pan : w;
+  P.ld = PANEL_ON_CHIP ? NB + 1 : ldw;
+  P.lg = lg;
   auto team_sync = [&]() {
     if (team > 1) grid.sync(); else __syncthreads();
   };
+  auto at = [&](int row, int col) { return w + (long long)row * ldw + col; };
+  // G of the current panel, zero at each pivot's own column: on chip in
+  // pan (the owner's factored panel, or a staged copy), else in the work
+  // area
+  auto gget = [&](int row, int c, int j0) -> T {
+    return PANEL_ON_CHIP ? pan[row * (NB + 1) + c] : __ldcg(at(row, j0 + c));
+  };
 
+  // (a) the panel at j0, by the owner (on chip: copied in from the work
+  // area if `load`, else its columns are in pan already), factored; the
+  // pivots' own column zeroed (their diagonal is in dg), and G written to
+  // the work area if `publish`
+  auto panel = [&](int j0, bool load, bool publish) {
+    const int nb = min(NB, n - j0);
+    gjb::Panel<T, PANEL_ON_CHIP> Pj = P;
+    if (!PANEL_ON_CHIP) Pj.p = at(0, j0);
+    if (PANEL_ON_CHIP && load) {
+      for (int e = tid; e < n * nb; e += GT) {
+        const int s = e / nb, c = e - s * nb;
+        pan[s * (NB + 1) + c] = __ldcg(at(s, j0 + c));
+      }
+      __syncthreads();
+    }
+    gjb::factor_panel<GT>(Pj, n, j0, nb, ps, dg, psl, wc);
+    if (PANEL_ON_CHIP) {
+      if (publish) {
+        for (int e = tid; e < n * nb; e += GT) {
+          const int s = e / nb, c = e - s * nb;
+          __stcg(at(s, j0 + c), s == psl[c] ? T(0) : pan[s * (NB + 1) + c]);
+        }
+      }
+      if (tid < nb) pan[psl[tid] * (NB + 1) + tid] = T(0);
+    } else if (tid < nb) {
+      __stcg(at(psl[tid], j0 + tid), T(0));
+    }
+    __syncthreads();
+  };
+
+  // a block other than the owner: the panel's pivot slots, and its G on chip
+  auto stage = [&](int j0) {
+    const int nb = min(NB, n - j0);
+    if (tid < NB) psl[tid] = tid < nb ? __ldcg(ps + j0 + tid) : 0;
+    if (PANEL_ON_CHIP) {
+      for (int e = tid; e < n * nb; e += GT) {
+        const int s = e / nb, c = e - s * nb;
+        pan[s * (NB + 1) + c] = __ldcg(at(s, j0 + c));
+      }
+    }
+    __syncthreads();
+  };
+
+  // (b) the trailing columns [c0, c1) (c1 - c0 <= zw) of the panel at j0:
+  // Z from the pivot rows, then every row takes T -= G Z. With `ahead`, the
+  // next panel's columns go to the on-chip panel instead of the work area.
+  auto trailing = [&](int j0, int c0, int c1, bool ahead) {
+    const int nb = min(NB, n - j0), j1 = j0 + nb;
+    const int jn = ahead ? j1 + min(NB, n - j1) : 0;
+    const int ntl = (c1 - c0 + CW - 1) / CW, wt = ntl * CW;
+    for (int e = tid; e < NB * NB; e += GT) {
+      const int c = e / NB, cp = e - c * NB;
+      Ls[e] = (c < nb && cp < c) ? gget(psl[c], cp, j0) : T(0);
+    }
+    for (int e = tid; e < NB * wt; e += GT) {
+      const int c = e / wt, j = e - c * wt;
+      Zs[c * zw + j] =
+          (c < nb && c0 + j < c1) ? __ldcg(at(psl[c], c0 + j)) : T(0);
+    }
+    __syncthreads();
+    for (int j = tid; j < wt; j += GT) {
+      T z[NB];
+#pragma unroll
+      for (int c = 0; c < NB; ++c) z[c] = Zs[c * zw + j];
+      gjb::forward_subst(z, nb, [&](int c, int cp) { return Ls[c * NB + cp]; });
+#pragma unroll
+      for (int c = 0; c < NB; ++c) Zs[c * zw + j] = z[c];
+    }
+    __syncthreads();
+    const int nrg = ((n + 7) / 8 + GRT - 1) / GRT;
+    for (int it = warp; it < nrg * ntl; it += GW) {
+      const int r0 = (it / ntl) * GRT * 8, q = it - (it / ntl) * ntl;
+      const int cq = c0 + q * CW;
+      gjb::rank_update<GRT, CW / 8>(
+          T(0),
+          [&](int i, int rr, int c) -> T {
+            const int row = r0 + i * 8 + rr;
+            return (row < n && c < nb) ? -gget(row, c, j0) : T(0);
+          },
+          [&](int c, int j) -> T { return Zs[c * zw + q * CW + j]; },
+          [&](int i, int rr, int j, T& x0, T& x1) {
+            const int row = r0 + i * 8 + rr, col = cq + j;
+            x0 = x1 = T(0);
+            if (row >= n || col >= c1) return;
+            if (col + 1 < c1) gjb::ldcg2(at(row, col), x0, x1);
+            else x0 = __ldcg(at(row, col));
+          },
+          [&](int i, int rr, int j, T x0, T x1) {
+            const int row = r0 + i * 8 + rr, col = cq + j;
+            if (row >= n || col >= c1) return;
+            if (col + 1 < jn) {
+              pan[row * (NB + 1) + col - j1] = x0;
+              pan[row * (NB + 1) + col + 1 - j1] = x1;
+            } else if (col < jn) {
+              pan[row * (NB + 1) + col - j1] = x0;
+              if (col + 1 < c1) __stcg(at(row, col + 1), x1);
+            } else if (col + 1 < c1) {
+              gjb::stcg2(at(row, col), x0, x1);
+            } else {
+              __stcg(at(row, col), x0);
+            }
+          });
+    }
+    __syncthreads();
+  };
+  auto trailing_run = [&](int j0, int c0, int c1) {
+    for (int c = c0; c < c1; c += zw) trailing(j0, c, min(c + zw, c1), false);
+  };
+
+  const int np = (n + NB - 1) / NB;
   const long long rounds = (batch + teams - 1) / teams;
   for (long long round = 0; round < rounds; ++round) {
     const long long b = round * teams + r;
@@ -300,94 +402,115 @@ __global__ void __launch_bounds__(GRID_THREADS)
     if (live) {
       const T* Ab = A + b * sab;
       const T* Bb = Bm + b * sbb;
-      for (int i = w0; i < n; i += wstride) {
+      for (int i = t * GW + warp; i < n; i += team * GW) {
         for (int j = lane; j < m; j += 32) {
-          __stcg(ab + (long long)i * m + j,
+          __stcg(at(i, j),
                  j < n ? Ab[i * sar + j * sac] : Bb[i * sbr + (j - n) * sbc]);
         }
       }
-      __syncthreads();
-      block_candidate(ab, n, m, 0, t, team, s, cv + t, ci + t);
+      if (t == 0)
+        for (int s = tid; s < n; s += GT) lg[s] = s;
     }
-    for (int kk = 0; kk < n; ++kk) {
-      team_sync();   // every candidate for pivot kk is written
+    team_sync();   // [A | B] is in the work area
+    if (live && t == 0) panel(0, true, team > 1);
+    team_sync();   // panel 0 is factored
+    for (int p = 0; p < np; ++p) {
       if (live) {
-        team_pivot(cv, ci, team, n, s);
-        const int p = s.piv_row;
-        if (p != kk) {
-          for (int j = t0; j < m; j += tstride) {
-            const T a = __ldcg(ab + (long long)kk * m + j);
-            __stcg(ab + (long long)kk * m + j,
-                   __ldcg(ab + (long long)p * m + j));
-            __stcg(ab + (long long)p * m + j, a);
+        const int j0 = p * NB, j1 = min(j0 + NB, n);
+        const int ntile = (m - j1 + CW - 1) / CW;
+        if (t == 0 && team > 1) {
+          // look-ahead: panel p + 1's columns first, then its factoring
+          if (ntile > 0)
+            trailing(j0, j1, min(j1 + CW, m), PANEL_ON_CHIP && j1 < n);
+          if (j1 < n) panel(j1, false, true);
+        } else if (t == 0) {
+          trailing_run(j0, j1, m);
+          if (j1 < n) panel(j1, true, false);
+        } else if (ntile > 1) {
+          const int per = (ntile - 1 + team - 2) / (team - 1);
+          const int q0 = 1 + (t - 1) * per, q1 = min(ntile, q0 + per);
+          if (q0 < q1) {
+            stage(j0);
+            trailing_run(j0, j1 + q0 * CW, min(j1 + q1 * CW, m));
           }
         }
       }
-      team_sync();   // rows kk and p are swapped
-      if (live) {
-        for (int j = tid; j < m; j += blockDim.x)
-          prow[j] = __ldcg(ab + (long long)kk * m + j);
-        __syncthreads();
-        // eliminate column kk from this block's rows, as gj::eliminate
-        const T piv = prow[kk];
-        for (int i = w0; i < n; i += wstride) {
-          if (i == kk) continue;
-          T* row = ab + (long long)i * m;
-          const T f = __ldcg(row + kk) / piv;
-          __syncwarp();   // every lane holds f before column kk changes
-          for (int j = lane; j < m; j += 32) {
-            __stcg(row + j, fma(-f, prow[j], __ldcg(row + j)));
-          }
-        }
-        __syncthreads();
-        if (kk + 1 < n)
-          block_candidate(ab, n, m, kk + 1, t, team, s, cv + t, ci + t);
-      }
+      team_sync();   // panel p applied everywhere, panel p + 1 factored
     }
     if (live) {
-      // ---- X = B-part / diag(A-part) of this block's rows
+      // (c) X[j] = B-part of the pivot row of step j / its pivot
       T* Xb = X + b * (long long)n * k;
-      for (int i = w0; i < n; i += wstride) {
-        const T d = __ldcg(ab + (long long)i * m + i);
+      for (int j = t * GW + warp; j < n; j += team * GW) {
+        const int s = __ldcg(ps + j);
+        const T d = __ldcg(dg + j);
         for (int c = lane; c < k; c += 32)
-          Xb[(long long)i * k + c] = __ldcg(ab + (long long)i * m + n + c) / d;
+          Xb[(long long)j * k + c] = __ldcg(at(s, n + c)) / d;
       }
     }
+    team_sync();   // the work area is read before the next system comes in
   }
 }
 
-// The grid of a call: `team` blocks per system and `teams` systems at once,
-// within what the card holds co-resident. A team has a block for every
-// GRID_THREADS / 32 rows, as far as the batch leaves room.
+// The plan of a call, deterministic from the shape and the card: the
+// cooperative grid entry, its panel on chip (0) where the owner's shared
+// memory holds it, else in L2 (1). `want` forces an entry (-1: the
+// plan's; the tests force the panel in L2 at shapes the plan keeps on
+// chip); one that cannot take the shape returns cudaErrorInvalidValue.
+// *team: blocks per system, *teams: systems at once, *ldw: the work area's
+// row stride; *zw: the trailing columns a block takes at a time.
 template <typename T>
-int grid_plan(long long batch, int n, int k, int* team, int* teams,
-              size_t* smem) {
-  *smem = sizeof(T) * (size_t)(n + k);
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+int grid_plan(long long batch, int n, int k, int want, int* entry, int* team,
+              int* teams, int* ldw, int* zw, size_t* smem) {
+  // the work area's rows, padded to 16 bytes
+  const int per16 = 16 / (int)sizeof(T);
+  *ldw = (n + k + per16 - 1) / per16 * per16;
+  int dev = 0, sms = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return (int)e;
+  const int m = n + k;
+  // the widest trailing run: all columns after the first panel, in tiles
+  const int wmax = ((m - (n < NB ? n : NB) + CW - 1) / CW) * CW;
+  int ent = want;
+  if (ent < 0) {
+    ent = grid_smem<T>(n, true, CW) <= (size_t)optin ? GRID_SMEM_PANEL
+                                                     : GRID_L2_PANEL;
+  }
+  if (ent != GRID_SMEM_PANEL && ent != GRID_L2_PANEL)
+    return (int)cudaErrorInvalidValue;
+  const bool on_chip = ent == GRID_SMEM_PANEL;
+  const size_t fixed = grid_smem<T>(n, on_chip, 0);
+  if (fixed + sizeof(T) * NB * CW > (size_t)optin)
+    return (int)cudaErrorInvalidValue;
+  int cols = (int)(((size_t)optin - fixed) / (sizeof(T) * NB) / CW) * CW;
+  cols = cols < wmax ? cols : wmax;
+  *zw = cols < CW ? CW : cols;
+  *smem = grid_smem<T>(n, on_chip, *zw);
+  int coop = 0, per_sm = 0;
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const void* fn = on_chip ? (const void*)gj_grid_kernel<T, true>
+                           : (const void*)gj_grid_kernel<T, false>;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)*smem);
   if (e != cudaSuccess) return (int)e;
-  if (*smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(gj_grid_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)*smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gj_grid_kernel<T>, GRID_THREADS, *smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, GT, *smem);
   if (e != cudaSuccess) return (int)e;
   const long long resident = (long long)per_sm * sms;
   if (resident < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long want = (n + GRID_THREADS / 32 - 1) / (GRID_THREADS / 32);
+  // the owner and a block per trailing tile of the first panel
+  const long long want_team = 1 + wmax / CW;
   long long tm = batch >= resident ? 1 : resident / batch;
-  tm = tm < want ? tm : want;
+  tm = tm < want_team ? tm : want_team;
   tm = tm < 1 ? 1 : tm;
   long long ts = resident / tm;
   ts = ts < batch ? ts : batch;
+  *entry = ent;
   *team = (int)tm;
   *teams = (int)ts;
   return 0;
@@ -396,28 +519,32 @@ int grid_plan(long long batch, int n, int k, int* team, int* teams,
 template <typename T>
 int launch_grid(const void* A, long long sab, long long sar, long long sac,
                 const void* Bm, long long sbb, long long sbr, long long sbc,
-                void* X, void* work, void* cand_v, void* cand_i,
-                long long batch, int n, int k, int team, int teams,
+                void* X, void* work, void* pslot, void* dgw,
+                long long batch, int n, int k, int entry, int team, int teams,
                 void* stream) {
   if (batch <= 0 || n <= 0 || k <= 0) return 0;
-  int want_team = 0, want_teams = 0;
+  int want_entry = 0, want_team = 0, want_teams = 0, ldw = 0, zw = 0;
   size_t smem = 0;
-  const int e = grid_plan<T>(batch, n, k, &want_team, &want_teams, &smem);
+  const int e = grid_plan<T>(batch, n, k, entry, &want_entry, &want_team,
+                             &want_teams, &ldw, &zw, &smem);
   if (e != 0) return e;
-  // the caller sized work and the candidates by gj_grid_plan_*
-  if (team != want_team || teams != want_teams)
+  // the caller sized the work area by gj_grid_plan_*
+  if (entry != want_entry || team != want_team || teams != want_teams)
     return (int)cudaErrorInvalidValue;
   const T* a = static_cast<const T*>(A);
   const T* bm = static_cast<const T*>(Bm);
   T* x = static_cast<T*>(X);
   T* w = static_cast<T*>(work);
-  T* cv = static_cast<T*>(cand_v);
-  int* ci = static_cast<int*>(cand_i);
+  int* ps = static_cast<int*>(pslot);
+  T* dg = static_cast<T*>(dgw);
   void* args[] = {&a, &sab, &sar, &sac, &bm, &sbb, &sbr, &sbc, &x, &w,
-                  &cv, &ci, &batch, &n, &k, &team};
-  return (int)cudaLaunchCooperativeKernel(
-      (const void*)gj_grid_kernel<T>, dim3((unsigned)(team * teams)),
-      dim3(GRID_THREADS), args, smem, (cudaStream_t)stream);
+                  &ps, &dg, &batch, &n, &k, &ldw, &team, &zw};
+  const void* fn = entry == GRID_SMEM_PANEL
+                       ? (const void*)gj_grid_kernel<T, true>
+                       : (const void*)gj_grid_kernel<T, false>;
+  return (int)cudaLaunchCooperativeKernel(fn, dim3((unsigned)(team * teams)),
+                                          dim3(GT), args, smem,
+                                          (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -459,37 +586,46 @@ int gj_solve_warp_f32(const void* A, long long sab, long long sar,
                             n, k, stream);
 }
 
-// The grid entry's plan for a call: *team blocks per system, *teams
-// systems at once. The caller gives the launch a work area of
-// teams * n * (n + k) elements and teams * team candidates (a value of the
-// matrix's type and an int each).
-int gj_grid_plan_f64(long long batch, int n, int k, int* team, int* teams) {
+// The grid variant's plan for a call: *entry (0: the panel on chip; 1: the
+// panel in L2), *team blocks per system, *teams systems at once, *ldw the
+// work area's row stride; `want` forces an entry (-1: the plan's own). The
+// caller gives the launch a work area of teams * n * ldw elements,
+// teams * n pivot slots (int) and teams * n pivots (the matrix's type).
+int gj_grid_plan_f64(long long batch, int n, int k, int want, int* entry,
+                     int* team, int* teams, int* ldw) {
+  int zw = 0;
   size_t smem = 0;
-  return grid_plan<double>(batch, n, k, team, teams, &smem);
+  return grid_plan<double>(batch, n, k, want, entry, team, teams, ldw, &zw,
+                        &smem);
 }
 
-int gj_grid_plan_f32(long long batch, int n, int k, int* team, int* teams) {
+int gj_grid_plan_f32(long long batch, int n, int k, int want, int* entry,
+                     int* team, int* teams, int* ldw) {
+  int zw = 0;
   size_t smem = 0;
-  return grid_plan<float>(batch, n, k, team, teams, &smem);
+  return grid_plan<float>(batch, n, k, want, entry, team, teams, ldw, &zw,
+                        &smem);
 }
 
 int gj_solve_grid_f64(const void* A, long long sab, long long sar,
                       long long sac, const void* Bm, long long sbb,
                       long long sbr, long long sbc, void* X, void* work,
-                      void* cand_v, void* cand_i, long long batch, int n,
-                      int k, int team, int teams, void* stream) {
+                      void* pslot, void* dgw, long long batch,
+                      int n, int k, int entry, int team, int teams,
+                      void* stream) {
   return launch_grid<double>(A, sab, sar, sac, Bm, sbb, sbr, sbc, X, work,
-                             cand_v, cand_i, batch, n, k, team, teams,
+                             pslot, dgw, batch, n, k, entry, team, teams,
                              stream);
 }
 
 int gj_solve_grid_f32(const void* A, long long sab, long long sar,
                       long long sac, const void* Bm, long long sbb,
                       long long sbr, long long sbc, void* X, void* work,
-                      void* cand_v, void* cand_i, long long batch, int n,
-                      int k, int team, int teams, void* stream) {
+                      void* pslot, void* dgw, long long batch,
+                      int n, int k, int entry, int team, int teams,
+                      void* stream) {
   return launch_grid<float>(A, sab, sar, sac, Bm, sbb, sbr, sbc, X, work,
-                            cand_v, cand_i, batch, n, k, team, teams,
+                            pslot, dgw, batch, n, k, entry, team, teams,
                             stream);
 }
 

@@ -2,19 +2,22 @@
 
 `gj_solve(A, B)` solves A X = B for a batch of small dense systems. On a
 CUDA tensor it launches the hand-written Hopper kernel in
-`csrc/gj_solve.cu`; on a CPU tensor it runs `gj_solve_plain`, the same
-algorithm in torch ops. There is no fallback between the two: a CUDA
-tensor launches the kernel or raises. The kernel has three variants with
-one arithmetic (`variant(n, k, itemsize)` picks): "warp", one warp per
-system with the rows in registers, for the circuit-sized systems
-(n <= 32, n + k <= 64); "block", one thread block per system with the
-augmented block in shared memory, up to what one block's shared memory
-holds; "grid", one cooperative launch whose teams of blocks keep the
-augmented block in device memory (L2-resident at these sizes) with a
-grid-wide barrier between the phases of each pivot, for the systems
-beyond that: the Schur complement of the block-bordered-diagonal solve,
-an AC sweep of a circuit above about 84 unknowns, a dense solve up to
-the BBD threshold (n = 1536).
+`csrc/gj_solve.cu`; on a CPU tensor it runs the same algorithm in torch
+ops (`gj_solve_blocked_plain` where the grid variant would take the shape,
+`gj_solve_plain` elsewhere). There is no fallback between the two: a CUDA
+tensor launches the kernel or raises. The kernel has three variants
+(`variant(n, k, itemsize)` picks): "warp", one warp per system with the
+rows in registers, for the circuit-sized systems (n <= 32, n + k <= 64);
+"block", one thread block per system with the augmented block in shared
+memory, up to what one block's shared memory holds (the two give the same
+bits); "grid", a blocked Gauss-Jordan in panels of PANEL columns for the
+systems beyond that (the Schur complement of the block-bordered-diagonal
+solve, an AC sweep of a circuit above about 84 unknowns, a dense solve up
+to the BBD threshold, n = 1536): one cooperative launch whose teams of
+blocks keep [A | B] in device memory (L2-resident at these sizes), the
+pivot chain inside one block, the trailing update on the f64 tensor cores.
+It takes the same pivots as `gj_solve_plain` and agrees with it to
+rounding, not bit for bit (a blocked product sums in another order).
 
 `gj_solve` is differentiable, forward and reverse, through `GJSolve`
 (a `torch.autograd.Function` that `torch.func` transforms accept). Each
@@ -65,29 +68,32 @@ def load_library():
         fn.restype = ci
     pi = ctypes.POINTER(ci)
     for fn in (lib.gj_grid_plan_f64, lib.gj_grid_plan_f32):
-        fn.argtypes = [ll, ci, ci, pi, pi]
+        fn.argtypes = [ll, ci, ci, ci, pi, pi, pi, pi]
         fn.restype = ci
     for fn in (lib.gj_solve_grid_f64, lib.gj_solve_grid_f32):
         fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, vp, vp, ll,
-                       ci, ci, ci, ci, vp]
+                       ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     _lib = lib
     return lib
 
 
-def gj_solve_plain(A, B):
+def gj_solve_plain(A, B, return_pivots=False):
     """The kernel's algorithm in torch ops: A [b, n, n], B [b, n, k].
 
     Per pivot k: row p = argmax |A[i, k]| over i >= k (first index on ties),
     swap rows k and p, eliminate column k from every other row; then
-    X = B / diag(A)."""
+    X = B / diag(A). With `return_pivots`, also the pivot row p of every
+    step k, [b, n]."""
     n = A.shape[-1]
     ab = torch.cat([A, B.to(A.dtype)], dim=-1)
     rows = torch.arange(n, device=A.device)
     lanes = torch.arange(ab.shape[0], device=A.device)
+    piv = torch.empty((ab.shape[0], n), dtype=torch.long, device=A.device)
     for k in range(n):
         cand = torch.where(rows >= k, ab[:, :, k].abs(), -1.0)
         p = torch.argmax(cand, dim=1)
+        piv[:, k] = p
         rowk = ab[:, k, :].clone()
         rowp = ab[lanes, p, :]
         ab[:, k, :] = rowp
@@ -96,7 +102,69 @@ def gj_solve_plain(A, B):
         factor[:, k] = 0.0
         ab = ab - factor[:, :, None] * ab[:, k, None, :]
     diag = torch.diagonal(ab[:, :, :n], dim1=1, dim2=2)
-    return ab[:, :, n:] / diag[:, :, None]
+    X = ab[:, :, n:] / diag[:, :, None]
+    return (X, piv) if return_pivots else X
+
+
+#: panel width of the grid variant's blocked elimination (`NB` of
+#: csrc/gj_blocked.cuh)
+PANEL = 16
+
+
+def gj_solve_blocked_plain(A, B, return_pivots=False):
+    """The grid variant's blocked Gauss-Jordan in torch ops: A [b, n, n],
+    B [b, n, k]; the same pivots as `gj_solve_plain`, the same X to
+    rounding.
+
+    For each panel of PANEL columns J = [j0, j1): (a) factor the [n, nb]
+    panel column by column (the pivot p of column kk = argmax |P[i, kk]|
+    over i >= kk, first index on ties; whole panel rows swap, the factors
+    G[i, kk] = P[i, kk] / P[kk, kk] of every other row i are kept, and the
+    panel's later columns take the rank-1 update); (b) apply the panel's
+    swaps, in order, to the trailing columns [j1, n + k); the pivot rows'
+    trailing part T_J gives Z by forward substitution,
+    Z[c] = T_J[c] - sum_{c' < c} G[j0 + c, j0 + c'] Z[c']; then every row,
+    above and below the panel, takes T -= G Z (a matmul; G is 0 at each
+    pivot's own column). (c) X = B / diag, each diagonal entry the pivot of
+    its step. With `return_pivots`, also the pivot row of every step,
+    [b, n]."""
+    n = A.shape[-1]
+    W = torch.cat([A, B.to(A.dtype)], dim=-1)   # the columns from j0 on
+    b = W.shape[0]
+    rows = torch.arange(n, device=A.device)
+    lanes = torch.arange(b, device=A.device)[:, None]
+    pivots, diag = [], []
+    for j0 in range(0, n, PANEL):
+        nb = min(PANEL, n - j0)
+        P, T = W[:, :, :nb], W[:, :, nb:]
+        G = torch.zeros_like(P)
+        order = rows.expand(b, n).clone()   # the panel's swaps, composed
+        for c in range(nb):
+            kk = j0 + c
+            cand = torch.where(rows >= kk, P[:, :, c].abs(), -1.0)
+            p = torch.argmax(cand, dim=1)
+            pivots.append(p)
+            swap = rows.expand(b, n).clone()
+            swap[:, kk] = p
+            swap[lanes[:, 0], p] = kk
+            order = order.gather(1, swap)
+            P = P[lanes, swap]
+            G = G[lanes, swap]
+            diag.append(P[:, kk, c])
+            f = P[:, :, c] / P[:, kk, c, None]
+            f = torch.where(rows == kk, 0.0, f)
+            G = torch.where(rows[None, None, :nb] == c, f[:, :, None], G)
+            P = P - f[:, :, None] * P[:, kk, None, :]
+        T = T[lanes, order]
+        zs = []
+        for c in range(nb):
+            z = T[:, j0 + c, :]
+            for cp in range(c):
+                z = z - G[:, j0 + c, cp, None] * zs[cp]
+            zs.append(z)
+        W = T - G @ torch.stack(zs, dim=1)
+    X = W / torch.stack(diag, dim=1)[:, :, None]
+    return (X, torch.stack(pivots, dim=1)) if return_pivots else X
 
 
 #: largest system of the warp variant: one row per lane, and the
@@ -112,36 +180,59 @@ def variant(n: int, k: int, itemsize: int = 8) -> str:
     return "block" if itemsize * n * (n + k) <= MAX_SMEM else "grid"
 
 
-def _grid_launch(lib, A, B, X, stream):
-    """The grid variant: a plan from the library (blocks per system,
-    systems at once), its work area and candidates, one cooperative
-    launch on `stream`."""
+#: the grid variant's entries, by the plan's number (csrc/gj_solve.cu): the
+#: panel in the owner block's shared memory, or in L2 beyond it
+GRID_ENTRIES = ("grid", "grid-l2")
+
+
+def grid_plan(A, B, entry=None):
+    """The grid variant's plan for CUDA tensors A [b, n, n], B [b, n, k]:
+    (entry, blocks per system, systems at once, the work area's row
+    stride); `entry` forces one of GRID_ENTRIES (None: the plan's own).
+    Raises where the card cannot take the plan."""
+    lib = load_library()
     batch, n, _ = A.shape
     k = B.shape[-1]
-    f64 = A.dtype == DTYPE
-    team, teams = ctypes.c_int(0), ctypes.c_int(0)
-    plan = lib.gj_grid_plan_f64 if f64 else lib.gj_grid_plan_f32
-    err = plan(batch, n, k, ctypes.byref(team), ctypes.byref(teams))
+    want = -1 if entry is None else GRID_ENTRIES.index(entry)
+    ent, team, teams, ldw = (ctypes.c_int(0) for _ in range(4))
+    plan = lib.gj_grid_plan_f64 if A.dtype == DTYPE else lib.gj_grid_plan_f32
+    err = plan(batch, n, k, want, ctypes.byref(ent), ctypes.byref(team),
+               ctypes.byref(teams), ctypes.byref(ldw))
     if err != 0:
-        raise RuntimeError(f"gj_solve: the grid variant cannot be planned "
-                           f"on this card (cudaError {err}; it needs a "
-                           f"cooperative launch)")
-    work = torch.empty((teams.value, n, n + k), dtype=A.dtype,
-                       device=A.device)
-    cand_v = torch.empty(teams.value * team.value, dtype=A.dtype,
-                         device=A.device)
-    cand_i = torch.empty(teams.value * team.value, dtype=torch.int32,
-                         device=A.device)
-    fn = lib.gj_solve_grid_f64 if f64 else lib.gj_solve_grid_f32
+        raise RuntimeError(f"gj_solve: the grid variant cannot be planned on "
+                           f"this card for [{batch}, {n}, {n}+{k}] (entry "
+                           f"{entry or 'of the plan'}; cudaError {err}: a "
+                           f"cooperative launch refused)")
+    return GRID_ENTRIES[ent.value], team.value, teams.value, ldw.value
+
+
+def plain_twin(A, B):
+    """The plain twin of the variant that takes A [b, n, n], B [b, n, k]:
+    `gj_solve_blocked_plain` for the grid variant, else `gj_solve_plain`."""
+    grid = variant(A.shape[-1], B.shape[-1], A.element_size()) == "grid"
+    return (gj_solve_blocked_plain if grid else gj_solve_plain)(A, B)
+
+
+def _grid_launch(lib, A, B, X, stream, entry=None):
+    """The grid variant: a plan from the library, its work area, one
+    cooperative launch on `stream`."""
+    batch, n, _ = A.shape
+    k = B.shape[-1]
+    ent, team, teams, ldw = grid_plan(A, B, entry)
+    dev, dt = A.device, A.dtype
+    work = torch.empty((teams, n, ldw), dtype=dt, device=dev)
+    pslot = torch.empty((teams, n), dtype=torch.int32, device=dev)
+    dg = torch.empty((teams, n), dtype=dt, device=dev)
+    fn = lib.gj_solve_grid_f64 if dt == DTYPE else lib.gj_solve_grid_f32
     return fn(A.data_ptr(), *A.stride(), B.data_ptr(), *B.stride(),
-              X.data_ptr(), work.data_ptr(), cand_v.data_ptr(),
-              cand_i.data_ptr(), batch, n, k, team.value, teams.value,
-              stream)
+              X.data_ptr(), work.data_ptr(), pslot.data_ptr(), dg.data_ptr(),
+              batch, n, k, GRID_ENTRIES.index(ent), team, teams, stream)
 
 
-def launch(A, B, which=None):
+def launch(A, B, which=None, entry=None):
     """One kernel launch on CUDA tensors A [b, n, n], B [b, n, k]; `which`
-    forces "warp", "block" or "grid" (default `variant(n, k, itemsize)`)."""
+    forces "warp", "block" or "grid" (default `variant(n, k, itemsize)`),
+    `entry` one of the grid variant's GRID_ENTRIES (default its plan's)."""
     lib = load_library()
     batch, n, _ = A.shape
     k = B.shape[-1]
@@ -155,11 +246,6 @@ def launch(A, B, which=None):
         raise ValueError(f"gj_solve: the warp variant takes n <= "
                          f"{WARP_ROWS} and n + k <= {WARP_COLS}, got "
                          f"[{n}, {n}+{k}]")
-    if which == "grid" and itemsize * (n + k) > MAX_SMEM:
-        raise ValueError(
-            f"gj_solve: the grid variant stages one row of [A | B] in "
-            f"shared memory, so it takes n + k <= {MAX_SMEM // itemsize} "
-            f"at {itemsize} bytes an element, got [{n}, {n}+{k}]")
     X = torch.empty((batch, n, k), dtype=A.dtype, device=A.device)
     f64 = A.dtype == DTYPE
     stream = torch.cuda.current_stream(A.device).cuda_stream
@@ -172,7 +258,7 @@ def launch(A, B, which=None):
         fn = lib.gj_solve_f64 if f64 else lib.gj_solve_f32
         err = fn(*args, 32 * min(8, n), stream)
     else:
-        err = _grid_launch(lib, A, B, X, stream)
+        err = _grid_launch(lib, A, B, X, stream, entry)
     if err != 0:
         raise RuntimeError(f"gj_solve kernel launch failed: cudaError {err}")
     gj_solve.launches += 1
@@ -189,7 +275,7 @@ class GJSolve(torch.autograd.Function):
             return launch(A, B)
         if A.device.type == "cpu":
             with torch.no_grad():
-                return gj_solve_plain(A, B)
+                return plain_twin(A, B)
         raise ValueError(f"gj_solve: unsupported device {A.device}")
 
     @staticmethod

@@ -12,9 +12,11 @@ Phases, each of which raises (exit code != 0) on failure:
      at a batch, an inverse, a larger system, a forced pivot and in f32,
      and the grid variant's shapes (n = 512 and 1024, and the 125-section
      ladder's AC shape [801, 254, 255]); where the warp variant takes the
-     shape, it against the block variant, and where the block variant
-     takes a shape above n = 64, the grid variant against it (the same
-     bits expected); kernel, block, grid, plain and
+     shape, it against the block variant (the same bits expected), and
+     where the block variant takes a shape above n = 64, the grid variant
+     against it (GRID_BLOCK_TOL: a blocked product sums in another
+     order); the plain twin is the blocked one at the grid variant's
+     shapes; kernel, block, grid, plain and
      torch.linalg.solve_ex times from CUDA events beside the bound from the
      shape (bytes over 3.35 TB/s, or the operations of an LU solve over 67
      TFLOP/s, FP64 or FP32);
@@ -101,7 +103,9 @@ Phases, each of which raises (exit code != 0) on failure:
      Jacobian through the nested Schur level against the single level;
      the same mesh compiled dense and solved with the explicit lu64 method
      as the witness; after phase 13's process has ended, K1 at the mesh's
-     block and Schur shapes against its twin, bound and solve_ex;
+     block and Schur shapes (and the nested level's) against its twin,
+     bound and solve_ex, and the BBD Newton iteration split into the
+     Schur launch, the block solves' launch and host time;
  14. phase 6's and 8b's comparisons with their CPU twins and phase 8c's
      ladder against the CPU port, the wall time of every phase and of the
      whole run, a JSON line of the kernels, the card's name and power
@@ -142,6 +146,9 @@ TWIN_ON_CARD = ("graetz",)
 GRAETZ_TOL = 2e-3      # bench.py's golden gate for graetz (scale 20 V)
 DERIV_TOL = 1e-12      # K1 jvp / vjp vs autodiff of the twin, relative
 VARIANT_TOL = 1e-14    # K1 warp vs block variant, relative (0 expected)
+#: K1 grid vs block variant, relative: the grid variant's blocked product
+#: sums in another order (about 1e-15 observed)
+GRID_BLOCK_TOL = 1e-12
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (on-chip guide)
 #: peak rates of the H100 SXM (NVIDIA data sheet): FP64 on the tensor
 #: cores, FP32 outside them
@@ -522,14 +529,14 @@ def solve_flops(n, k):
 
 
 def kernel_cases(card):
-    """Phase 3: K1 against gj_solve_plain on the card; the warp variant
-    against the block variant where it takes the shape; times beside the
-    bound and torch.linalg.solve_ex (timed only: the port never calls
-    it)."""
+    """Phase 3: K1 against its plain twin on the card (gj_solve_plain, or
+    gj_solve_blocked_plain where the grid variant takes the shape); the
+    warp variant against the block variant where it takes the shape, the
+    grid variant against the block variant at n > 64; times beside the bound and torch.linalg.solve_ex (timed only: the port
+    never calls it)."""
     import torch
-    from cadnip_tpu_torch.ops.gj_solve import (WARP_ROWS, gj_solve,
-                                               gj_solve_plain, launch,
-                                               variant)
+    from cadnip_tpu_torch.ops.gj_solve import (WARP_ROWS, gj_solve, launch,
+                                               plain_twin, variant)
 
     rng = np.random.default_rng(0)
     cases = [("f64 n=19 k=1 b=1", 19, 1, 1, torch.float64, False),
@@ -566,7 +573,7 @@ def kernel_cases(card):
         At = torch.as_tensor(A, dtype=dtype, device="cuda")
         Bt = torch.as_tensor(Bm, dtype=dtype, device="cuda")
         X = gj_solve(At, Bt)
-        Xp = gj_solve_plain(At, Bt)
+        Xp = plain_twin(At, Bt)
         torch.cuda.synchronize()
         if X.shape != (b, n, k) or not bool(torch.isfinite(X).all()):
             raise RuntimeError(f"K1 {name}: bad output {tuple(X.shape)}")
@@ -606,16 +613,16 @@ def kernel_cases(card):
             Xg = launch(At, Bt, "grid")
             vdiff = rel_err(Xg, X)
             line += f", grid vs block {vdiff:.3e}"
-            if not vdiff <= VARIANT_TOL:
+            if not vdiff <= GRID_BLOCK_TOL:
                 raise RuntimeError(f"K1 {name}: grid vs block {vdiff:.3e} "
-                                   f"> {VARIANT_TOL:.0e}")
+                                   f"> {GRID_BLOCK_TOL:.0e}")
             grid_ms = cuda_time_ms(lambda: launch(At, Bt, "grid"), reps)
         ms = cuda_time_ms(lambda: gj_solve(At, Bt), reps)
         # one system: a loop of launches times the host's launch rate; a
         # graph replay times the device
         graph_ms = graph_time_ms(lambda: gj_solve(At, Bt), reps) \
             if b == 1 else None
-        plain_ms = cuda_time_ms(lambda: gj_solve_plain(At, Bt),
+        plain_ms = cuda_time_ms(lambda: plain_twin(At, Bt),
                                 min(reps, PLAIN_REPS, 3 if b * n > 1e5
                                     else PLAIN_REPS))
         library_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(At, Bt),
@@ -633,7 +640,8 @@ def kernel_cases(card):
               f"{bound['flops']} FLOP, bound {bound['bound_ms'] * 1e3:.2f} "
               f"us ({bound['bound_by']}) [{card}]", flush=True)
         results[name] = dict(max_abs_err=err, ms=ms, block_ms=block_ms,
-                             grid_ms=grid_ms, graph_ms=graph_ms,
+                             grid_ms=grid_ms,
+                             graph_ms=graph_ms,
                              plain_ms=plain_ms, library_ms=library_ms,
                              **bound)
     return results
@@ -1417,9 +1425,11 @@ def ladder_ac(card, device="cuda"):
     """The 125-section ladder's AC sweep (acmag 1 on vs, output n125) over
     801 frequencies: one K1 launch of [801, 254, 255], the grid variant on
     the card. On "cpu" (in a worker) the CPU port's same call, held against
-    the card's in phase 14 (ladder_ac_check)."""
+    the card's in phase 14 (ladder_ac_check). On the card the K1 launch's
+    operands and result are kept (`k1`: A, b, X) for phase 14's witness."""
     import torch
     import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.ops import linalg
     from cadnip_tpu_torch.ops.gj_solve import gj_solve
 
     cc = ct.parse_spice(rc_ladder(LADDER_SECTIONS), device=device)
@@ -1427,13 +1437,25 @@ def ladder_ac(card, device="cuda"):
     p = cc.alter(cc.params0(), **{"vs.acmag": 1.0})
     if device == "cuda":
         torch.cuda.synchronize()
+    seen = []
+
+    def kept(A, b):
+        X = gj_solve(A, b)
+        seen.append((A, b, X))
+        return X
+
     gj_solve.launches = 0
-    t = time.perf_counter()
-    y = ct.ac(cc, ct.acdec(*AC_FREQS), p, op_x=op.x)[LADDER_OUT]
-    y = np.asarray(y)
-    wall = time.perf_counter() - t
+    linalg.gj_solve = kept if device == "cuda" else gj_solve
+    try:
+        t = time.perf_counter()
+        y = ct.ac(cc, ct.acdec(*AC_FREQS), p, op_x=op.x)[LADDER_OUT]
+        y = np.asarray(y)
+        wall = time.perf_counter() - t
+    finally:
+        linalg.gj_solve = gj_solve
     res = dict(y=y, wall=wall, launches=gj_solve.launches, n=cc.n,
-               converged=bool(op.converged))
+               out=cc.index_of(LADDER_OUT), converged=bool(op.converged),
+               k1=seen[0] if len(seen) == 1 else None)
     if device == "cuda":
         print(f"ladder AC (ac, {LADDER_OUT} / vs, n = {cc.n}), {len(y)} "
               f"frequencies: |H| {np.abs(y).min():.4e}-{np.abs(y).max():.4e};"
@@ -1457,18 +1479,57 @@ def cpu_ladder_ac():
 
 def ladder_ac_check(card, lad, job):
     """Phase 14's half of the ladder AC: the card's response against the
-    CPU port's, within AC_TOL of max |H|."""
+    CPU port's, within AC_TOL of max |H|. Then a witness of where the
+    difference comes from, at the frequency where it is largest: the card's
+    system there, solved on the CPU by K1's blocked twin (the grid
+    variant's algorithm; on the same operands as the card's kernel, so the
+    kernel against the twin is the solve's share) and by the unblocked twin
+    (the spread of two summation orders), the blocked twin against the CPU
+    port (the operands' share, with the batch's), and the system's
+    condition number."""
+    import torch
+    from cadnip_tpu_torch.ops.gj_solve import (gj_solve_blocked_plain,
+                                               gj_solve_plain)
+
     t = time.perf_counter()
     ref = job.result()
     waited = time.perf_counter() - t
-    err = float(np.abs(lad["y"] - ref["y"]).max() / np.abs(ref["y"]).max())
+    scale = np.abs(ref["y"]).max()
+    per_f = np.abs(lad["y"] - ref["y"]) / scale
+    err = float(per_f.max())
     print(f"ladder AC on the card against the CPU port ({ref['wall']:.1f} s "
           f"in the worker, read after a wait of {waited:.3f} s): "
           f"{err:.3e} of max |H| (bar {AC_TOL:.0e}) [{card}]", flush=True)
     if not (ref["converged"] and err <= AC_TOL):
         raise RuntimeError(f"ladder AC: card against CPU {err:.3e} > "
                            f"{AC_TOL:.0e}")
-    return err
+    f = int(per_f.argmax())
+    A, b, X = (v[f].cpu()[None] for v in lad["k1"])
+    b = b if b.ndim == 3 else b[..., None]
+    n, i = lad["n"], lad["out"]
+
+    def h(x):
+        return complex(float(x[0, i, 0]), float(x[0, n + i, 0]))
+
+    hk, hb = h(X if X.ndim == 3 else X[..., None]), \
+        h(gj_solve_blocked_plain(A, b))
+    hu = h(gj_solve_plain(A, b))
+    cond = float(np.linalg.cond(A[0].numpy()))
+    wit = dict(freq_index=f, freqs_above_1e_12=int((per_f > 1e-12).sum()),
+               median=float(np.median(per_f)),
+               kernel_vs_blocked_twin=abs(hk - hb) / scale,
+               blocked_twin_vs_cpu_port=abs(hb - ref["y"][f]) / scale,
+               blocked_vs_unblocked_twin=abs(hb - hu) / scale, cond=cond)
+    print(f"ladder AC witness at frequency {f} of {len(per_f)} (the largest "
+          f"difference; {wit['freqs_above_1e_12']} above 1e-12, median "
+          f"{wit['median']:.3e}), of max |H|: the card's kernel against the "
+          f"blocked twin on its operands {wit['kernel_vs_blocked_twin']:.3e}, "
+          f"that twin against the CPU port {wit['blocked_twin_vs_cpu_port']:.3e}"
+          f", blocked against unblocked twin "
+          f"{wit['blocked_vs_unblocked_twin']:.3e}; cond(A) {cond:.3e} "
+          f"[{card}]", flush=True)
+    lad["k1"] = None
+    return err, wit
 
 
 def dff_montecarlo(card, serial_wall, cpu):
@@ -2074,8 +2135,11 @@ def power_grid(card):
     nested = {}
     if p2 is None:
         q = nested_border_partition(cc, part)
-        dx2, l2, _ = window(lambda: make_bbd_solver(
-            part, "cuda", nested=q)(*G, -F))
+        (dx2, l2, _), nested_systems = _record_bbd_solves(
+            lambda: window(lambda: make_bbd_solver(
+                part, "cuda", nested=q)(*G, -F)))
+        # the nested level's own K1 systems: its block solves and its Schur
+        systems = systems + nested_systems[1:]
         rel = rel_err(dx2, dx1)
         print(f"   nested Schur level (K2 = {q.K}, bs2 = {q.bs}, nb2 = "
               f"{q.nb}, nbl2 = {q.nbl}) on one Newton Jacobian of the "
@@ -2126,6 +2190,7 @@ def power_grid(card):
                            f"{dc_err:.3e} V, tran {tr_err:.3e} V, current "
                            f"{i_err:.3e}, K1 launches {w_l + wt_l} (want 0)")
     return dict(launches=dc_l + tr_l, dc=dict(iters=it, wall=dc_s),
+                newton_ms=tr_s / max(counts[2] + op_it, 1) * 1e3,
                 tran=dict(counts=counts, op_iters=op_it, wall=tr_s),
                 n=cc.n, K=part.K, bs=part.bs, nb=part.nb, nbl=part.nbl,
                 nested=nested, systems=systems, witness_s=w_s,
@@ -2134,23 +2199,27 @@ def power_grid(card):
 
 def bbd_k1_rows(card, pg):
     """Phase 14's half of phase 15: K1 at the power grid's BBD shapes (the
-    recorded block and Schur systems of one Newton solve), against its
+    recorded systems of one Newton solve: the block and Schur solves, and
+    where the nested level ran its block and Schur solves), against its
     plain twin, torch.linalg.solve_ex and its bound; timed after the
-    phase-13 process has left the card."""
+    phase-13 process has left the card. Then the BBD Newton iteration of
+    phase 15's transient split into the Schur launch, the block solves'
+    launch and the rest (host-side assembly and dispatch)."""
     import torch
-    from cadnip_tpu_torch.ops.gj_solve import gj_solve, gj_solve_plain, \
-        variant
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve, plain_twin, variant
 
     rows = {}
-    for what, (A, B) in zip(("block solves", "Schur solve"), pg["systems"]):
+    names = ("block solves", "Schur solve", "nested block solves",
+             "nested Schur solve")
+    for what, (A, B) in zip(names, pg["systems"]):
         b, n, _ = A.shape
         k = B.shape[-1] if B.ndim == 3 else 1
         B3 = B if B.ndim == 3 else B[..., None].contiguous()
-        X, Xp = gj_solve(A, B3), gj_solve_plain(A, B3)
+        X, Xp = gj_solve(A, B3), plain_twin(A, B3)
         err = rel_err(X, Xp)
         reps = 5 if n > 500 else 50
         ms = cuda_time_ms(lambda: gj_solve(A, B3), reps)
-        plain_ms = cuda_time_ms(lambda: gj_solve_plain(A, B3), 3)
+        plain_ms = cuda_time_ms(lambda: plain_twin(A, B3), 3)
         library_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(A, B3), reps)
         bound = roofline(8 * b * (n * n + 2 * n * k), b * solve_flops(n, k),
                          8)
@@ -2165,6 +2234,13 @@ def bbd_k1_rows(card, pg):
             raise RuntimeError(f"K1 at {shape}: {err:.3e} from the twin")
         rows[what] = dict(shape=shape, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, max_abs_err=err, **bound)
+    it_ms = pg["newton_ms"]
+    k1_ms = rows["Schur solve"]["ms"] + rows["block solves"]["ms"]
+    print(f"power grid BBD Newton iteration (phase 15's tran) {it_ms:.2f} ms:"
+          f" Schur launch {rows['Schur solve']['ms']:.3f} ms, block solves' "
+          f"launch {rows['block solves']['ms']:.3f} ms, the rest (host-side "
+          f"assembly and dispatch) {it_ms - k1_ms:.2f} ms [{card}]",
+          flush=True)
     return rows
 
 
@@ -2610,9 +2686,13 @@ def main():
                 "grid_bound_ms": k1grid["bound_ms"],
                 "grid_library_ms": k1grid["library_ms"],
                 "grid_plain_ms": k1grid["plain_ms"],
+                "ladder_shape": AC_LADDER_ROW,
+                "ladder_ms": cases[AC_LADDER_ROW]["ms"],
+                "ladder_library_ms": cases[AC_LADDER_ROW]["library_ms"],
                 "bbd": {what: {k: r[k] for k in ("shape", "ms", "bound_ms",
                                                  "library_ms", "plain_ms")}
-                        for what, r in bbd_rows.items()}},
+                        for what, r in bbd_rows.items()},
+                "bbd_newton_iteration_ms": pg["newton_ms"]},
                {"name": "K2 vmem_tran", "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/vmem_tran.cu",
                 "replaces": "archive/pallas_tran.py:372",

@@ -1,0 +1,127 @@
+"""K1's grid variant against an earlier tree's, on one card, in turns.
+
+    git archive <commit> cadnip_tpu_torch | tar -x -C scratch/parent
+    python scripts/k1_grid_vs_parent.py scratch/parent
+
+Loads the earlier tree's `cadnip_tpu_torch` (under the name `parent_port`,
+built from its own csrc/ into its own build/) beside this tree's, and times
+`gj_solve` of both at the grid variant's shapes on the main paths: the
+125-section ladder's AC sweep [801, 254, 255], the power grid's Schur
+solve [1, 973, 974] and its nested level's [1, 241, 242], and [1, 1024,
+1025], [1, 512, 513], [1, 1536, 1537] (the BBD threshold) and [1, 1900,
+1901] (the panel in L2). Each shape is timed parent, this tree, this tree,
+parent (CUDA events over a loop of launches, after a warm-up), beside
+`torch.linalg.solve_ex` and the bound (bytes once in, once out over 3.35
+TB/s, or an LU solve's 2n^3/3 + 2n^2 k operations over 67 TFLOP/s f64,
+the larger). Checks this tree's result against its blocked plain twin, and
+counts its launches (one per call). Prints one line per shape, the card's
+name and power limit, and a JSON line of the rows. Needs a CUDA card.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+#: (batch, n, k, what): the grid variant's shapes on the main paths
+SHAPES = [(801, 254, 1, "ladder AC sweep (phase 8c)"),
+          (1, 973, 1, "power grid Schur solve (phase 15)"),
+          (1, 241, 1, "nested Schur solve (phase 15)"),
+          (1, 1024, 1, "gjpl32ir ceiling, no path"),
+          (1, 512, 1, "no path"),
+          (1, 1536, 1, "the BBD threshold, no path"),
+          (1, 1900, 1, "beyond the owner's shared memory: the panel in L2")]
+HBM_BYTES_PER_S, F64_FLOPS = 3.35e12, 67e12
+
+
+def load_parent(path):
+    root = os.path.join(os.path.abspath(path), "cadnip_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", os.path.join(root, "__init__.py"),
+        submodule_search_locations=[root])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    import parent_port.ops.gj_solve as parent
+    parent.load_library()
+    return parent
+
+
+def cuda_ms(fn, reps):
+    import torch
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(b, n, k):
+    t_bytes = 8 * b * (n * n + 2 * n * k) / HBM_BYTES_PER_S
+    t_ops = b * (2 * n ** 3 / 3 + 2 * n * n * k) / F64_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("parent", help="a directory holding the earlier tree's "
+                    "cadnip_tpu_torch/")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_grid_vs_parent: needs a CUDA card")
+    from cadnip_tpu_torch.ops import gj_solve as K1
+    K1.load_library()
+    parent = load_parent(args.parent)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+    rows = []
+    for b, n, k, what in SHAPES:
+        rng = np.random.default_rng(n)
+        A = torch.as_tensor(rng.standard_normal((b, n, n)) / np.sqrt(n)
+                            + 2.0 * np.eye(n), device="cuda")
+        B = torch.as_tensor(rng.standard_normal((b, n, k)), device="cuda")
+        assert K1.variant(n, k) == "grid"
+        before = K1.gj_solve.launches
+        X = K1.gj_solve(A, B)
+        launches = K1.gj_solve.launches - before
+        Xp = K1.gj_solve_blocked_plain(A, B)
+        err = float((X - Xp).abs().max() / Xp.abs().max())
+        if not err <= 1e-10:
+            raise SystemExit(f"[{b}, {n}, {n}+{k}]: {err:.3e} from the twin")
+        reps = 3 if b * n * n > 3e7 else 10
+        old = [cuda_ms(lambda: parent.gj_solve(A, B), reps)]
+        new = [cuda_ms(lambda: K1.gj_solve(A, B), reps) for _ in range(2)]
+        old.append(cuda_ms(lambda: parent.gj_solve(A, B), reps))
+        lib = cuda_ms(lambda: torch.linalg.solve_ex(A, B), reps)
+        bms, by = bound_ms(b, n, k)
+        row = dict(shape=[b, n, n + k], what=what, plan=K1.grid_plan(A, B)[:3],
+                   parent_us=[t * 1e3 for t in old],
+                   new_us=[t * 1e3 for t in new], solve_ex_us=lib * 1e3,
+                   bound_us=bms * 1e3, bound_by=by, launches_per_call=launches,
+                   err=err, no_slower_than_solve_ex=max(new) <= lib)
+        rows.append(row)
+        print(f"[{b}, {n}, {n}+{k}] {what}: plan {row['plan']}; parent "
+              f"{old[0] * 1e3:.1f} / {old[1] * 1e3:.1f} us, this tree "
+              f"{new[0] * 1e3:.1f} / {new[1] * 1e3:.1f} us, solve_ex "
+              f"{lib * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}); "
+              f"{launches} launch per call; vs twin {err:.2e}", flush=True)
+    print(card)
+    print(json.dumps({"card": card, "rows": rows}))
+
+
+if __name__ == "__main__":
+    main()

@@ -22,7 +22,9 @@ from cadnip_tpu_torch.mna.bbd_assemble import (make_bbd_assembler,
                                                 nested_border_partition)
 from cadnip_tpu_torch.ops.bbd import bbd_matvec, make_bbd_solver
 from cadnip_tpu_torch.ops.gj_solve import (MAX_SMEM, gj_solve,
-                                           gj_solve_plain, launch, variant)
+                                           gj_solve_blocked_plain,
+                                           gj_solve_plain, grid_plan, launch,
+                                           variant)
 
 torch.set_num_threads(1)
 
@@ -297,25 +299,48 @@ def _system(n, k, b, seed, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 3])
 def test_grid_variant_gives_the_block_bits_on_gpu(cuda, b):
+    # the grid variant's blocked product sums in another order than the
+    # block variant's elimination: the two agree to rounding (1e-12 of the
+    # solution in f64, 1e-4 in f32), and two grid calls give the same bits
     At, Bt = _system(160, 1, b, 160, cuda)
     assert variant(160, 1) == "block"
-    assert torch.equal(launch(At, Bt, "grid"), launch(At, Bt, "block"))
-    assert torch.equal(launch(At.float(), Bt.float(), "grid"),
-                       launch(At.float(), Bt.float(), "block"))
+    Xg = launch(At, Bt, "grid")
+    assert _rel(Xg.cpu(), launch(At, Bt, "block").cpu()) <= 1e-12
+    assert torch.equal(Xg, launch(At, Bt, "grid"))
+    Af, Bf = At.float(), Bt.float()
+    Xf = launch(Af, Bf, "grid")
+    assert _rel(Xf.cpu(), launch(Af, Bf, "block").cpu()) <= 1e-4
+    assert torch.equal(Xf, launch(Af, Bf, "grid"))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n, b", [(512, 1), (1024, 1), (254, 5),
-                                  (180, 2500)])
+                                  (180, 2500), (973, 1), (241, 1),
+                                  (254, 801), (333, 3)])
 def test_grid_variant_matches_plain_on_gpu(cuda, n, b):
-    # b = 5: a team of blocks per system; b = 2500: more systems than the
-    # card holds blocks, one block per system in rounds
+    # b = 5, 3: a team of blocks per system; b = 2500, 801: more systems
+    # than the card holds blocks, one block per system in rounds; n = 333:
+    # a ragged last panel
     At, Bt = _system(n, 1, b, n, cuda)
     assert variant(n, 1) == "grid"
     before = gj_solve.launches
     X = gj_solve(At, Bt)
     assert gj_solve.launches == before + 1
-    assert _rel(X.cpu(), gj_solve_plain(At, Bt).cpu()) <= 1e-12
+    assert _rel(X.cpu(), gj_solve_blocked_plain(At, Bt).cpu()) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry, n, b", [("grid-l2", 241, 1),
+                                         ("grid-l2", 300, 40)])
+def test_grid_entries_match_plain_on_gpu(cuda, entry, n, b):
+    # the panel in L2, the plan's entry beyond the owner's shared memory
+    # (n > 1627 in f64), forced at shapes the plan keeps on chip
+    At, Bt = _system(n, 1, b, n, cuda)
+    assert grid_plan(At, Bt, entry)[0] == entry
+    X = launch(At, Bt, "grid", entry)
+    Xp = gj_solve_blocked_plain(At, Bt)
+    assert _rel(X.cpu(), Xp.cpu()) <= 1e-12
+    assert torch.equal(X, launch(At, Bt, "grid", entry))
 
 
 @pytest.mark.gpu
