@@ -2,15 +2,17 @@
 // pivoting, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel cadnip_tpu/ops/pallas_solve.py::_gj_kernel (the
-// Pallas Gauss-Jordan solve inside every Newton iteration). Same algorithm
-// (the elimination itself is in gj_core.cuh, shared with K2): for each pivot
-// k, the row of largest |A[i,k]| over i >= k (lowest index on ties, as
-// jax.lax.argmax), a row swap, elimination of column k from every other
-// row; finally X = B / diag(A). It is not a tile-by-tile copy of the Pallas
-// kernel: no lane padding to 128 and no identity pad rows.
+// Pallas Gauss-Jordan solve inside every Newton iteration). Same algorithm:
+// for each pivot k, the row of largest |A[i,k]| over i >= k (lowest index
+// on ties, as jax.lax.argmax), a row swap, elimination of column k from
+// every other row; finally X = B / diag(A). It is not a tile-by-tile copy
+// of the Pallas kernel: no lane padding to 128 and no identity pad rows.
 //
-// Three variants. The warp and block variants have one arithmetic, so
-// they give the same bits:
+// Three variants, in two forms: the warp form of gj_core.cuh (shared with
+// K2's warp solve) and the blocked form of gj_blocked.cuh (panels of NB =
+// 16 columns, shared with K2's block solve). All take the same pivots; the
+// blocked form's X agrees with the warp form's to rounding, not bit for
+// bit (a blocked product sums in another order).
 //
 // * gj_solve_warp_*: one warp per system, for n <= 32 and n + k <= 64,
 //   the circuit-sized systems every path solves. WARPS systems per block,
@@ -21,91 +23,100 @@
 //   reduction for the pivot and n + k shuffles to broadcast the pivot row,
 //   so the shuffle rate of the SM at a large batch and the chain of n
 //   pivots' latencies for one system.
-// * gj_solve_*: one thread block per system, the augmented block in shared
-//   memory, four block barriers per pivot. It takes what the warp entry
-//   does not: n > 32 or n + k > 64, up to one block's shared memory (about
-//   n = 169 in f64 with k = 1).
+// * gj_solve_*: the block variant, one thread block per system (the plan:
+//   64 to 256 threads by n; as many systems per SM as shared memory and
+//   threads allow), [A | B] in shared memory, up to what one block holds
+//   (n = 167 in f64 with k = 1), by gjb::eliminate_smem: per panel, the
+//   panel's pivot chain with one block barrier per pivot (rows never move,
+//   the factors are products with the pivot's reciprocal), then the
+//   trailing update T -= G Z over every row on the f64 tensor cores from
+//   shared memory (mma.sync m8n8k4; FFMA in f32). It takes the systems the
+//   warp entry does not (n > 32 or n + k > 64): the AC and noise sweeps of
+//   the DFF-sized circuits ([801, 38, 39]), the nested BBD level's block
+//   solves ([10, 104, 190]). What bounds it: the n-step pivot chain (a
+//   barrier, two warp reductions and a reciprocal per pivot), not the
+//   bytes or the 2n^3/3 operations of the bound.
 // * gj_solve_grid_*: the systems that one block's shared memory does not
-//   hold, by the blocked Gauss-Jordan of gj_blocked.cuh (panels of NB = 16
-//   columns; the same pivots as the unblocked algorithm, X to rounding: a
-//   blocked product sums in another order). It replaces the large-n use of
-//   the TPU kernel (method gjpl32ir, cadnip_tpu/ops/linalg.py:138-142,
-//   170-176, whose VMEM held systems up to n = 1024), and takes the Schur
-//   complement of the block-bordered-diagonal solve, the AC and noise
-//   sweeps of circuits above about 84 unknowns and tran_pit's window
-//   systems above n = 120. Gauss-Jordan rather than a blocked LU with two
-//   triangular solves: it keeps the pivots and the one-pass form of the
-//   other variants and of the JAX kernel, and its trailing update is one
-//   product over all rows. One launch per call, cooperative: a team of
-//   co-resident blocks per system (one block per system in rounds where
-//   the batch covers the card), [A | B] in device memory (L2 holds it: n =
-//   1536, k = 1 is 18.9 MB of the 50 MB). The n-step pivot chain, which
-//   partial pivoting needs, stays inside one SM: the team's owner block
-//   factors each [n, 16] panel in its shared memory with one block barrier
-//   per pivot (rows never move: each slot carries its logical row, so the
-//   deferred swaps cost nothing). The O(n^3) work is the trailing update,
-//   T -= G Z over every row and trailing column, on the f64 tensor cores
-//   (mma.sync m8n8k4; FFMA in f32), tiled over the team's blocks, the
-//   panel's G staged once per block. Barriers: one team barrier per panel,
-//   with look-ahead (the owner updates and factors panel p + 1 while the
-//   others apply panel p), n / 16 + 3 per solve instead of the 2n of the
-//   unblocked grid kernel; the matrix goes through L2 once per panel
-//   instead of once per pivot. What bounds it now: the pivot chain's
-//   latency at b = 1 (a few thousand cycles per pivot in the owner block),
-//   not the 2n^3/3 operations of the bound. A batch of mid-size systems
-//   (the ladder's AC sweep, [801, 254, 255]) takes one block per system in
-//   rounds, not a thread-block cluster per system: a cluster entry, each
-//   system in the cluster's distributed shared memory with one cluster
-//   barrier per pivot, measured 1.9-3.0x slower on the H100 (PERF.md).
+//   hold, and small batches of wide systems where it measured faster
+//   (ops/gj_solve.py::variant), by the same blocked Gauss-Jordan with [A |
+//   B] in device memory. It replaces the large-n use of the TPU kernel
+//   (method gjpl32ir, cadnip_tpu/ops/linalg.py:138-142, 170-176, whose VMEM
+//   held systems up to n = 1024), and takes the Schur complement of the
+//   block-bordered-diagonal solve, the AC and noise sweeps of circuits above
+//   about 84 unknowns and tran_pit's window systems above n = 120.
+//   Gauss-Jordan rather than a blocked LU with two triangular solves: it
+//   keeps the pivots and the one- pass form of the other variants and of the
+//   JAX kernel, and its trailing update is one product over all rows. One
+//   launch per call, cooperative: a team of co-resident blocks per system
+//   (one block per system in rounds where the batch covers the card), [A |
+//   B] in device memory (L2 holds it: n = 1536, k = 1 is 18.9 MB of the 50
+//   MB). The n-step pivot chain, which partial pivoting needs, stays inside
+//   one SM: the team's owner block factors each [n, 16] panel in its shared
+//   memory with one block barrier per pivot (rows never move: each slot
+//   carries its logical row, so the deferred swaps cost nothing). The O(n^3)
+//   work is the trailing update, T -= G Z over every row and trailing
+//   column, on the f64 tensor cores (mma.sync m8n8k4; FFMA in f32), tiled
+//   over the team's blocks, the panel's G staged once per block. Barriers:
+//   one team barrier per panel, with look-ahead (the owner updates and
+//   factors panel p + 1 while the others apply panel p), n / 16 + 3 per
+//   solve instead of the 2n of the unblocked grid kernel; the matrix goes
+//   through L2 once per panel instead of once per pivot. What bounds it now:
+//   the pivot chain's latency at b = 1 (a few thousand cycles per pivot in
+//   the owner block), not the 2n^3/3 operations of the bound. A batch of
+//   mid-size systems (the ladder's AC sweep, [801, 254, 255]) takes one
+//   block per system in rounds, not a thread-block cluster per system: a
+//   cluster entry, each system in the cluster's distributed shared memory
+//   with one cluster barrier per pivot, measured 1.9-3.0x slower on the H100
+//   (PERF.md).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (plain C interface, bound by ctypes)
-// The elimination is written as an FMA; the plain PyTorch twin rounds the
-// product first, so the two agree to rounding level, not bit for bit.
+// The elimination is written as an FMA; the plain PyTorch twins round the
+// product first, so kernel and twin agree to rounding level, not bit for
+// bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "gj_blocked.cuh"
-#include "gj_core.cuh"
 
 namespace {
 
 constexpr int WARPS = 4;   // systems per block of the warp entry
 
-template <typename T>
-__global__ void gj_kernel(const T* __restrict__ A, long long sab,
-                          long long sar, long long sac,
-                          const T* __restrict__ Bm, long long sbb,
-                          long long sbr, long long sbc,
-                          T* __restrict__ X, int n, int k) {
-  extern __shared__ unsigned char smem_raw[];
-  T* ab = reinterpret_cast<T*>(smem_raw);   // augmented block, [n][n + k]
-  __shared__ gj::Scratch<T> scratch;
-
-  const int m = n + k;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
+// The block variant: one block of NTH threads per system, the batch over
+// the grid; the system [n][ld] (ld = gjb::smem_ld(n + k)) and the work
+// area of gjb::eliminate_smem in dynamic shared memory, the work area
+// first. Below 256 threads, registers for 512 threads an SM at least, so
+// that a batch's systems share an SM.
+template <typename T, int NTH>
+__global__ void __launch_bounds__(NTH, NTH < 256 ? 512 / NTH : 1)
+    gj_block_kernel(const T* __restrict__ A, long long sab, long long sar,
+                    long long sac, const T* __restrict__ Bm, long long sbb,
+                    long long sbr, long long sbc, T* __restrict__ X, int n,
+                    int k, int zw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m = n + k, ld = gjb::smem_ld(m);
+  const gjb::SmemWork<T> w = gjb::smem_work<T>(smem_raw, n, zw);
+  T* ab = reinterpret_cast<T*>(smem_raw + gjb::smem_work_bytes<T>(n, zw));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long b = blockIdx.x;
   const T* Ab = A + b * sab;
   const T* Bb = Bm + b * sbb;
-
-  for (int i = warp; i < n; i += nwarps) {
+  for (int i = warp; i < n; i += NTH / 32) {
     for (int j = lane; j < m; j += 32) {
-      ab[i * m + j] = j < n ? Ab[i * sar + j * sac]
-                            : Bb[i * sbr + (j - n) * sbc];
+      ab[i * ld + j] = j < n ? Ab[i * sar + j * sac]
+                             : Bb[i * sbr + (j - n) * sbc];
     }
   }
   __syncthreads();
-  gj::eliminate(ab, n, m, scratch);
-
-  // ---- X = B-part / diag(A-part), contiguous [n][k] per system
+  gjb::eliminate_smem<NTH>(ab, n, m, ld, w);
+  // X[j] = the B part of step j's pivot row / its pivot, [n][k] per system
   T* Xb = X + b * (long long)n * k;
-  for (int i = warp; i < n; i += nwarps) {
-    const T d = ab[i * m + i];
-    for (int c = lane; c < k; c += 32) Xb[i * k + c] = ab[i * m + n + c] / d;
+  for (int j = warp; j < n; j += NTH / 32) {
+    const T* row = ab + w.ps[j] * ld + n;
+    const T d = w.dg[j];
+    for (int c = lane; c < k; c += 32) Xb[j * k + c] = row[c] / d;
   }
 }
 
@@ -151,20 +162,105 @@ __global__ void __launch_bounds__(WARPS * 32)
 }
 
 template <typename T>
+const void* block_kernel(int threads) {
+  switch (threads) {
+    case 64: return (const void*)gj_block_kernel<T, 64>;
+    case 128: return (const void*)gj_block_kernel<T, 128>;
+    case 256: return (const void*)gj_block_kernel<T, 256>;
+  }
+  return nullptr;
+}
+
+// Shared memory of a block of the block variant, in bytes: the work area
+// of zw columns and the system, with NB elements after it (the panel
+// update reads its rows to the panel's sixteenth column).
+template <typename T>
+size_t block_smem(int n, int k, int zw) {
+  return gjb::smem_work_bytes<T>(n, zw) +
+         sizeof(T) * ((size_t)n * gjb::smem_ld(n + k) + gjb::NB);
+}
+
+// The block variant's plan, fixed by the shape and the card: *zw trailing
+// columns per product (every trailing column of the first panel where
+// shared memory holds their Z, else fewer, at least CW), the *smem bytes
+// per block, *threads per block and the blocks (systems) an SM holds at
+// once (*per_sm). Threads: the most of 64, 128 and 256 that runs as many
+// systems at once on an SM as 64 threads do (the batch over the SMs, at
+// most what its shared memory holds) within 1024 threads of it: a batch
+// that covers the card runs more systems per SM with fewer threads each, a
+// small batch gives each system more warps for its trailing product (and
+// a slot per thread in the pivot chain). `want` > 0 forces 64, 128 or 256
+// (the tests). A system whose work area with zw = CW does not fit
+// one block's shared memory returns cudaErrorInvalidValue: the grid
+// variant takes it (ops/gj_solve.py::block_bytes mirrors the count).
+template <typename T>
+int block_plan(long long batch, int n, int k, int want, int* threads,
+               int* zw, size_t* smem, int* per_sm) {
+  constexpr int CW = gjb::CW, NB = gjb::NB;
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (block_smem<T>(n, k, CW) > (size_t)optin)
+    return (int)cudaErrorInvalidValue;
+  const int m = n + k;
+  const int wmax = (m - (n < NB ? n : NB) + CW - 1) / CW * CW;
+  int cols = CW;
+  while (cols + CW <= wmax && block_smem<T>(n, k, cols + CW) <= (size_t)optin)
+    cols += CW;
+  *zw = cols;
+  *smem = block_smem<T>(n, k, cols);
+  // blocks of t threads an SM holds at once
+  auto resident = [&](int t, int* r) -> cudaError_t {
+    const void* fn = block_kernel<T>(t);
+    if (fn == nullptr) return cudaErrorInvalidValue;
+    const cudaError_t s = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+    if (s != cudaSuccess) return s;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(r, fn, t, *smem);
+  };
+  int th = want;
+  if (want <= 0) {
+    const long long need = (batch + sms - 1) / sms;
+    int r64 = 0;
+    e = resident(64, &r64);
+    if (e != cudaSuccess) return (int)e;
+    const long long conc = need < r64 ? need : r64;
+    th = 64;
+    for (int t = 128; t <= 256; t *= 2) {
+      int r = 0;
+      e = resident(t, &r);
+      if (e != cudaSuccess) return (int)e;
+      if ((need < r ? need : (long long)r) == conc && conc * t <= 1024) th = t;
+    }
+  }
+  e = resident(th, per_sm);
+  if (e != cudaSuccess) return (int)e;
+  *threads = th;
+  return 0;
+}
+
+template <typename T>
 int launch(const void* A, long long sab, long long sar, long long sac,
            const void* Bm, long long sbb, long long sbr, long long sbc,
            void* X, int batch, int n, int k, int threads, void* stream) {
   if (batch <= 0 || n <= 0 || k <= 0) return 0;
-  const size_t smem = sizeof(T) * (size_t)n * (size_t)(n + k);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gj_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  gj_kernel<T><<<batch, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(A), sab, sar, sac, static_cast<const T*>(Bm),
-      sbb, sbr, sbc, static_cast<T*>(X), n, k);
+  int th = 0, zw = 0, per_sm = 0;
+  size_t smem = 0;
+  const int e =
+      block_plan<T>(batch, n, k, threads, &th, &zw, &smem, &per_sm);
+  if (e != 0) return e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  void* args[] = {&A, &sab, &sar, &sac, &Bm, &sbb, &sbr, &sbc, &X, &n, &k,
+                  &zw};
+  const cudaError_t le = cudaLaunchKernel(
+      block_kernel<T>(th), dim3((unsigned)batch), dim3((unsigned)th), args,
+      smem, (cudaStream_t)stream);
+  if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 
@@ -210,7 +306,6 @@ int launch_warp(const void* A, long long sab, long long sar, long long sac,
 
 // ---- the grid entries: blocked Gauss-Jordan (gj_blocked.cuh) --------------
 
-using gjb::Cand;
 using gjb::CW;
 using gjb::NB;
 
@@ -228,7 +323,8 @@ enum Entry { GRID_SMEM_PANEL = 0, GRID_L2_PANEL = 1 };
 template <typename T>
 size_t grid_smem(int n, bool panel_on_chip, int zw) {
   size_t b = sizeof(T) * ((size_t)NB * zw + NB * NB) +
-             sizeof(Cand) * 2 * GW + sizeof(int) * (NB + ((n + 1) & ~1));
+             sizeof(gjb::Cand<T>) * 2 * GW +
+             sizeof(int) * (NB + ((n + 1) & ~1));
   if (panel_on_chip) b += sizeof(T) * (size_t)n * (NB + 1);
   return b;
 }
@@ -255,7 +351,7 @@ __global__ void __launch_bounds__(GT, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Zs = reinterpret_cast<T*>(smem_raw);   // [NB][zw]
   T* Ls = Zs + (size_t)NB * zw;             // [NB][NB]
-  auto* wc = reinterpret_cast<Cand(*)[GW]>(Ls + NB * NB);
+  auto* wc = reinterpret_cast<gjb::Cand<T>(*)[GW]>(Ls + NB * NB);
   int* psl = reinterpret_cast<int*>(wc + 2);   // [NB]
   int* lg = psl + NB;                          // [n]
   T* pan = reinterpret_cast<T*>(lg + ((n + 1) & ~1));   // [n][NB + 1]
@@ -299,7 +395,12 @@ __global__ void __launch_bounds__(GT, 1)
       }
       __syncthreads();
     }
-    gjb::factor_panel<GT>(Pj, n, j0, nb, ps, dg, psl, wc);
+    gjb::factor_panel<GT>(Pj, n, j0, nb, psl,
+                          [&](int kk, int sp, T pv) {
+                            __stcg(ps + kk, sp);
+                            __stcg(dg + kk, pv);
+                          },
+                          wc);
     if (PANEL_ON_CHIP) {
       if (publish) {
         for (int e = tid; e < n * nb; e += GT) {
@@ -553,6 +654,7 @@ extern "C" {
 
 // Pointers are device pointers; strides are in elements; stream is a
 // cudaStream_t. Each returns the cudaError_t of the launch (0 on success).
+// gj_solve_*: the block variant; threads 0 for the plan's (gj_block_plan_*).
 int gj_solve_f64(const void* A, long long sab, long long sar, long long sac,
                  const void* Bm, long long sbb, long long sbr, long long sbc,
                  void* X, int batch, int n, int k, int threads,
@@ -567,6 +669,26 @@ int gj_solve_f32(const void* A, long long sab, long long sar, long long sac,
                  void* stream) {
   return launch<float>(A, sab, sar, sac, Bm, sbb, sbr, sbc, X, batch, n, k,
                        threads, stream);
+}
+
+// The block variant's plan for a batch of [n, n + k] systems (threads: 0
+// for the plan's, else forced): *threads per block, *zw, *smem bytes per
+// block and *per_sm systems an SM holds at once; cudaErrorInvalidValue
+// where the system does not fit one block's shared memory.
+int gj_block_plan_f64(long long batch, int n, int k, int threads, int* th,
+                      int* zw, long long* smem, int* per_sm) {
+  size_t b = 0;
+  const int e = block_plan<double>(batch, n, k, threads, th, zw, &b, per_sm);
+  *smem = (long long)b;
+  return e;
+}
+
+int gj_block_plan_f32(long long batch, int n, int k, int threads, int* th,
+                      int* zw, long long* smem, int* per_sm) {
+  size_t b = 0;
+  const int e = block_plan<float>(batch, n, k, threads, th, zw, &b, per_sm);
+  *smem = (long long)b;
+  return e;
 }
 
 // The warp entry: n <= 32 and n + k <= 64 (cudaErrorInvalidValue else).

@@ -5,17 +5,18 @@
 // Pallas "VMEM integrator"). It computes what that kernel computes; it is
 // not carried over block by block. Per Newton iteration: the device
 // evaluation of every instance (limiter, then the residual on dual numbers
-// for f, q and the local Jacobians; devices.cuh), the assembly of F, Q and
-// A = G + c0*C through gather plans built on the host (a fixed summation
+// for f, q and the local Jacobians; devices.cuh), the assembly of F, Q
+// and A = G + c0*C through gather plans built on the host (a fixed summation
 // order, no atomics, so step decisions replay), the two-sided equilibrated
-// Gauss-Jordan solve of [Dr A Dc | Dr F] (K1's elimination, gj_core.cuh)
-// with the column scaling undone, max_dv damping, the ok_dx | ok_res test,
-// divided-difference LTE control (BE after a breakpoint, then trapezoidal),
-// breakpoint hits, and the linear interpolation of each accepted step onto
-// the save rows in (t, t_new]. The reference kernel's sequential chunk grid
-// is a loop over chunks inside the block: a step never crosses its chunk's
-// last save time, the chunk's rows are first filled with its entry state,
-// and a step writes through a window of win_rows rows.
+// Gauss-Jordan solve of [Dr A Dc | Dr F] (K1's warp form, gj_core.cuh, or
+// its blocked form, gj_blocked.cuh) with the column scaling undone, max_dv
+// damping, the ok_dx | ok_res test, divided-difference LTE control (BE after
+// a breakpoint, then trapezoidal), breakpoint hits, and the linear
+// interpolation of each accepted step onto the save rows in (t, t_new]. The
+// reference kernel's sequential chunk grid is a loop over chunks inside the
+// block: a step never crosses its chunk's last save time, the chunk's rows
+// are first filled with its entry state, and a step writes through a window
+// of win_rows rows.
 //
 // The reference is f32 only because Mosaic has no f64; K2 is f64. Its
 // constants are the reference's, unchanged, so that step decisions remain
@@ -35,9 +36,15 @@
 // per transient. For n <= 32 the Newton solve (equilibration,
 // elimination, the step and its max_dv maximum) runs inside warp 0 with
 // the system in registers (gj::eliminate_warp), while the other warps wait
-// at one barrier: about 15 block barriers per iteration instead of
-// 4n + 15. Larger circuits keep the block elimination, up to n = 127
-// unknowns (149 KB of shared memory), as the reference's n + 1 <= 128.
+// at one barrier: about 15 block barriers per iteration. Larger circuits,
+// up to n = 127 unknowns as the reference's n + 1 <= 128, take K1's block
+// form (gjb::eliminate_smem of gj_blocked.cuh) on the whole block: the
+// system in shared memory at an odd row stride (164 KB with the vectors and
+// the elimination's work area at n = 127), panels of 16 columns, one
+// barrier per pivot and two per panel, the trailing update on the f64
+// tensor cores; rows never move, so the step reads each unknown through
+// its pivot's slot. The two solves are two instances of the kernel, so
+// that the block solve's registers leave the small circuits' alone.
 //
 // Thread 0 reads clock64() at each phase boundary of an iteration and adds
 // the cycles to stats[PHASE0 + p] (always on; a few cycles a phase).
@@ -51,7 +58,7 @@
 #include <cuda_runtime.h>
 
 #include "devices.cuh"
-#include "gj_core.cuh"
+#include "gj_blocked.cuh"
 
 // Scalar configuration; mirrored by _Config in ops/vmem_tran.py (8-byte
 // fields only, so the two layouts agree without padding rules).
@@ -107,6 +114,23 @@ constexpr long long HOLD_STEPS = 3;
 constexpr long long MAX_REJECT_RUN = 100;
 constexpr int N_VECTORS = 19;   // state vectors of n + 1 in shared memory
 constexpr int WARP_SOLVE_MAX = 32;   // largest n solved inside one warp
+constexpr int K2_THREADS = 256;      // threads of the block (ops/vmem_tran.py)
+
+// Columns of Z in the block solve's work area: every trailing column of
+// the first panel of [A | b].
+__host__ __device__ constexpr int block_zw(int n) {
+  return (n + 1 - gjb::NB + gjb::CW - 1) / gjb::CW * gjb::CW;
+}
+
+// Row stride of A in shared memory, and the block solve's work area (0 for
+// the warp solve), in bytes; mirrored by smem_bytes in ops/vmem_tran.py.
+__host__ __device__ constexpr int a_ld(int n) {
+  return n <= WARP_SOLVE_MAX ? n + 1 : gjb::smem_ld(n + 1);
+}
+__host__ __device__ constexpr size_t solve_work_bytes(int n) {
+  return n <= WARP_SOLVE_MAX ? 0
+                             : gjb::smem_work_bytes<double>(n, block_zw(n));
+}
 
 // Phases of a Newton iteration timed by thread 0: device evaluation;
 // assembly; equilibration + solve (with the step's max_dv maximum);
@@ -234,12 +258,15 @@ __device__ void trial_scalars(Ctl& S, const VmemConfig& cfg,
 
 }  // namespace
 
-__global__ void __launch_bounds__(256)
+// WARP_SOLVE: the instance for n <= WARP_SOLVE_MAX, whose Newton solve is
+// warp_newton; the other holds the block solve. Two instances, so that the
+// block solve's registers do not weigh on the small circuits' iterations.
+template <bool WARP_SOLVE>
+__global__ void __launch_bounds__(K2_THREADS)
     vmem_kernel(const VmemConfig cfg, const VmemPtrs P) {
   extern __shared__ double sm[];
   __shared__ Ctl S;
   __shared__ double red[32];
-  __shared__ gj::Scratch<double> gs;
   __shared__ int vnan_s;
 
   const int n = (int)cfg.n, m = n + 1;
@@ -248,7 +275,6 @@ __global__ void __launch_bounds__(256)
   const long long rc = cfg.rows_per_chunk, wr = cfg.win_rows;
   const long long* gd = P.gdesc;
   const dev::Dyn dyn = dev::make_dyn(cfg.temp, cfg.gmin, cfg.srcfact);
-  const bool warp_solve = n <= WARP_SOLVE_MAX;
   // thread 0's phase clocks
   long long ph[N_PHASES] = {};
   long long tick0 = clock64();
@@ -260,13 +286,19 @@ __global__ void __launch_bounds__(256)
     }
   };
 
-  double* A = sm;                                  // [n][n + 1]: [A | b]
-  double* x = sm + n * m;                          // vectors of n + 1
+  const int lda = a_ld(n);
+  double* A = sm;                                  // [n][lda]: [A | b]
+  double* x = sm + n * lda;                        // vectors of n + 1
   double *x1 = x + m, *x2 = x1 + m, *q = x2 + m, *q1 = q + m, *qd = q1 + m;
   double *xi = qd + m, *rq = xi + m, *xn = rq + m, *dx = xn + m;
   double *F = dx + m, *Q = F + m, *Ft = Q + m, *qc = Ft + m, *qdn = qc + m;
   double *atol = qdn + m, *diff = atol + m, *vmask = diff + m;
   double* cinv = vmask + m;                        // N_VECTORS = 19
+  // the block solve's work area (n > WARP_SOLVE_MAX)
+  const gjb::SmemWork<double> gw =
+      gjb::smem_work<double>(cinv + m, n, block_zw(n));
+  double* const sm_end = reinterpret_cast<double*>(
+      reinterpret_cast<unsigned char*>(cinv + m) + solve_work_bytes(n));
 
   // the per-instance locals, in shared memory where they fit
   double *floc = P.floc, *qloc = P.qloc, *ueval = P.ueval, *lims = P.lims;
@@ -276,7 +308,7 @@ __global__ void __launch_bounds__(256)
   const int *fq_ptr = P.fq_ptr, *fq_idx = P.fq_idx;
   const int *jc_ptr = P.jc_ptr, *jc_idx = P.jc_idx;
   if (cfg.locals_in_smem) {
-    floc = cinv + m;
+    floc = sm_end;
     qloc = floc + n_loc;
     ueval = qloc + n_loc;
     lims = ueval + n_loc;
@@ -434,7 +466,7 @@ __global__ void __launch_bounds__(256)
           cc += gc[k];
         }
         if (r == c) g = g + cfg.gshunt * vmask[r];
-        A[r * m + c] = g + c0 * cc;
+        A[r * lda + c] = g + c0 * cc;
       }
       __syncthreads();
       tick(PH_ASSEMBLE);
@@ -443,7 +475,7 @@ __global__ void __launch_bounds__(256)
       // node-voltage move for the max_dv damping
       double vstep;
       bool vstep_nan;
-      if (warp_solve) {
+      if constexpr (WARP_SOLVE) {
         if (tid < 32)
           warp_newton_n(A, Ft, vmask, n, cinv, dx, &red[0], &vnan_s);
         __syncthreads();
@@ -453,29 +485,33 @@ __global__ void __launch_bounds__(256)
         // two-sided equilibration: rows, then columns; b = Dr Ft
         for (int r = tid; r < n; r += bs) {
           double mx = 0.0;
-          for (int c = 0; c < n; ++c) mx = dev::tmax(mx, fabs(A[r * m + c]));
+          for (int c = 0; c < n; ++c)
+            mx = dev::tmax(mx, fabs(A[r * lda + c]));
           const double rinv = 1.0 / clamp_min(mx, TINY);
-          for (int c = 0; c < n; ++c) A[r * m + c] *= rinv;
-          A[r * m + n] = rinv * Ft[r];
+          for (int c = 0; c < n; ++c) A[r * lda + c] *= rinv;
+          A[r * lda + n] = rinv * Ft[r];
         }
         __syncthreads();
         for (int c = tid; c < n; c += bs) {
           double mx = 0.0;
-          for (int r = 0; r < n; ++r) mx = dev::tmax(mx, fabs(A[r * m + c]));
+          for (int r = 0; r < n; ++r)
+            mx = dev::tmax(mx, fabs(A[r * lda + c]));
           cinv[c] = 1.0 / clamp_min(mx, TINY);
         }
         __syncthreads();
         for (int e = tid; e < n * n; e += bs) {
           const int r = e / n, c = e - r * n;
-          A[r * m + c] *= cinv[c];
+          A[r * lda + c] *= cinv[c];
         }
         __syncthreads();
-        gj::eliminate(A, n, m, gs);
-        // the step with its column scaling undone
+        gjb::eliminate_smem<K2_THREADS>(A, n, m, lda, gw);
+        // the step with its column scaling undone: unknown i is the right-
+        // hand side of step i's pivot slot over its pivot
         double vloc = 0.0;
         int vnan = 0;
         for (int i = tid; i < n; i += bs) {
-          const double d = -((A[i * m + n] / A[i * m + i]) * cinv[i]);
+          const double d =
+              -((A[gw.ps[i] * lda + n] / gw.dg[i]) * cinv[i]);
           dx[i] = d;
           if (vmask[i] != 0.0) {
             vloc = fmax(vloc, fabs(d));
@@ -709,20 +745,29 @@ extern "C" {
 // Runs one transient; returns the cudaError_t of the launch (0 on success).
 int vmem_tran_f64(const VmemConfig* cfg, const VmemPtrs* ptrs, int threads,
                   void* stream) {
+  if (threads != K2_THREADS) return (int)cudaErrorInvalidValue;
   const size_t n = (size_t)cfg->n;
-  size_t smem = sizeof(double) * (n * (n + 1) + N_VECTORS * (n + 1));
+  size_t smem = sizeof(double) * (n * a_ld((int)n) + N_VECTORS * (n + 1)) +
+                solve_work_bytes((int)n);
   if (cfg->locals_in_smem)
     smem += sizeof(double) * (size_t)(6 * cfg->n_loc + 2 * cfg->n_jac
                                       + cfg->n_inst
                                       + 2 * (cfg->n_fq + cfg->n_jc))
             + sizeof(int) * (size_t)(n + 1 + cfg->n_fq + n * n + 1
                                      + cfg->n_jc);
+  const void* fn = n <= (size_t)WARP_SOLVE_MAX
+                       ? (const void*)vmem_kernel<true>
+                       : (const void*)vmem_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        vmem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  vmem_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(*cfg, *ptrs);
+  if (n <= (size_t)WARP_SOLVE_MAX)
+    vmem_kernel<true><<<1, threads, smem, (cudaStream_t)stream>>>(*cfg, *ptrs);
+  else
+    vmem_kernel<false><<<1, threads, smem, (cudaStream_t)stream>>>(*cfg,
+                                                                   *ptrs);
   return (int)cudaGetLastError();
 }
 

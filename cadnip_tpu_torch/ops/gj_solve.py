@@ -3,21 +3,25 @@
 `gj_solve(A, B)` solves A X = B for a batch of small dense systems. On a
 CUDA tensor it launches the hand-written Hopper kernel in
 `csrc/gj_solve.cu`; on a CPU tensor it runs the same algorithm in torch
-ops (`gj_solve_blocked_plain` where the grid variant would take the shape,
-`gj_solve_plain` elsewhere). There is no fallback between the two: a CUDA
-tensor launches the kernel or raises. The kernel has three variants
-(`variant(n, k, itemsize)` picks): "warp", one warp per system with the
-rows in registers, for the circuit-sized systems (n <= 32, n + k <= 64);
-"block", one thread block per system with the augmented block in shared
-memory, up to what one block's shared memory holds (the two give the same
-bits); "grid", a blocked Gauss-Jordan in panels of PANEL columns for the
-systems beyond that (the Schur complement of the block-bordered-diagonal
-solve, an AC sweep of a circuit above about 84 unknowns, a dense solve up
-to the BBD threshold, n = 1536): one cooperative launch whose teams of
-blocks keep [A | B] in device memory (L2-resident at these sizes), the
-pivot chain inside one block, the trailing update on the f64 tensor cores.
-It takes the same pivots as `gj_solve_plain` and agrees with it to
-rounding, not bit for bit (a blocked product sums in another order).
+ops (`plain_twin`: `gj_solve_plain` where the warp variant would take
+the shape, `gj_solve_blocked_plain` elsewhere). There is no fallback
+between the two: a CUDA tensor launches the kernel or raises. The kernel
+has three variants (`variant(n, k, itemsize, batch)` picks), in two
+forms: "warp", one warp per system with the rows in registers, for the
+circuit-sized systems (n <= 32, n + k <= 64), the unblocked elimination;
+"block" and "grid", a blocked Gauss-Jordan in panels of PANEL columns,
+the pivot chain inside one block with one barrier per pivot and the
+trailing update on the f64 tensor cores: "block" with the system in one
+block's shared memory, one block per system, up to what it holds
+(`block_bytes`; n = 167 in f64 with k = 1), "grid" beyond that (the
+Schur complement of the block-bordered-diagonal solve, an AC sweep of a
+circuit above about 84 unknowns, a dense solve up to the BBD threshold,
+n = 1536) and where a small batch of wide systems runs faster on it
+(GRID_BATCH_MAX, GRID_COLS_MIN): one cooperative launch whose teams of
+blocks keep [A | B] in device memory (L2-resident at these sizes). All
+take the same pivots as `gj_solve_plain`; the blocked form agrees with
+it to rounding, not bit for bit (a blocked product sums in another
+order).
 
 `gj_solve` is differentiable, forward and reverse, through `GJSolve`
 (a `torch.autograd.Function` that `torch.func` transforms accept). Each
@@ -45,9 +49,9 @@ from torch.autograd import forward_ad
 from ..config import DTYPE, F32
 from . import nvcc
 
-#: dynamic shared memory a block may use on Hopper (227 KB), less the
-#: kernel's static reduction scratch
-MAX_SMEM = 232448 - 1024
+#: shared memory a block may use on Hopper (227 KB); the block variant's is
+#: all dynamic
+MAX_SMEM = 232448
 
 _lib = None
 
@@ -62,6 +66,10 @@ def load_library():
     for fn in (lib.gj_solve_f64, lib.gj_solve_f32):
         fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, ci,
                        vp]
+        fn.restype = ci
+    for fn in (lib.gj_block_plan_f64, lib.gj_block_plan_f32):
+        fn.argtypes = [ll, ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci),
+                       ctypes.POINTER(ll), ctypes.POINTER(ci)]
         fn.restype = ci
     for fn in (lib.gj_solve_warp_f64, lib.gj_solve_warp_f32):
         fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, ci, ci, ci, vp]
@@ -171,13 +179,49 @@ def gj_solve_blocked_plain(A, B, return_pivots=False):
 #: augmented row in at most 64 registers of each lane
 WARP_ROWS, WARP_COLS = 32, 64
 
+#: the block variant's work area (csrc/gj_blocked.cuh): candidates of up to
+#: MAX_WARPS warps (two rounds), Z's row padding, and the fewest columns of
+#: Z (CW)
+_MAX_WARPS, _ZPAD, _ZW_MIN = 8, 4, 16
 
-def variant(n: int, k: int, itemsize: int = 8) -> str:
-    """The kernel variant for an [n, n] system with k right-hand sides of
-    `itemsize` bytes (8: f64, 4: f32)."""
+
+def block_work_bytes(n: int, zw: int, itemsize: int) -> int:
+    """Shared memory of the blocked elimination's work area beside an
+    n-unknown system (`gjb::smem_work_bytes`): the candidates (a key, two
+    ints, a value and its reciprocal), Z of zw columns, the pivots, the
+    slots' logical rows and the pivot slots."""
+    cand = 16 + 2 * itemsize
+    return (cand * 2 * _MAX_WARPS + itemsize * (PANEL * (zw + _ZPAD) + n)
+            + 4 * 2 * n)
+
+
+def block_bytes(n: int, k: int, itemsize: int = 8) -> int:
+    """The least shared memory of the block variant for an [n, n + k]
+    system (`block_smem` of csrc/gj_solve.cu with Z at its fewest columns):
+    the work area and the system at an odd row stride, with a panel's width
+    of padding after it."""
+    return block_work_bytes(n, _ZW_MIN, itemsize) \
+        + itemsize * (n * ((n + k) | 1) + PANEL)
+
+
+#: where the grid variant is faster than the block variant although one
+#: block holds the system: a batch of at most GRID_BATCH_MAX systems (the
+#: grid variant's team then spreads each system's trailing product over two
+#: SMs or more of an H100) with n + k >= GRID_COLS_MIN columns (the product
+#: outweighs the pivot chain). Measured on an H100 in f64 (PERF.md)
+GRID_BATCH_MAX, GRID_COLS_MIN = 64, 145
+
+
+def variant(n: int, k: int, itemsize: int = 8, batch: int = 1) -> str:
+    """The kernel variant for `batch` [n, n] systems with k right-hand sides
+    of `itemsize` bytes (8: f64, 4: f32)."""
     if n <= WARP_ROWS and n + k <= WARP_COLS:
         return "warp"
-    return "block" if itemsize * n * (n + k) <= MAX_SMEM else "grid"
+    if block_bytes(n, k, itemsize) > MAX_SMEM:
+        return "grid"
+    if batch <= GRID_BATCH_MAX and n + k >= GRID_COLS_MIN:
+        return "grid"
+    return "block"
 
 
 #: the grid variant's entries, by the plan's number (csrc/gj_solve.cu): the
@@ -208,9 +252,27 @@ def grid_plan(A, B, entry=None):
 
 def plain_twin(A, B):
     """The plain twin of the variant that takes A [b, n, n], B [b, n, k]:
-    `gj_solve_blocked_plain` for the grid variant, else `gj_solve_plain`."""
-    grid = variant(A.shape[-1], B.shape[-1], A.element_size()) == "grid"
-    return (gj_solve_blocked_plain if grid else gj_solve_plain)(A, B)
+    `gj_solve_plain` for the warp variant, else (the block and grid
+    variants' panels) `gj_solve_blocked_plain`."""
+    warp = variant(A.shape[-1], B.shape[-1], A.element_size()) == "warp"
+    return (gj_solve_plain if warp else gj_solve_blocked_plain)(A, B)
+
+
+def block_plan(batch: int, n: int, k: int, dtype=DTYPE):
+    """The block variant's plan on this card for `batch` [n, n + k]
+    systems: (threads per block, columns of Z, shared memory bytes per
+    block, systems per SM). Raises where the system does not fit one
+    block."""
+    lib = load_library()
+    th, zw, per_sm = (ctypes.c_int(0) for _ in range(3))
+    smem = ctypes.c_longlong(0)
+    plan = lib.gj_block_plan_f64 if dtype == DTYPE else lib.gj_block_plan_f32
+    err = plan(batch, n, k, 0, ctypes.byref(th), ctypes.byref(zw),
+               ctypes.byref(smem), ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"gj_solve: no block plan for [{n}, {n}+{k}] "
+                           f"(cudaError {err})")
+    return th.value, zw.value, smem.value, per_sm.value
 
 
 def _grid_launch(lib, A, B, X, stream, entry=None):
@@ -231,14 +293,15 @@ def _grid_launch(lib, A, B, X, stream, entry=None):
 
 def launch(A, B, which=None, entry=None):
     """One kernel launch on CUDA tensors A [b, n, n], B [b, n, k]; `which`
-    forces "warp", "block" or "grid" (default `variant(n, k, itemsize)`),
-    `entry` one of the grid variant's GRID_ENTRIES (default its plan's)."""
+    forces "warp", "block" or "grid" (default `variant(n, k, itemsize,
+    b)`), `entry` one of the grid variant's GRID_ENTRIES (default its
+    plan's)."""
     lib = load_library()
     batch, n, _ = A.shape
     k = B.shape[-1]
     itemsize = A.element_size()
-    which = which or variant(n, k, itemsize)
-    if which == "block" and itemsize * n * (n + k) > MAX_SMEM:
+    which = which or variant(n, k, itemsize, batch)
+    if which == "block" and block_bytes(n, k, itemsize) > MAX_SMEM:
         raise ValueError(
             f"gj_solve: [{n}, {n}+{k}] does not fit one block's shared "
             f"memory ({MAX_SMEM} bytes); the grid variant takes it")
@@ -256,7 +319,7 @@ def launch(A, B, which=None, entry=None):
         err = fn(*args, stream)
     elif which == "block":
         fn = lib.gj_solve_f64 if f64 else lib.gj_solve_f32
-        err = fn(*args, 32 * min(8, n), stream)
+        err = fn(*args, 0, stream)
     else:
         err = _grid_launch(lib, A, B, X, stream, entry)
     if err != 0:

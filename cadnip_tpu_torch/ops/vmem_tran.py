@@ -38,9 +38,10 @@ save rows, and returns to the host once per transient. Each device
 group's instances run on warps of their own (host-built slots), so no
 warp holds two models. For n <= 32 (`WARP_SOLVE_MAX`) the Newton solve
 runs inside one warp with the system in registers, as K1's warp variant.
-Thread 0 times each phase of an iteration with clock64(); `integrate`
-returns the cycles per phase (`PHASES`). Lane batching, TMA and wgmma are
-later work.
+Above that it runs K1's blocked form (`gj_solve_blocked_plain` in the
+twin) on the whole block. Thread 0 times each phase of an iteration with
+clock64(); `integrate` returns the cycles per phase (`PHASES`). Lane
+batching and TMA are later work.
 """
 from __future__ import annotations
 
@@ -64,7 +65,8 @@ from ..mna.newton import abstol_vector
 from ..mna.spec import MODE_TRAN, MODE_TRANOP, T0_K, DynSpec, make_dynspec
 from ..mna.waveforms import WAVE_DC, eval_wave, pack_waveforms
 from . import nvcc
-from .gj_solve import gj_solve_plain
+from .gj_solve import (PANEL, block_work_bytes, gj_solve_blocked_plain,
+                       gj_solve_plain)
 
 # step-control constants of the reference kernel (archive/pallas_tran.py)
 TRTOL = 7.0
@@ -77,7 +79,8 @@ MAX_REJECT_RUN = 100    # rejects in a row before the integrator gives up
 GMIN = 1e-12            # junction gmin of the transient (reference: fixed)
 
 #: largest circuit K2 takes: n + 1 <= 128 as the reference; the dense
-#: [n, n+1] system and the state vectors fill 149 KB of shared memory
+#: [n, n+1] system, the state vectors and the block solve's work area fill
+#: 164 KB of shared memory
 MAX_UNKNOWNS = 127
 #: most instances of one device group (the reference's lane width)
 MAX_INST = 128
@@ -134,8 +137,15 @@ SMEM_MAX = 232448 - 2048
 
 
 def smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one K2 launch: [n, n+1] plus the vectors."""
-    return 8 * (n * (n + 1) + _N_VECTORS * (n + 1))
+    """Dynamic shared memory of one K2 launch: [n, n+1] (rows at an odd
+    stride for the block solve), the vectors and, for n > WARP_SOLVE_MAX,
+    the block solve's work area (csrc/vmem_tran.cu: a_ld,
+    solve_work_bytes)."""
+    if n <= WARP_SOLVE_MAX:
+        return 8 * (n * (n + 1) + _N_VECTORS * (n + 1))
+    zw = -(-(n + 1 - PANEL) // PANEL) * PANEL
+    return 8 * (n * ((n + 1) | 1) + _N_VECTORS * (n + 1)) \
+        + block_work_bytes(n, zw, 8)
 
 
 def locals_bytes(n: int, pk: dict) -> int:
@@ -353,6 +363,10 @@ def integrate_plain(S: Setup) -> _Result:
         C = jc_scatter(Cs).reshape(np1, np1)[:n, :n]
         return F, Q, G, C, lim_new
 
+    # the kernel's two forms: the warp solve up to WARP_SOLVE_MAX unknowns,
+    # the blocked (panel) form above
+    gj = gj_solve_plain if n <= WARP_SOLVE_MAX else gj_solve_blocked_plain
+
     def solve(A, rhs):
         """Two-sided equilibration, then Gauss-Jordan on [Dr A Dc | Dr b]
         (K1's elimination) and the column scaling undone."""
@@ -360,7 +374,7 @@ def integrate_plain(S: Setup) -> _Result:
         A = A * rinv[:, None]
         cinv = 1.0 / torch.clamp(A.abs().amax(0), min=1e-30)
         A = A * cinv[None, :]
-        y = gj_solve_plain(A[None], (rinv * rhs)[None, :, None])[0, :, 0]
+        y = gj(A[None], (rinv * rhs)[None, :, None])[0, :, 0]
         return y * cinv
 
     def waves(t_new):

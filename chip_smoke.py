@@ -8,18 +8,22 @@ Phases, each of which raises (exit code != 0) on failure:
      power limit, and the torch and CUDA versions;
   2. builds kernels K1 (ops/csrc/gj_solve.cu) and K2 (ops/csrc/vmem_tran.cu)
      with nvcc for sm_90a, one nvcc each, started together;
-  3. K1 against its plain PyTorch twin on the card, at the DFF's shape and
-     at a batch, an inverse, a larger system, a forced pivot and in f32,
-     and the grid variant's shapes (n = 512 and 1024, and the 125-section
-     ladder's AC shape [801, 254, 255]); where the warp variant takes the
-     shape, it against the block variant (the same bits expected), and
-     where the block variant takes a shape above n = 64, the grid variant
-     against it (GRID_BLOCK_TOL: a blocked product sums in another
-     order); the plain twin is the blocked one at the grid variant's
-     shapes; kernel, block, grid, plain and
-     torch.linalg.solve_ex times from CUDA events beside the bound from the
-     shape (bytes over 3.35 TB/s, or the operations of an LU solve over 67
-     TFLOP/s, FP64 or FP32);
+  3. K1 against its plain PyTorch twin on the card (gj_solve_plain for
+     the warp variant, the blocked gj_solve_blocked_plain for the block
+     and grid variants), at the DFF's shape and at a batch, an inverse, a
+     larger system, a forced pivot and in f32, the block variant's shapes
+     (the DFF's AC sweep [801, 38, 39], the nested BBD level's block
+     solves [10, 104, 190], [64, 128, 129], [1, 160, 161] and the largest
+     system one block holds, [1, 167, 168]) and the grid variant's (n =
+     512 and 1024, and the 125-section ladder's AC shape [801, 254,
+     255]); where the warp variant takes the shape, the block variant
+     forced at it against the blocked twin (GRID_BLOCK_TOL, the same NaN
+     pattern); where one block holds a system above n = 64, the block and
+     grid variants forced at it against each other (GRID_BLOCK_TOL: the
+     two sum their products in other orders); kernel, block, grid, plain
+     and torch.linalg.solve_ex times from CUDA events beside the bound
+     from the shape (bytes over 3.35 TB/s, or the operations of an LU
+     solve over 67 TFLOP/s, FP64 or FP32);
      then K1's derivative rules (jvp, vjp) against torch.func autodiff of
      the twin, at the Newton, sensitivity and 4096-lane shapes;
   4. the host-loop path: parse_spice(dff_netlist(), device="cuda") then
@@ -31,9 +35,10 @@ Phases, each of which raises (exit code != 0) on failure:
      waveform kind) against the twin's group evaluation;
   6. K2 on the card: rc over 0-4 ms, the DFF over 0-60 ns, graetz over
      0-20 ms, a 125-section RC ladder over 0-5 us (n = 127: the block
-     solve, and the locals in device memory), the darlington (two BJTs,
-     0-1 us) and an L/K/E/G/F/H deck (0-0.25 us), with K2's share of
-     cycles per phase; each case's plain twin runs on the host CPU in a
+     solve, K1's blocked form, with its cycles per pivot; the locals in
+     device memory), the darlington (two BJTs, 0-1 us) and an L/K/E/G/F/H
+     deck (0-0.25 us), with K2's share of cycles per phase; each case's
+     plain twin runs on the host CPU in a
      worker from the card's own set-up (the same operating point; graetz's
      on the card, TWIN_ON_CARD says why), and the two are held against
      each other in phase 14;
@@ -145,9 +150,10 @@ TWIN_COUNT_TOL = 0.02  # K2 vs twin accepted / rejected / Newton counts
 TWIN_ON_CARD = ("graetz",)
 GRAETZ_TOL = 2e-3      # bench.py's golden gate for graetz (scale 20 V)
 DERIV_TOL = 1e-12      # K1 jvp / vjp vs autodiff of the twin, relative
-VARIANT_TOL = 1e-14    # K1 warp vs block variant, relative (0 expected)
-#: K1 grid vs block variant, relative: the grid variant's blocked product
-#: sums in another order (about 1e-15 observed)
+#: K1's blocked form (block and grid variants) against its blocked twin on
+#: the card, and the block and grid variants against each other, relative:
+#: the kernels contract products into FMAs and sum the trailing product on
+#: the tensor cores in another order (about 1e-15 observed)
 GRID_BLOCK_TOL = 1e-12
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (on-chip guide)
 #: peak rates of the H100 SXM (NVIDIA data sheet): FP64 on the tensor
@@ -170,6 +176,12 @@ AC_FREQS = (100, 1e3, 1e11)    # acdec: 801 points, 1 kHz to 100 GHz
 AC_DFF_ROW = "f64 n=38 k=1 b=801 (AC sweep, DFF)"
 AC_LADDER_ROW = "f64 n=254 k=1 b=801 (AC sweep, 125-section ladder)"
 GRID_ROW = "f64 n=1024 k=1 b=1"
+NESTED_BLOCK_ROW = "f64 n=104 k=86 b=10 (nested BBD block solves)"
+#: phase 3's rows at the shapes one block's shared memory holds above the
+#: warp variant: the kernels line carries each (kernel, block and grid
+#: variants, solve_ex, bound)
+BLOCK_ROWS = (AC_DFF_ROW, NESTED_BLOCK_ROW, "f64 n=128 k=1 b=64",
+              "f64 n=160 k=1 b=1", "f64 n=167 k=1 b=1")
 DIODE_CHAIN = """diode chain
 .model dd d is=1e-15 n=1
 vs in 0 dc 0
@@ -529,14 +541,19 @@ def solve_flops(n, k):
 
 
 def kernel_cases(card):
-    """Phase 3: K1 against its plain twin on the card (gj_solve_plain, or
-    gj_solve_blocked_plain where the grid variant takes the shape); the
-    warp variant against the block variant where it takes the shape, the
-    grid variant against the block variant at n > 64; times beside the bound and torch.linalg.solve_ex (timed only: the port
-    never calls it)."""
+    """Phase 3: K1 against its plain twin on the card (gj_solve_plain for
+    the warp variant, gj_solve_blocked_plain for the block and grid
+    variants); where the warp variant takes the shape, the block variant
+    forced at it against the blocked twin; where one block holds a system
+    above n = 64, the block and grid variants forced at it against each
+    other; times beside the bound and torch.linalg.solve_ex (timed only:
+    the port never calls it)."""
     import torch
-    from cadnip_tpu_torch.ops.gj_solve import (WARP_ROWS, gj_solve, launch,
-                                               plain_twin, variant)
+    from cadnip_tpu_torch.ops.gj_solve import (WARP_ROWS, block_bytes,
+                                               block_plan, gj_solve,
+                                               gj_solve_blocked_plain, launch,
+                                               plain_twin, variant,
+                                               MAX_SMEM)
 
     rng = np.random.default_rng(0)
     cases = [("f64 n=19 k=1 b=1", 19, 1, 1, torch.float64, False),
@@ -556,9 +573,12 @@ def kernel_cases(card):
              ("f64 n=512 k=1 b=1", 512, 1, 1, torch.float64, False),
              (GRID_ROW, 1024, 1, 1, torch.float64, False),
              (AC_LADDER_ROW, 254, 1, 801, torch.float64, False),
-             # the grid variant against the block variant where both take
-             # the shape
-             ("f64 n=160 k=1 b=1", 160, 1, 1, torch.float64, False)]
+             # the shapes one block holds: the nested BBD level's block
+             # solves, a batch, the top of the range at b = 1 (the plan
+             # gives small batches of wide systems to the grid variant)
+             (NESTED_BLOCK_ROW, 104, 86, 10, torch.float64, False),
+             ("f64 n=160 k=1 b=1", 160, 1, 1, torch.float64, False),
+             ("f64 n=167 k=1 b=1", 167, 1, 1, torch.float64, False)]
     results = {}
     for name, n, k, b, dtype, zero_diag in cases:
         # well-conditioned (eigenvalues within ~1 of 2), so the residual
@@ -585,7 +605,7 @@ def kernel_cases(card):
         if not err <= tol:
             raise RuntimeError(f"K1 {name}: max |kernel - plain| {err:.3e} "
                                f"> {tol:.1e}")
-        which = variant(n, k, At.element_size())
+        which = variant(n, k, At.element_size(), b)
         line = f"K1 {name} ({which}): max_abs_err {err:.3e} (tol {tol:.1e})"
         if dtype == torch.float64:
             x64 = X.cpu().numpy()
@@ -601,21 +621,28 @@ def kernel_cases(card):
         if which == "grid":
             reps = 5 if b * n * n > 1e7 else 20
         block_ms = grid_ms = None
+        in_block = block_bytes(n, k, At.element_size()) <= MAX_SMEM
         if which == "warp":
+            # the block variant at the same shape, against its own twin
             Xb = launch(At, Bt, "block")
-            vdiff = rel_err(X, Xb)
-            line += f", warp vs block {vdiff:.3e}"
-            if not vdiff <= VARIANT_TOL:
-                raise RuntimeError(f"K1 {name}: warp vs block {vdiff:.3e} "
-                                   f"> {VARIANT_TOL:.0e}")
+            Xbp = gj_solve_blocked_plain(At, Bt)
+            vdiff = rel_err(Xb, Xbp)
+            line += f", block vs blocked twin {vdiff:.3e}"
+            btol = GRID_BLOCK_TOL if dtype == torch.float64 else 1e-4
+            if not (vdiff <= btol and bool(
+                    (torch.isnan(Xb) == torch.isnan(Xbp)).all())):
+                raise RuntimeError(f"K1 {name}: block vs blocked twin "
+                                   f"{vdiff:.3e} > {btol:.0e}")
             block_ms = cuda_time_ms(lambda: launch(At, Bt, "block"), reps)
-        if which == "block" and n > 2 * WARP_ROWS:
-            Xg = launch(At, Bt, "grid")
-            vdiff = rel_err(Xg, X)
-            line += f", grid vs block {vdiff:.3e}"
+        elif in_block and n > 2 * WARP_ROWS:
+            Xb, Xg = launch(At, Bt, "block"), launch(At, Bt, "grid")
+            vdiff = rel_err(Xg, Xb)
+            line += (f", grid vs block {vdiff:.3e}, block plan "
+                     f"{block_plan(b, n, k)}")
             if not vdiff <= GRID_BLOCK_TOL:
                 raise RuntimeError(f"K1 {name}: grid vs block {vdiff:.3e} "
                                    f"> {GRID_BLOCK_TOL:.0e}")
+            block_ms = cuda_time_ms(lambda: launch(At, Bt, "block"), reps)
             grid_ms = cuda_time_ms(lambda: launch(At, Bt, "grid"), reps)
         ms = cuda_time_ms(lambda: gj_solve(At, Bt), reps)
         # one system: a loop of launches times the host's launch rate; a
@@ -1073,12 +1100,19 @@ def k2_vs_twin(card):
               f"[{card}]", flush=True)
         print(f"   K2 phases: {phase_shares(rk.phases, stats[2])}",
               flush=True)
+        solve_cyc = rk.phases["equilibration + solve"] / max(stats[2], 1)
+        if layout[0] == "block":
+            print(f"   K2 block solve (K1's blocked form): {solve_cyc:.0f} "
+                  f"cycles per Newton iteration, {solve_cyc / cc.n:.0f} per "
+                  f"pivot (n = {cc.n})", flush=True)
         if stats[3]:
             raise RuntimeError(f"K2 {name}: the integrator failed")
         out[name] = dict(ms=ms, net=net, setup=host_setup(S),
                          xs=rk.xs.cpu().numpy(), stats=stats, scale=scale,
                          cols=[cc.index_of(k) for k in (na, nb) if k],
-                         **bound)
+                         cycles_per_iteration=sum(rk.phases.values())
+                         / max(stats[2], 1),
+                         solve_cycles_per_pivot=solve_cyc / cc.n, **bound)
         if name in TWIN_ON_CARD:
             t = time.perf_counter()
             rp = vt.integrate_plain(S)
@@ -2225,7 +2259,8 @@ def bbd_k1_rows(card, pg):
                          8)
         shape = f"f64 n={n} k={k} b={b}"
         print(f"K1 at the power grid's {what} {shape} "
-              f"({variant(n, k)}): |kernel - plain| / max {err:.3e}; kernel "
+              f"({variant(n, k, 8, b)}): |kernel - plain| / max {err:.3e}; "
+              f"kernel "
               f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
               f"torch.linalg.solve_ex {library_ms * 1e3:.1f} us; bound "
               f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) "
@@ -2689,6 +2724,10 @@ def main():
                 "ladder_shape": AC_LADDER_ROW,
                 "ladder_ms": cases[AC_LADDER_ROW]["ms"],
                 "ladder_library_ms": cases[AC_LADDER_ROW]["library_ms"],
+                "block_rows": {row: {k: cases[row][k] for k in (
+                    "ms", "block_ms", "grid_ms", "library_ms", "plain_ms",
+                    "bound_ms", "bound_by", "max_abs_err")}
+                    for row in BLOCK_ROWS},
                 "bbd": {what: {k: r[k] for k in ("shape", "ms", "bound_ms",
                                                  "library_ms", "plain_ms")}
                         for what, r in bbd_rows.items()},
@@ -2700,7 +2739,11 @@ def main():
                 "max_abs_err": k2d["max_abs_err"], "ms": k2d["ms"],
                 "plain_ms": k2d["plain_ms"], "bound_ms": k2d["bound_ms"],
                 "bound_us": k2d["bound_ms"] * 1e3,
-                "bound_by": k2d["bound_by"], "library_ms": None}]
+                "bound_by": k2d["bound_by"], "library_ms": None,
+                "ladder_cycles_per_iteration":
+                    twin["ladder"]["cycles_per_iteration"],
+                "ladder_solve_cycles_per_pivot":
+                    twin["ladder"]["solve_cycles_per_pivot"]}]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

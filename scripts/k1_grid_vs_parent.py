@@ -1,21 +1,30 @@
-"""K1's grid variant against an earlier tree's, on one card, in turns.
+"""K1's block and grid variants against an earlier tree's, on one card, in
+turns.
 
     git archive <commit> cadnip_tpu_torch | tar -x -C scratch/parent
     python scripts/k1_grid_vs_parent.py scratch/parent
 
 Loads the earlier tree's `cadnip_tpu_torch` (under the name `parent_port`,
 built from its own csrc/ into its own build/) beside this tree's, and times
-`gj_solve` of both at the grid variant's shapes on the main paths: the
-125-section ladder's AC sweep [801, 254, 255], the power grid's Schur
-solve [1, 973, 974] and its nested level's [1, 241, 242], and [1, 1024,
-1025], [1, 512, 513], [1, 1536, 1537] (the BBD threshold) and [1, 1900,
-1901] (the panel in L2). Each shape is timed parent, this tree, this tree,
-parent (CUDA events over a loop of launches, after a warm-up), beside
-`torch.linalg.solve_ex` and the bound (bytes once in, once out over 3.35
-TB/s, or an LU solve's 2n^3/3 + 2n^2 k operations over 67 TFLOP/s f64,
-the larger). Checks this tree's result against its blocked plain twin, and
-counts its launches (one per call). Prints one line per shape, the card's
-name and power limit, and a JSON line of the rows. Needs a CUDA card.
+`gj_solve` of both: at the shapes one block's shared memory holds (the
+DFF's AC sweep [801, 38, 39], the nested BBD level's block solves [10,
+104, 190], [64, 128, 129], [1, 160, 161] and [1, 167, 168]), where this
+tree's block and grid variants are also timed forced; and at the grid
+variant's shapes on the main paths: the 125-section ladder's AC sweep
+[801, 254, 255], the power grid's Schur solve [1, 973, 974] and its
+nested level's [1, 241, 242], and [1, 1024, 1025], [1, 512, 513], [1,
+1536, 1537] (the BBD threshold) and [1, 1900, 1901] (the panel in L2).
+Each shape is timed parent, this tree, this tree, parent (CUDA events over
+a loop of launches, after a warm-up), beside `torch.linalg.solve_ex` and
+the bound (bytes once in, once out over 3.35 TB/s, or an LU solve's
+2n^3/3 + 2n^2 k operations over 67 TFLOP/s f64, the larger). Checks this
+tree's result against its blocked plain twin, and counts its launches (one
+per call). Then kernel K2 of both trees, in the same turns, on
+chip_smoke.py's phase-6 circuits (the 125-section RC ladder, whose Newton
+solve is K1's block form, and the DFF, graetz and the darlington, whose
+is the warp form): cycles per Newton iteration and step counts. Prints one
+line per shape and circuit, the card's name and power limit, and a JSON
+line of the rows. Needs a CUDA card.
 """
 import argparse
 import importlib.util
@@ -29,8 +38,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-#: (batch, n, k, what): the grid variant's shapes on the main paths
-SHAPES = [(801, 254, 1, "ladder AC sweep (phase 8c)"),
+#: (batch, n, k, what): the shapes one block holds, then the grid variant's
+#: shapes on the main paths
+SHAPES = [(801, 38, 1, "DFF AC and noise sweeps (phases 8c, 12)"),
+          (10, 104, 86, "nested BBD block solves (phase 15)"),
+          (64, 128, 1, "no path"),
+          (1, 160, 1, "no path"),
+          (1, 167, 1, "the largest system one block holds, no path"),
+          (801, 254, 1, "ladder AC sweep (phase 8c)"),
           (1, 973, 1, "power grid Schur solve (phase 15)"),
           (1, 241, 1, "nested Schur solve (phase 15)"),
           (1, 1024, 1, "gjpl32ir ceiling, no path"),
@@ -94,7 +109,7 @@ def main():
         A = torch.as_tensor(rng.standard_normal((b, n, n)) / np.sqrt(n)
                             + 2.0 * np.eye(n), device="cuda")
         B = torch.as_tensor(rng.standard_normal((b, n, k)), device="cuda")
-        assert K1.variant(n, k) == "grid"
+        in_block = K1.block_bytes(n, k) <= K1.MAX_SMEM
         before = K1.gj_solve.launches
         X = K1.gj_solve(A, B)
         launches = K1.gj_solve.launches - before
@@ -107,20 +122,75 @@ def main():
         new = [cuda_ms(lambda: K1.gj_solve(A, B), reps) for _ in range(2)]
         old.append(cuda_ms(lambda: parent.gj_solve(A, B), reps))
         lib = cuda_ms(lambda: torch.linalg.solve_ex(A, B), reps)
+        forced = {w: cuda_ms(lambda: K1.launch(A, B, w), reps) * 1e3
+                  for w in (("block", "grid") if in_block else ())}
         bms, by = bound_ms(b, n, k)
-        row = dict(shape=[b, n, n + k], what=what, plan=K1.grid_plan(A, B)[:3],
+        which = K1.variant(n, k, 8, b)
+        plan = (K1.block_plan(b, n, k) if which == "block"
+                else K1.grid_plan(A, B)[:3])
+        row = dict(shape=[b, n, n + k], what=what, variant=which, plan=plan,
                    parent_us=[t * 1e3 for t in old],
-                   new_us=[t * 1e3 for t in new], solve_ex_us=lib * 1e3,
-                   bound_us=bms * 1e3, bound_by=by, launches_per_call=launches,
-                   err=err, no_slower_than_solve_ex=max(new) <= lib)
+                   new_us=[t * 1e3 for t in new], forced_us=forced,
+                   solve_ex_us=lib * 1e3, bound_us=bms * 1e3, bound_by=by,
+                   launches_per_call=launches, err=err,
+                   no_slower_than_solve_ex=max(new) <= lib)
         rows.append(row)
-        print(f"[{b}, {n}, {n}+{k}] {what}: plan {row['plan']}; parent "
-              f"{old[0] * 1e3:.1f} / {old[1] * 1e3:.1f} us, this tree "
-              f"{new[0] * 1e3:.1f} / {new[1] * 1e3:.1f} us, solve_ex "
+        extra = "".join(f", {w} forced {t:.1f} us" for w, t in forced.items())
+        print(f"[{b}, {n}, {n}+{k}] {what}: {which} variant, plan {plan}; "
+              f"parent {old[0] * 1e3:.1f} / {old[1] * 1e3:.1f} us, this tree "
+              f"{new[0] * 1e3:.1f} / {new[1] * 1e3:.1f} us{extra}, solve_ex "
               f"{lib * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}); "
               f"{launches} launch per call; vs twin {err:.2e}", flush=True)
+    k2 = k2_rows(parent)
     print(card)
-    print(json.dumps({"card": card, "rows": rows}))
+    print(json.dumps({"card": card, "rows": rows, "k2": k2}))
+
+
+#: K2's cases (chip_smoke.py phase 6): the 125-section RC ladder takes the
+#: block solve, the others the warp solve
+K2_CASES = (("ladder", (0, 5e-6), 2e-7), ("dff", (0, 6e-8), 3.333e-10),
+            ("graetz", (0, 2e-2), 1e-4), ("darlington", (0, 1e-6), 2e-9))
+
+
+def k2_rows(parent):
+    """K2 of both trees on each K2_CASES circuit, in turns (parent, this
+    tree, this tree, parent): clock64 cycles per Newton iteration (the
+    kernel's own phase counters, which do not move with the card's clock)
+    and the step counts."""
+    import chip_smoke
+    import cadnip_tpu_torch as ct
+    import parent_port
+    from cadnip_tpu_torch.models.vacask import DARLINGTON, GRAETZ
+    from cadnip_tpu_torch.ops import vmem_tran as vt
+    import parent_port.ops.vmem_tran as pvt
+    nets = {"ladder": chip_smoke.rc_ladder(125), "dff": ct.dff_netlist(),
+            "graetz": GRAETZ, "darlington": DARLINGTON}
+    rows = []
+    for name, span, dt in K2_CASES:
+        runs = {}
+        for tree, pkg, mod in (("parent", parent_port, pvt),
+                               ("this", ct, vt), ("this", ct, vt),
+                               ("parent", parent_port, pvt)):
+            S = mod.prepare(pkg.parse_spice(nets[name], device="cuda"), span,
+                            dt=dt)
+            r = mod.integrate(S)
+            nn = int(r.stats[2])
+            runs.setdefault(tree, []).append(
+                (sum(r.phases.values()) / max(nn, 1),
+                 tuple(int(v) for v in r.stats[:3])))
+        row = dict(circuit=name, n=S.cc.n,
+                   parent_cycles=[c for c, _ in runs["parent"]],
+                   cycles=[c for c, _ in runs["this"]],
+                   parent_counts=runs["parent"][0][1],
+                   counts=runs["this"][0][1])
+        rows.append(row)
+        print(f"K2 {name} (n = {row['n']}): cycles per Newton iteration "
+              f"parent {row['parent_cycles'][0]:.0f} / "
+              f"{row['parent_cycles'][1]:.0f}, this tree "
+              f"{row['cycles'][0]:.0f} / {row['cycles'][1]:.0f}; accepted, "
+              f"rejected, newton parent {row['parent_counts']}, this tree "
+              f"{row['counts']}", flush=True)
+    return rows
 
 
 if __name__ == "__main__":

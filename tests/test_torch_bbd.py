@@ -21,7 +21,7 @@ from cadnip_tpu_torch.mna.assemble import make_assembler, pad_state
 from cadnip_tpu_torch.mna.bbd_assemble import (make_bbd_assembler,
                                                 nested_border_partition)
 from cadnip_tpu_torch.ops.bbd import bbd_matvec, make_bbd_solver
-from cadnip_tpu_torch.ops.gj_solve import (MAX_SMEM, gj_solve,
+from cadnip_tpu_torch.ops.gj_solve import (MAX_SMEM, block_bytes, gj_solve,
                                            gj_solve_blocked_plain,
                                            gj_solve_plain, grid_plan, launch,
                                            variant)
@@ -252,12 +252,19 @@ def test_lm_rescue_refuses_bbd():
 
 @pytest.mark.parametrize("itemsize", [8, 4])
 def test_variant_grid_exactly_beyond_shared_memory(itemsize):
+    # the block variant's least footprint: the system at an odd row stride
+    # and the blocked elimination's work area (csrc/gj_solve.cu block_smem
+    # with 16 columns of Z)
+    # (a batch that covers the card: no small-batch rule)
     for n in range(33, 400):
         for k in (1, 2, n):
-            fits = itemsize * n * (n + k) <= MAX_SMEM
-            assert variant(n, k, itemsize) == ("block" if fits else "grid")
-    # f64, one right-hand side: n = 169 is the last block system
-    assert variant(169, 1) == "block" and variant(170, 1) == "grid"
+            fits = block_bytes(n, k, itemsize) <= MAX_SMEM
+            assert variant(n, k, itemsize, 801) == ("block" if fits
+                                                    else "grid")
+    # f64, one right-hand side: n = 167 is the last block system
+    assert variant(167, 1, 8, 801) == "block"
+    assert variant(168, 1, 8, 801) == "grid"
+    assert block_bytes(167, 1) == 231656 <= MAX_SMEM == 232448
 
 
 @pytest.mark.parametrize("n", [200, 300])
@@ -303,7 +310,7 @@ def test_grid_variant_gives_the_block_bits_on_gpu(cuda, b):
     # block variant's elimination: the two agree to rounding (1e-12 of the
     # solution in f64, 1e-4 in f32), and two grid calls give the same bits
     At, Bt = _system(160, 1, b, 160, cuda)
-    assert variant(160, 1) == "block"
+    assert variant(160, 1, 8, 801) == "block"
     Xg = launch(At, Bt, "grid")
     assert _rel(Xg.cpu(), launch(At, Bt, "block").cpu()) <= 1e-12
     assert torch.equal(Xg, launch(At, Bt, "grid"))

@@ -4,7 +4,9 @@ full-f64 `gauss_solve`, the wrapper's argument checks, and the derivative
 rules of `GJSolve` (jvp, vjp, vmap) against autodiff of the twin and of
 `jnp.linalg.solve`, and the choice between the kernel's warp and block
 variants. The CUDA kernel itself runs only on the card (the `gpu`
-marker)."""
+marker): there the warp variant is held to `gj_solve_plain`, and the block
+variant at the same shapes to `gj_solve_blocked_plain` (the two forms sum
+in other orders, so they agree to rounding, not bit for bit)."""
 import jax
 import numpy as np
 import pytest
@@ -14,8 +16,9 @@ from torch.func import jacfwd, jvp, vjp
 
 from cadnip_tpu.ops.linalg import gauss_solve
 from cadnip_tpu.ops.pallas_solve import gj_solve_f32
-from cadnip_tpu_torch.ops.gj_solve import (GJSolve, gj_solve, gj_solve_plain,
-                                           launch, variant)
+from cadnip_tpu_torch.ops.gj_solve import (GJSolve, gj_solve,
+                                           gj_solve_blocked_plain,
+                                           gj_solve_plain, launch, variant)
 
 torch.set_num_threads(1)
 
@@ -227,12 +230,20 @@ def test_cuda_derivative_rules_match_plain_twin():
             assert _rel(g, gp) <= 1e-12
 
 
-@pytest.mark.parametrize("n, k, want", [
-    (19, 1, "warp"), (19, 19, "warp"), (32, 1, "warp"),
-    (33, 1, "block"), (128, 1, "block"), (19, 64, "block")])
-def test_variant_choice(n, k, want):
-    # one row per lane (n <= 32), the augmented row in <= 64 registers
-    assert variant(n, k) == want
+@pytest.mark.parametrize("n, k, batch, want", [
+    (19, 1, 1, "warp"), (19, 19, 1, "warp"), (32, 1, 4096, "warp"),
+    (33, 1, 1, "block"), (128, 1, 1, "block"), (19, 64, 1, "block"),
+    (38, 1, 801, "block"), (128, 1, 64, "block"), (104, 40, 10, "block"),
+    (167, 1, 801, "block"), (168, 1, 801, "grid"), (160, 20, 801, "grid"),
+    # a small batch of wide systems: the grid variant's team is faster
+    (104, 86, 10, "grid"), (160, 1, 1, "grid"), (144, 1, 64, "grid"),
+    (144, 1, 65, "block"), (143, 1, 1, "block")])
+def test_variant_choice(n, k, batch, want):
+    # one row per lane (n <= 32), the augmented row in <= 64 registers;
+    # then the system at an odd row stride and the blocked elimination's
+    # work area in one block's shared memory (n = 167 the last at k = 1),
+    # but for batches of at most 64 systems of n + k >= 145 columns
+    assert variant(n, k, 8, batch) == want
 
 
 @pytest.fixture
@@ -243,20 +254,23 @@ def cuda():
 
 
 def _variants_agree(At, Bt):
-    """The warp variant against the block variant (the same arithmetic:
-    0 expected, 1e-14 relative allowed) and against the plain twin."""
+    """The warp variant against its twin `gj_solve_plain` (1e-10 in f64:
+    the kernel's FMAs), and the block variant at the same shape against
+    its twin `gj_solve_blocked_plain` (chip_smoke.py's GRID_BLOCK_TOL,
+    1e-12); the same NaN pattern each. The two forms sum in other orders,
+    so they are held to their twins, not to each other's bits."""
     def amax(t):
         return float(t.abs().max()) if t.numel() else 0.0
 
-    Xw, Xb = launch(At, Bt, "warp"), launch(At, Bt, "block")
-    assert torch.equal(torch.isnan(Xw), torch.isnan(Xb))
-    fin = torch.isfinite(Xb)
-    scale = max(amax(Xb[fin]), 1.0)
-    assert amax((Xw - Xb)[fin]) <= 1e-14 * scale
-    Xp = gj_solve_plain(At, Bt)
-    assert torch.equal(torch.isnan(Xw), torch.isnan(Xp))
-    tol = 1e-10 if At.dtype == torch.float64 else 1e-4
-    assert amax((Xw - Xp)[fin]) <= tol * scale
+    f64 = At.dtype == torch.float64
+    for which, twin, tol in (("warp", gj_solve_plain, 1e-10 if f64 else 1e-4),
+                             ("block", gj_solve_blocked_plain,
+                              1e-12 if f64 else 1e-4)):
+        X, Xp = launch(At, Bt, which), twin(At, Bt)
+        assert torch.equal(torch.isnan(X), torch.isnan(Xp)), which
+        fin = torch.isfinite(Xp)
+        scale = max(amax(Xp[fin]), 1.0)
+        assert amax((X - Xp)[fin]) <= tol * scale, which
 
 
 @pytest.mark.gpu

@@ -291,6 +291,26 @@ def test_phase_slots_match_the_kernel():
         == vt.WARP_SOLVE_MAX
 
 
+def test_block_solve_layout_matches_the_kernel():
+    """The host's block size is the kernel's (its block solve is compiled
+    for that many threads), and above the warp solve the shared memory it
+    sizes holds the blocked elimination's work area: K1's, for n + 1
+    columns and every trailing column of the first panel."""
+    cu = open(os.path.join(CSRC, "vmem_tran.cu")).read()
+    assert int(re.search(r"K2_THREADS = (\d+);", cu).group(1)) == vt._THREADS
+    from cadnip_tpu_torch.ops.gj_solve import PANEL, block_work_bytes
+    for n in (vt.WARP_SOLVE_MAX, vt.WARP_SOLVE_MAX + 1, 64, vt.MAX_UNKNOWNS):
+        plain = 8 * (n * (n + 1) + vt._N_VECTORS * (n + 1))
+        if n <= vt.WARP_SOLVE_MAX:
+            assert vt.smem_bytes(n) == plain
+        else:
+            zw = -(-(n + 1 - PANEL) // PANEL) * PANEL
+            assert zw >= n + 1 - PANEL and zw % PANEL == 0
+            assert vt.smem_bytes(n) == plain + 8 * n * (n % 2) \
+                + block_work_bytes(n, zw, 8)
+    assert vt.smem_bytes(vt.MAX_UNKNOWNS) == 167912
+
+
 def test_cuda_circuit_needs_the_kernel():
     """A circuit on a device the kernel does not serve is refused, not
     handed to the twin."""
