@@ -69,6 +69,18 @@
 //   with one cluster barrier per pivot, measured 1.9-3.0x slower on the H100
 //   (PERF.md).
 //
+// * gj_rule_warp_* and gj_rule_*: K1's derivative rules (ops/gj_solve.py::
+//   GJSolve), one launch each, in the warp and the block form. The tangent
+//   (mode 1) forms R = dB - dA X while it stages the right-hand side (the
+//   warp form one element per lane in shared memory, the block form one per
+//   thread), then eliminates [A | R] and writes dX. The adjoint (mode 2)
+//   reads A by the transposed strides the caller passes (no copy of A^T),
+//   solves A^T gB = gX, writes gB and, in its epilogue, gA = -gB X^T from
+//   gB in shared memory. The grid variant's rules form R and gA with torch
+//   products around its solve (ops/gj_solve.py). What bounds them is the
+//   solve's: R and gA add n^2 k multiply-adds per system, and n^2 outputs
+//   (gA) beside the solve's n k.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (plain C interface, bound by ctypes)
 // The elimination is written as an FMA; the plain PyTorch twins round the
@@ -84,17 +96,68 @@ namespace {
 
 constexpr int WARPS = 4;   // systems per block of the warp entry
 
+// The derivative rules' modes (ops/gj_solve.py: TANGENT, ADJOINT).
+enum RuleMode { SOLVE = 0, TANGENT = 1, ADJOINT = 2 };
+
+// A rule's operands beside [A | B]: the forward solution X [n][k] of each
+// system and, for the tangent, A's tangent dA [n][n] (strides in elements,
+// batch first); for the adjoint, gA [n][n] per system, contiguous, or null
+// where A's cotangent is not wanted. The tangent's B is dB, which may be
+// null (no tangent of B); the adjoint's B is gX and its A comes by A's
+// transposed strides.
+template <typename T>
+struct Rule {
+  int mode;
+  const T* X;
+  long long sxb, sxr, sxc;
+  const T* dA;
+  long long sdb, sdr, sdc;
+  T* gA;
+};
+
+// The tangent's right-hand side of system b, element (i, c):
+// dB[i][c] - sum_j dA[i][j] X[j][c], the sum in order j = 0, 1, ... as
+// fused multiply-adds.
+template <typename T>
+__device__ __forceinline__ T tangent_rhs(const Rule<T>& rule, long long b,
+                                         const T* Bb, long long sbr,
+                                         long long sbc, int n, int i, int c) {
+  T v = Bb != nullptr ? Bb[i * sbr + c * sbc] : T(0);
+  const T* dAi = rule.dA + b * rule.sdb + i * rule.sdr;
+  const T* Xc = rule.X + b * rule.sxb + c * rule.sxc;
+  for (int j = 0; j < n; ++j) v = fma(-dAi[j * rule.sdc], Xc[j * rule.sxr], v);
+  return v;
+}
+
+// The adjoint's epilogue for system b: gA[i][j] = -sum_c gB[i][c] X[j][c],
+// gB[i][c] at gb[gslot(i) * ld + c] (shared memory), over threads
+// t0, t0 + nt, ... of the caller; row-major, so the writes coalesce.
+template <typename T, typename Slot>
+__device__ __forceinline__ void adjoint_ga(const Rule<T>& rule, long long b,
+                                           const T* gb, int ld, Slot gslot,
+                                           int n, int k, int t0, int nt) {
+  T* gAb = rule.gA + b * (long long)n * n;
+  const T* Xb = rule.X + b * rule.sxb;
+  for (int e = t0; e < n * n; e += nt) {
+    const int i = e / n, j = e - i * n;
+    const T* g = gb + gslot(i) * ld;
+    T s = T(0);
+    for (int c = 0; c < k; ++c) s = fma(g[c], Xb[j * rule.sxr + c * rule.sxc], s);
+    gAb[e] = -s;
+  }
+}
+
 // The block variant: one block of NTH threads per system, the batch over
 // the grid; the system [n][ld] (ld = gjb::smem_ld(n + k)) and the work
 // area of gjb::eliminate_smem in dynamic shared memory, the work area
 // first. Below 256 threads, registers for 512 threads an SM at least, so
 // that a batch's systems share an SM.
-template <typename T, int NTH>
+template <typename T, int NTH, bool RULE>
 __global__ void __launch_bounds__(NTH, NTH < 256 ? 512 / NTH : 1)
     gj_block_kernel(const T* __restrict__ A, long long sab, long long sar,
                     long long sac, const T* __restrict__ Bm, long long sbb,
                     long long sbr, long long sbc, T* __restrict__ X, int n,
-                    int k, int zw) {
+                    int k, int zw, Rule<T> rule) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int m = n + k, ld = gjb::smem_ld(m);
   const gjb::SmemWork<T> w = gjb::smem_work<T>(smem_raw, n, zw);
@@ -102,21 +165,39 @@ __global__ void __launch_bounds__(NTH, NTH < 256 ? 512 / NTH : 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long b = blockIdx.x;
   const T* Ab = A + b * sab;
-  const T* Bb = Bm + b * sbb;
+  const T* Bb = Bm == nullptr ? nullptr : Bm + b * sbb;
+  const bool tangent = RULE && rule.mode == TANGENT;
   for (int i = warp; i < n; i += NTH / 32) {
-    for (int j = lane; j < m; j += 32) {
+    for (int j = lane; j < (tangent ? n : m); j += 32) {
       ab[i * ld + j] = j < n ? Ab[i * sar + j * sac]
                              : Bb[i * sbr + (j - n) * sbc];
+    }
+  }
+  if (tangent) {
+    // R = dB - dA X, one element per thread
+    for (int e = tid; e < n * k; e += NTH) {
+      const int i = e / k, c = e - i * k;
+      ab[i * ld + n + c] = tangent_rhs(rule, b, Bb, sbr, sbc, n, i, c);
     }
   }
   __syncthreads();
   gjb::eliminate_smem<NTH>(ab, n, m, ld, w);
   // X[j] = the B part of step j's pivot row / its pivot, [n][k] per system
   T* Xb = X + b * (long long)n * k;
+  const bool ga = RULE && rule.mode == ADJOINT && rule.gA != nullptr;
   for (int j = warp; j < n; j += NTH / 32) {
-    const T* row = ab + w.ps[j] * ld + n;
+    T* row = ab + w.ps[j] * ld + n;
     const T d = w.dg[j];
-    for (int c = lane; c < k; c += 32) Xb[j * k + c] = row[c] / d;
+    for (int c = lane; c < k; c += 32) {
+      const T q = row[c] / d;
+      Xb[j * k + c] = q;
+      if (ga) row[c] = q;   // gB in place, for gA
+    }
+  }
+  if (ga) {
+    __syncthreads();
+    adjoint_ga(rule, b, ab + n, ld, [&](int i) { return w.ps[i]; }, n, k, tid,
+               NTH);
   }
 }
 
@@ -124,12 +205,12 @@ __global__ void __launch_bounds__(NTH, NTH < 256 ? 512 / NTH : 1)
 // consecutive rows hit distinct banks.
 __host__ __device__ inline int stage_ld(int m) { return m | 1; }
 
-template <typename T, int MC>
+template <typename T, int MC, bool RULE>
 __global__ void __launch_bounds__(WARPS * 32)
     gj_warp_kernel(const T* __restrict__ A, long long sab, long long sar,
                    long long sac, const T* __restrict__ Bm, long long sbb,
                    long long sbr, long long sbc, T* __restrict__ X,
-                   long long batch, int n, int k) {
+                   long long batch, int n, int k, Rule<T> rule) {
   extern __shared__ unsigned char smem_raw[];
   const int m = n + k, ld = stage_ld(m);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -137,14 +218,17 @@ __global__ void __launch_bounds__(WARPS * 32)
   if (b >= batch) return;   // the ragged last block: whole warps retire
   T* st = reinterpret_cast<T*>(smem_raw) + (size_t)warp * n * ld;
   const T* Ab = A + b * sab;
-  const T* Bb = Bm + b * sbb;
+  const T* Bb = Bm == nullptr ? nullptr : Bm + b * sbb;
   for (int e = lane; e < n * n; e += 32) {
     const int i = e / n, j = e - i * n;
     st[i * ld + j] = Ab[i * sar + j * sac];
   }
   for (int e = lane; e < n * k; e += 32) {
     const int i = e / k, c = e - i * k;
-    st[i * ld + n + c] = Bb[i * sbr + c * sbc];
+    st[i * ld + n + c] =
+        RULE && rule.mode == TANGENT
+            ? tangent_rhs(rule, b, Bb, sbr, sbc, n, i, c)
+            : Bb[i * sbr + c * sbc];
   }
   __syncwarp();
   T a[MC];
@@ -153,20 +237,33 @@ __global__ void __launch_bounds__(WARPS * 32)
     a[j] = (lane < n && j < m) ? st[lane * ld + j] : T(0);
   int r = lane;
   gj::eliminate_warp<T, MC>(a, r, n);
-  if (lane >= n) return;
-  const T d = gj::column(a, gj::rotated<MC>(r, n));
-  T* Xr = X + b * (long long)n * k + (long long)r * k;
+  const bool ga = RULE && rule.mode == ADJOINT && rule.gA != nullptr;
+  if (lane < n) {
+    const T d = gj::column(a, gj::rotated<MC>(r, n));
+    T* Xr = X + b * (long long)n * k + (long long)r * k;
+    // column n + j of the B part is in slot j; gB's row r to the staging
+    // area (read before the elimination) for gA
 #pragma unroll
-  for (int j = 0; j < MC; ++j)   // column n + j of the B part is in slot j
-    if (j < k) Xr[j] = a[j] / d;
+    for (int j = 0; j < MC; ++j) {
+      if (j < k) {
+        const T q = a[j] / d;
+        Xr[j] = q;
+        if (ga) st[r * ld + j] = q;
+      }
+    }
+  }
+  if (ga) {
+    __syncwarp();
+    adjoint_ga(rule, b, st, ld, [](int i) { return i; }, n, k, lane, 32);
+  }
 }
 
-template <typename T>
+template <typename T, bool RULE>
 const void* block_kernel(int threads) {
   switch (threads) {
-    case 64: return (const void*)gj_block_kernel<T, 64>;
-    case 128: return (const void*)gj_block_kernel<T, 128>;
-    case 256: return (const void*)gj_block_kernel<T, 256>;
+    case 64: return (const void*)gj_block_kernel<T, 64, RULE>;
+    case 128: return (const void*)gj_block_kernel<T, 128, RULE>;
+    case 256: return (const void*)gj_block_kernel<T, 256, RULE>;
   }
   return nullptr;
 }
@@ -192,8 +289,9 @@ size_t block_smem(int n, int k, int zw) {
 // a slot per thread in the pivot chain). `want` > 0 forces 64, 128 or 256
 // (the tests). A system whose work area with zw = CW does not fit
 // one block's shared memory returns cudaErrorInvalidValue: the grid
-// variant takes it (ops/gj_solve.py::block_bytes mirrors the count).
-template <typename T>
+// variant takes it (ops/gj_solve.py::block_bytes mirrors the count). The
+// rule entries plan with their own kernel (RULE).
+template <typename T, bool RULE = false>
 int block_plan(long long batch, int n, int k, int want, int* threads,
                int* zw, size_t* smem, int* per_sm) {
   constexpr int CW = gjb::CW, NB = gjb::NB;
@@ -216,7 +314,7 @@ int block_plan(long long batch, int n, int k, int want, int* threads,
   *smem = block_smem<T>(n, k, cols);
   // blocks of t threads an SM holds at once
   auto resident = [&](int t, int* r) -> cudaError_t {
-    const void* fn = block_kernel<T>(t);
+    const void* fn = block_kernel<T, RULE>(t);
     if (fn == nullptr) return cudaErrorInvalidValue;
     const cudaError_t s = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
@@ -244,57 +342,61 @@ int block_plan(long long batch, int n, int k, int want, int* threads,
   return 0;
 }
 
-template <typename T>
+template <typename T, bool RULE = false>
 int launch(const void* A, long long sab, long long sar, long long sac,
            const void* Bm, long long sbb, long long sbr, long long sbc,
-           void* X, int batch, int n, int k, int threads, void* stream) {
+           void* X, int batch, int n, int k, int threads, void* stream,
+           Rule<T> rule = Rule<T>{}) {
   if (batch <= 0 || n <= 0 || k <= 0) return 0;
   int th = 0, zw = 0, per_sm = 0;
   size_t smem = 0;
   const int e =
-      block_plan<T>(batch, n, k, threads, &th, &zw, &smem, &per_sm);
+      block_plan<T, RULE>(batch, n, k, threads, &th, &zw, &smem, &per_sm);
   if (e != 0) return e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   void* args[] = {&A, &sab, &sar, &sac, &Bm, &sbb, &sbr, &sbc, &X, &n, &k,
-                  &zw};
+                  &zw, &rule};
   const cudaError_t le = cudaLaunchKernel(
-      block_kernel<T>(th), dim3((unsigned)batch), dim3((unsigned)th), args,
-      smem, (cudaStream_t)stream);
+      block_kernel<T, RULE>(th), dim3((unsigned)batch), dim3((unsigned)th),
+      args, smem, (cudaStream_t)stream);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MC>
+template <typename T, int MC, bool RULE>
 int launch_warp_sized(const void* A, long long sab, long long sar,
                       long long sac, const void* Bm, long long sbb,
                       long long sbr, long long sbc, void* X, int batch,
-                      int n, int k, void* stream) {
+                      int n, int k, void* stream, Rule<T> rule) {
   const size_t smem =
       sizeof(T) * (size_t)WARPS * (size_t)n * (size_t)stage_ld(n + k);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gj_warp_kernel<T, MC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        gj_warp_kernel<T, MC, RULE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((batch + WARPS - 1) / WARPS);
-  gj_warp_kernel<T, MC><<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(A), sab, sar, sac, static_cast<const T*>(Bm),
-      sbb, sbr, sbc, static_cast<T*>(X), batch, n, k);
+  gj_warp_kernel<T, MC, RULE>
+      <<<blocks, WARPS * 32, smem, (cudaStream_t)stream>>>(
+          static_cast<const T*>(A), sab, sar, sac, static_cast<const T*>(Bm),
+          sbb, sbr, sbc, static_cast<T*>(X), batch, n, k, rule);
   return (int)cudaGetLastError();
 }
 
 // The column bound MC: n + k rounded up to 8.
-template <typename T>
+template <typename T, bool RULE = false>
 int launch_warp(const void* A, long long sab, long long sar, long long sac,
                 const void* Bm, long long sbb, long long sbr, long long sbc,
-                void* X, int batch, int n, int k, void* stream) {
+                void* X, int batch, int n, int k, void* stream,
+                Rule<T> rule = Rule<T>{}) {
   if (batch <= 0 || n <= 0 || k <= 0) return 0;
   if (n > 32 || n + k > 64) return (int)cudaErrorInvalidValue;
 #define GJ_WARP(MC)                                                      \
   case MC / 8:                                                           \
-    return launch_warp_sized<T, MC>(A, sab, sar, sac, Bm, sbb, sbr, sbc, \
-                                    X, batch, n, k, stream);
+    return launch_warp_sized<T, MC, RULE>(A, sab, sar, sac, Bm, sbb, sbr, \
+                                          sbc, X, batch, n, k, stream,    \
+                                          rule);
   switch ((n + k + 7) / 8) {
     GJ_WARP(8) GJ_WARP(16) GJ_WARP(24) GJ_WARP(32)
     GJ_WARP(40) GJ_WARP(48) GJ_WARP(56) GJ_WARP(64)
@@ -648,6 +750,29 @@ int launch_grid(const void* A, long long sab, long long sar, long long sac,
                                           (cudaStream_t)stream);
 }
 
+// One rule launch, warp (warp != 0) or block form: the Rule from the C
+// entry's flat arguments.
+template <typename T>
+int launch_rule(int warp, int mode, const void* A, long long sab,
+                long long sar, long long sac, const void* Bm, long long sbb,
+                long long sbr, long long sbc, const void* X, long long sxb,
+                long long sxr, long long sxc, const void* dA, long long sdb,
+                long long sdr, long long sdc, void* out, void* gA, int batch,
+                int n, int k, int threads, void* stream) {
+  if (mode != TANGENT && mode != ADJOINT) return (int)cudaErrorInvalidValue;
+  if (mode == TANGENT && dA == nullptr) return (int)cudaErrorInvalidValue;
+  if (mode == ADJOINT && Bm == nullptr) return (int)cudaErrorInvalidValue;
+  const Rule<T> rule{mode,
+                     static_cast<const T*>(X), sxb, sxr, sxc,
+                     static_cast<const T*>(dA), sdb, sdr, sdc,
+                     static_cast<T*>(gA)};
+  if (warp)
+    return launch_warp<T, true>(A, sab, sar, sac, Bm, sbb, sbr, sbc, out,
+                                batch, n, k, stream, rule);
+  return launch<T, true>(A, sab, sar, sac, Bm, sbb, sbr, sbc, out, batch, n,
+                         k, threads, stream, rule);
+}
+
 }  // namespace
 
 extern "C" {
@@ -749,6 +874,34 @@ int gj_solve_grid_f32(const void* A, long long sab, long long sar,
   return launch_grid<float>(A, sab, sar, sac, Bm, sbb, sbr, sbc, X, work,
                             pslot, dgw, batch, n, k, entry, team, teams,
                             stream);
+}
+
+// K1's derivative rules, one launch each (see Rule): warp != 0 the warp
+// form (n <= 32 and n + k <= 64), else the block form (threads 0: the
+// plan's). mode 1, the tangent: Bm = dB (null: none), X the forward
+// solution, dA A's tangent, out = dX. mode 2, the adjoint: A by its
+// transposed strides, Bm = gX, X the forward solution, out = gB, gA the
+// cotangent of A (null: not wanted; contiguous [batch][n][n]).
+int gj_rule_f64(int warp, int mode, const void* A, long long sab,
+                long long sar, long long sac, const void* Bm, long long sbb,
+                long long sbr, long long sbc, const void* X, long long sxb,
+                long long sxr, long long sxc, const void* dA, long long sdb,
+                long long sdr, long long sdc, void* out, void* gA, int batch,
+                int n, int k, int threads, void* stream) {
+  return launch_rule<double>(warp, mode, A, sab, sar, sac, Bm, sbb, sbr, sbc,
+                             X, sxb, sxr, sxc, dA, sdb, sdr, sdc, out, gA,
+                             batch, n, k, threads, stream);
+}
+
+int gj_rule_f32(int warp, int mode, const void* A, long long sab,
+                long long sar, long long sac, const void* Bm, long long sbb,
+                long long sbr, long long sbc, const void* X, long long sxb,
+                long long sxr, long long sxc, const void* dA, long long sdb,
+                long long sdr, long long sdc, void* out, void* gA, int batch,
+                int n, int k, int threads, void* stream) {
+  return launch_rule<float>(warp, mode, A, sab, sar, sac, Bm, sbb, sbr, sbc,
+                            X, sxb, sxr, sxc, dA, sdb, sdr, sdc, out, gA,
+                            batch, n, k, threads, stream);
 }
 
 }  // extern "C"

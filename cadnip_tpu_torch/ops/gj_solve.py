@@ -25,11 +25,18 @@ order).
 
 `gj_solve` is differentiable, forward and reverse, through `GJSolve`
 (a `torch.autograd.Function` that `torch.func` transforms accept). Each
-derivative rule is one more K1 solve: the tangent dX = A^-1 (dB - dA X),
-the cotangents gB = A^-T gX and gA = -gB X^T. Under `vmap` the mapped
-axis folds into the kernel's right-hand-side columns (when A is shared)
-or into its batch grid, so a `jacfwd` over several parameters is still
-one launch per solve.
+derivative rule is one K1 launch: the tangent dX = A^-1 (dB - dA X) and
+the cotangents gB = A^-T gX, gA = -gB X^T, each with its products inside
+the kernel (`launch_tangent`, `launch_adjoint`; their plain twins
+`gj_tangent_plain`, `gj_adjoint_plain`). A rule computes on the tensors it
+is given, one transform level down where that level only carries primal
+values (`_rule_operands`), and goes back through `GJSolve.apply` only where
+an outer transform or autograd must see its arithmetic. Under `vmap` the
+mapped axis folds into the kernel's right-hand-side columns (when A is
+shared) or into its batch grid, so a `jacfwd` over several parameters is
+still one launch per solve. `GJSolve.apply` crosses functorch's dispatch
+once per solve, through a single-level function built once
+(`_GJSolveLevel`) rather than functorch's, which it builds on every call.
 
 Replaces the TPU kernel `cadnip_tpu/ops/pallas_solve.py::_gj_kernel`. In
 f64 it is the counterpart of the JAX package's full-f64 Gauss-Jordan
@@ -44,7 +51,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch._C._functorch as _ft
+from torch._functorch.autograd_function import custom_function_call
+from torch._functorch.pyfunctorch import retrieve_current_functorch_interpreter
 from torch.autograd import forward_ad
+from torch.autograd.forward_ad import _set_fwd_grad_enabled
+from torch.autograd.function import _SingleLevelFunction
 
 from ..config import DTYPE, F32
 from . import nvcc
@@ -81,6 +93,10 @@ def load_library():
     for fn in (lib.gj_solve_grid_f64, lib.gj_solve_grid_f32):
         fn.argtypes = [vp, ll, ll, ll, vp, ll, ll, ll, vp, vp, vp, vp, ll,
                        ci, ci, ci, ci, ci, vp]
+        fn.restype = ci
+    for fn in (lib.gj_rule_f64, lib.gj_rule_f32):
+        fn.argtypes = [ci, ci, vp, ll, ll, ll, vp, ll, ll, ll, vp, ll, ll, ll,
+                       vp, ll, ll, ll, vp, vp, ci, ci, ci, ci, vp]
         fn.restype = ci
     _lib = lib
     return lib
@@ -258,6 +274,22 @@ def plain_twin(A, B):
     return (gj_solve_plain if warp else gj_solve_blocked_plain)(A, B)
 
 
+def gj_tangent_plain(A, X, dA, dB):
+    """The tangent entry's function in torch ops: dX = A^-1 (dB - dA X)
+    for A, dA [b, n, n] and X, dB [b, n, k] (dB None: no tangent of B), the
+    right-hand side formed first, then `plain_twin`'s elimination."""
+    R = -(dA @ X) if dB is None else dB - dA @ X
+    return plain_twin(A, R)
+
+
+def gj_adjoint_plain(A, X, gX, want_gA=True):
+    """The adjoint entry's function in torch ops: (gA, gB) with
+    gB = A^-T gX (`plain_twin` on A's transposed view) and gA = -gB X^T
+    (None unless `want_gA`)."""
+    gB = plain_twin(A.transpose(-1, -2), gX)
+    return (-gB @ X.transpose(-1, -2) if want_gA else None), gB
+
+
 def block_plan(batch: int, n: int, k: int, dtype=DTYPE):
     """The block variant's plan on this card for `batch` [n, n + k]
     systems: (threads per block, columns of Z, shared memory bytes per
@@ -328,18 +360,184 @@ def launch(A, B, which=None, entry=None):
     return X
 
 
+#: the rule entries' modes (csrc/gj_solve.cu, RuleMode)
+TANGENT, ADJOINT = 1, 2
+
+
+def _launch_rule(mode, A, B, X, dA, out, gA, which):
+    """One launch of a rule entry (warp or block form) on CUDA tensors;
+    A is passed by its strides (the adjoint's, A's transposed view)."""
+    lib = load_library()
+    batch, n, _ = A.shape
+    k = X.shape[-1]
+    fn = lib.gj_rule_f64 if A.dtype == DTYPE else lib.gj_rule_f32
+    bp, bs = (0, (0, 0, 0)) if B is None else (B.data_ptr(), B.stride())
+    dp, ds = (0, (0, 0, 0)) if dA is None else (dA.data_ptr(), dA.stride())
+    err = fn(int(which == "warp"), mode, A.data_ptr(), *A.stride(), bp, *bs,
+             X.data_ptr(), *X.stride(), dp, *ds, out.data_ptr(),
+             0 if gA is None else gA.data_ptr(), batch, n, k, 0,
+             torch.cuda.current_stream(A.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gj_solve rule launch failed: cudaError {err}")
+    gj_solve.launches += 1
+    gj_solve.rule_launches += 1
+
+
+def launch_tangent(A, X, dA, dB, which=None):
+    """dX = A^-1 (dB - dA X) in one kernel launch on CUDA tensors A, dA
+    [b, n, n], X, dB [b, n, k] (dB None: no tangent of B; any strides): the
+    warp and block forms form the right-hand side while they stage it, the
+    grid variant takes it from a torch product. `which` forces a variant."""
+    batch, n, _ = A.shape
+    k = X.shape[-1]
+    which = which or variant(n, k, A.element_size(), batch)
+    if which == "grid":
+        return launch(A, -(dA @ X) if dB is None else dB - dA @ X, "grid")
+    dX = torch.empty((batch, n, k), dtype=A.dtype, device=A.device)
+    _launch_rule(TANGENT, A, dB, X, dA, dX, None, which)
+    return dX
+
+
+def launch_adjoint(A, X, gX, want_gA=True, which=None):
+    """(gA, gB): gB = A^-T gX and gA = -gB X^T (None unless `want_gA`) in
+    one kernel launch on CUDA tensors A [b, n, n], X, gX [b, n, k]; the
+    kernel reads A by its transposed strides and writes gA in its epilogue
+    (the grid variant: its solve, then a torch product). `which` forces a
+    variant."""
+    batch, n, _ = A.shape
+    k = X.shape[-1]
+    At = A.transpose(-1, -2)
+    which = which or variant(n, k, A.element_size(), batch)
+    if which == "grid":
+        gB = launch(At, gX, "grid")
+        return (-gB @ X.transpose(-1, -2) if want_gA else None), gB
+    gB = torch.empty((batch, n, k), dtype=A.dtype, device=A.device)
+    gA = torch.empty((batch, n, n), dtype=A.dtype,
+                     device=A.device) if want_gA else None
+    _launch_rule(ADJOINT, At, gX, X, None, gB, gA, which)
+    return gA, gB
+
+
+def _by_device(kernel, twin, *args):
+    """The kernel on a CUDA tensor, its plain twin on a CPU tensor."""
+    dev = args[0].device.type
+    if dev == "cuda":
+        return kernel(*args)
+    if dev == "cpu":
+        with torch.no_grad():
+            return twin(*args)
+    raise ValueError(f"gj_solve: unsupported device {args[0].device}")
+
+
+def _free(ts):
+    """Whether the kernel (or its twin) may take these tensors as they
+    are: none is a functorch wrapper, and autograd records none."""
+    grad = torch.is_grad_enabled()
+    return not any(t is not None and (_ft.is_functorch_wrapped_tensor(t)
+                                      or (grad and t.requires_grad))
+                   for t in ts)
+
+
+def _unwrap_dead(t):
+    """t without the wrappers of transforms that have exited (the tensors
+    torch.func.vjp saved)."""
+    while t is not None and _ft.is_functorch_wrapped_tensor(t) \
+            and _ft.is_dead_tensor_wrapper(t):
+        t = _ft.unwrap_if_dead(t)
+    return t
+
+
+def _rule_operands(ctx, ts, kind):
+    """A rule's operands without the wrappers it may drop, and the
+    interpreter of the level dropped (None if none): the dead wrappers,
+    then, where the innermost live transform is of the rule's `kind` (a
+    jvp level for the tangent, a grad level for the cotangent), that
+    level's own. Inside its rule that level carries primal values only, so
+    the rule computes one level down and wraps its results at the level
+    again (`_at_level`). The interpreter is the one `_GJSolveLevel` kept on
+    ctx where its level is that one."""
+    ts = tuple(_unwrap_dead(t) for t in ts)
+    top = _ft.peek_interpreter_stack()
+    if top is None or top.key() != kind:
+        return ts, None
+    level = top.level()
+    interp = getattr(ctx, "interp", None)
+    if interp is None or interp.level() != level:
+        interp = retrieve_current_functorch_interpreter()
+    return (tuple(None if t is None else _ft._unwrap_for_grad(t, level)
+                  for t in ts), interp)
+
+
+def _at_level(interp, fn, *args):
+    """fn(*args) one level below `interp` (as-is where it is None), under
+    the grad modes that level was entered with (as functorch passes an op
+    to the next level), its tensors wrapped at that level again."""
+    if interp is None:
+        return fn(*args)
+    with torch.enable_grad(), _set_fwd_grad_enabled(True), interp.lower():
+        out = fn(*args)
+    level = interp.level()
+    wrap = (lambda t: None if t is None else _ft._wrap_for_grad(t, level))
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _solve(A, B):
+    """X = A^-1 B: the kernel or its twin where the operands are free,
+    else through `GJSolve.apply`."""
+    if _free((A, B)):
+        return GJSolve.forward(A, B)
+    return GJSolve.apply(A, B)
+
+
+def _tangent(A, X, dA, dB):
+    """dX of a solve: one fused launch (or its twin) where the operands are
+    free, else the right-hand side by torch ops and one solve through
+    `GJSolve.apply`."""
+    if dA is None:
+        return _solve(A, dB)
+    if _free((A, X, dA, dB)):
+        return _by_device(launch_tangent, gj_tangent_plain, A, X, dA, dB)
+    return GJSolve.apply(A, -(dA @ X) if dB is None else dB - dA @ X)
+
+
+def _adjoint(A, X, gX, want_gA):
+    """(gA, gB) of a solve: one fused launch (or its twin) where the
+    operands are free, else one solve through `GJSolve.apply` on A's
+    transposed view and a torch product."""
+    if _free((A, X, gX)):
+        return _by_device(launch_adjoint, gj_adjoint_plain, A, X, gX,
+                          want_gA)
+    gB = GJSolve.apply(A.transpose(-1, -2), gX)
+    return (-gB @ X.transpose(-1, -2) if want_gA else None), gB
+
+
 class GJSolve(torch.autograd.Function):
-    """X = A^-1 B for A [b, n, n] and B [b, n, k], contiguous, with
-    derivative rules that are K1 solves themselves."""
+    """X = A^-1 B for A [b, n, n] and B [b, n, k] (any strides), with
+    derivative rules that are one K1 launch each."""
 
     @staticmethod
     def forward(A, B):
-        if A.device.type == "cuda":
-            return launch(A, B)
-        if A.device.type == "cpu":
-            with torch.no_grad():
-                return plain_twin(A, B)
-        raise ValueError(f"gj_solve: unsupported device {A.device}")
+        return _by_device(launch, plain_twin, A, B)
+
+    @classmethod
+    def apply(cls, A, B):
+        """`Function.apply` for (A, B) without its per-call binding of
+        `forward`'s signature. Under a grad or jvp transform, one crossing
+        through `_GJSolveLevel`; under vmap, functorch's dispatch."""
+        A, B = _unwrap_dead(A), _unwrap_dead(B)
+        top = _ft.peek_interpreter_stack()
+        if top is None:
+            return super(torch.autograd.Function, cls).apply(A, B)
+        if top.key() in (_ft.TransformType.Grad, _ft.TransformType.Jvp):
+            interp = retrieve_current_functorch_interpreter()
+            lift = interp._cptr.lift
+            allowed = _ft.get_single_level_autograd_function_allowed()
+            _ft.set_single_level_autograd_function_allowed(True)
+            try:
+                return _GJSolveLevel.apply(lift(A), lift(B), interp)
+            finally:
+                _ft.set_single_level_autograd_function_allowed(allowed)
+        return custom_function_call(cls, A, B)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -349,17 +547,15 @@ class GJSolve(torch.autograd.Function):
 
     @staticmethod
     def jvp(ctx, dA, dB):
-        A, X = ctx.saved_tensors
-        rhs = torch.zeros_like(X) if dB is None else dB
-        if dA is not None:
-            rhs = rhs - dA @ X
-        return GJSolve.apply(A, rhs.contiguous())
+        ops, interp = _rule_operands(ctx, ctx.saved_tensors + (dA, dB),
+                                     _ft.TransformType.Jvp)
+        return _at_level(interp, _tangent, *ops)
 
     @staticmethod
     def backward(ctx, gX):
-        A, X = ctx.saved_tensors
-        gB = GJSolve.apply(A.transpose(-1, -2).contiguous(), gX.contiguous())
-        return -gB @ X.transpose(-1, -2), gB
+        (A, X, gX), interp = _rule_operands(ctx, ctx.saved_tensors + (gX,),
+                                            _ft.TransformType.Grad)
+        return _at_level(interp, _adjoint, A, X, gX, ctx.needs_input_grad[0])
 
     @staticmethod
     def vmap(info, in_dims, A, B):
@@ -369,13 +565,42 @@ class GJSolve(torch.autograd.Function):
             # shared systems: the V mapped right-hand sides become columns
             Bv = B.movedim(dB, -1)
             b, n, k = Bv.shape[:3]
-            X = GJSolve.apply(A, Bv.reshape(b, n, k * V).contiguous())
+            X = _solve(A, Bv.reshape(b, n, k * V))
             return X.reshape(b, n, k, V).movedim(-1, 0), 0
         A = A.movedim(dA, 0)
         B = B.expand((V,) + B.shape) if dB is None else B.movedim(dB, 0)
-        X = GJSolve.apply(A.reshape((-1,) + A.shape[2:]).contiguous(),
-                          B.reshape((-1,) + B.shape[2:]).contiguous())
+        X = _solve(A.reshape((-1,) + A.shape[2:]),
+                   B.reshape((-1,) + B.shape[2:]))
         return X.reshape(B.shape), 0
+
+
+class _GJSolveLevel(_SingleLevelFunction):
+    """`GJSolve` at one grad or jvp transform level: what functorch's
+    `generate_single_level_function` (torch/_functorch/autograd_function.py)
+    builds anew on every call, built once. Its forward takes the level's
+    interpreter beside A and B, unwraps them at the level, solves one level
+    down and wraps X at the level; its rules are GJSolve's."""
+
+    @staticmethod
+    def forward(A, B, interp):
+        level = interp.level()
+        A, B = _ft._unwrap_for_grad(A, level), _ft._unwrap_for_grad(B, level)
+        with torch.enable_grad(), _set_fwd_grad_enabled(True), interp.lower():
+            X = _solve(A, B)
+        return _ft._wrap_for_grad(X, level)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        GJSolve.setup_context(ctx, inputs[:2], output)
+        ctx.interp = inputs[2]
+
+    @staticmethod
+    def jvp(ctx, dA, dB, _):
+        return GJSolve.jvp(ctx, dA, dB)
+
+    @staticmethod
+    def backward(ctx, gX):
+        return GJSolve.backward(ctx, gX) + (None,)
 
 
 def _derivative_may_flow(A, B):
@@ -420,3 +645,7 @@ def gj_solve(A, B):
 #: kernel launches since the last reset, every variant and the derivative
 #: rules included (plain-twin calls do not count)
 gj_solve.launches = 0
+#: launches of the fused rule entries (`launch_tangent`, `launch_adjoint`
+#: in the warp and block forms) since the last reset, also counted in
+#: `launches`
+gj_solve.rule_launches = 0

@@ -24,8 +24,13 @@ Phases, each of which raises (exit code != 0) on failure:
      and torch.linalg.solve_ex times from CUDA events beside the bound
      from the shape (bytes over 3.35 TB/s, or the operations of an LU
      solve over 67 TFLOP/s, FP64 or FP32);
-     then K1's derivative rules (jvp, vjp) against torch.func autodiff of
-     the twin, at the Newton, sensitivity and 4096-lane shapes;
+     then K1's derivative rules (jvp, vjp) through `gj_solve` against
+     torch.func autodiff of the twin, at the Newton, sensitivity and
+     4096-lane shapes, and each rule's fused entry (launch_tangent,
+     launch_adjoint: one launch, its products in the kernel) against its
+     twin; each rule's wall split into the device time of its two launches
+     (graph replay), the two bare calls and the rest (functorch's dispatch
+     and the route: the door);
   4. the host-loop path: parse_spice(dff_netlist(), device="cuda") then
      tran() over 0-600 ns, checked against the f64 golden
      tests/goldens/dff.npz, with K1's launch count proving that every
@@ -70,7 +75,8 @@ Phases, each of which raises (exit code != 0) on failure:
      chain, against the CPU;
  11. derivatives through K1: dc_sensitivity() of the DFF operating point
      (mno1.w, cq.c, vvdd.dc) and torch.func.jacfwd through tran() of an
-     RC, against the CPU (the worker's);
+     RC, against the CPU (the worker's), with the jacfwd's wall and its
+     rule calls and crossings of GJSolve.apply;
  12. the Verilog-A path: the EKV model compiled by the port, and the DFF
      with every MOSFET an ekv26 instance loaded by `.hdl`, through dc()
      and tran() over 0-300 ns on the card, every Newton solve a K1
@@ -150,6 +156,8 @@ TWIN_COUNT_TOL = 0.02  # K2 vs twin accepted / rejected / Newton counts
 TWIN_ON_CARD = ("graetz",)
 GRAETZ_TOL = 2e-3      # bench.py's golden gate for graetz (scale 20 V)
 DERIV_TOL = 1e-12      # K1 jvp / vjp vs autodiff of the twin, relative
+#: the kernels line's row of K1's rules: the jvp at the Monte Carlo's shape
+RULE_ROW = "jvp n=19 k=1 b=4096"
 #: K1's blocked form (block and grid variants) against its blocked twin on
 #: the card, and the block and grid variants against each other, relative:
 #: the kernels contract products into FMAs and sum the trailing product on
@@ -682,15 +690,24 @@ def rel_err(a, b):
 
 
 def k1_derivative_cases(card):
-    """Phase 3b: K1's jvp and vjp rules on the card against torch.func
-    autodiff of the plain twin on the same inputs; times beside the bound
-    and the same torch.func call on torch.linalg.solve (timed only). Each
-    rule reads A, B and one tangent or cotangent pair and writes X and its
-    derivative (2n^2 + 4nk numbers per system); it does one solve and two
-    more n^2 k products or triangular solves per column."""
+    """Phase 3b: K1's jvp and vjp rules through `gj_solve` on the card
+    against torch.func autodiff of the plain twin on the same inputs; times
+    beside the bound and the same torch.func call on torch.linalg.solve
+    (timed only). Each rule reads A, B and one tangent or cotangent pair and
+    writes X and its derivative (2n^2 + 4nk numbers per system); it does
+    one solve and two more n^2 k products or triangular solves per column.
+    Each rule's fused entry (the tangent: launch_tangent; the adjoint:
+    launch_adjoint) is held to its twin, and the rule's wall is split into
+    the device time of its two launches (the forward solve and the entry,
+    each a CUDA graph replay), the host time of the two bare calls, and the
+    door: the rest (functorch's dispatch and the route of the rule)."""
     import torch
     from torch.func import jvp, vjp
-    from cadnip_tpu_torch.ops.gj_solve import GJSolve, gj_solve_plain
+    from cadnip_tpu_torch.ops.gj_solve import (gj_adjoint_plain, gj_solve,
+                                               gj_solve_plain,
+                                               gj_tangent_plain,
+                                               launch_adjoint,
+                                               launch_tangent)
 
     rng = np.random.default_rng(5)
     out = {}
@@ -705,37 +722,61 @@ def k1_derivative_cases(card):
                    for a in (A, rng.standard_normal((b, n, n))))
         Bt, dBt, gXt = (torch.as_tensor(rng.standard_normal((b, n, k)),
                                         device="cuda") for _ in range(3))
+        X = gj_solve(At, Bt)
         runs = {
-            "jvp": (lambda: jvp(GJSolve.apply, (At, Bt), (dAt, dBt))[1],
+            "jvp": (lambda: jvp(gj_solve, (At, Bt), (dAt, dBt))[1],
                     lambda: jvp(gj_solve_plain, (At, Bt), (dAt, dBt))[1],
-                    lambda: jvp(torch.linalg.solve, (At, Bt), (dAt, dBt))[1]),
-            "vjp": (lambda: vjp(GJSolve.apply, At, Bt)[1](gXt),
+                    lambda: jvp(torch.linalg.solve, (At, Bt), (dAt, dBt))[1],
+                    lambda: launch_tangent(At, X, dAt, dBt),
+                    lambda: gj_tangent_plain(At, X, dAt, dBt)),
+            "vjp": (lambda: vjp(gj_solve, At, Bt)[1](gXt),
                     lambda: vjp(gj_solve_plain, At, Bt)[1](gXt),
-                    lambda: vjp(torch.linalg.solve, At, Bt)[1](gXt))}
+                    lambda: vjp(torch.linalg.solve, At, Bt)[1](gXt),
+                    lambda: launch_adjoint(At, X, gXt),
+                    lambda: gj_adjoint_plain(At, X, gXt))}
         name = f"n={n} k={k} b={b}"
         bound = roofline(8 * b * (2 * n * n + 4 * n * k),
                          b * (solve_flops(n, k) + 4 * n * n * k), 8)
-        for rule, (kern, plain, library) in runs.items():
+        reps = 20 if b > 1 else 100
+        solve_ms = cuda_time_ms(lambda: gj_solve(At, Bt), reps)
+        solve_dev_ms = graph_time_ms(lambda: gj_solve(At, Bt), reps)
+        for rule, (kern, plain, library, entry, twin) in runs.items():
             got, ref = kern(), plain()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
             err = max(rel_err(a, c) for a, c in zip(got, ref))
-            reps = 20 if b > 1 else 100
+            eg, et = entry(), twin()
+            eg = eg if isinstance(eg, tuple) else (eg,)
+            et = et if isinstance(et, tuple) else (et,)
+            entry_err = max(rel_err(a, c) for a, c in zip(eg, et))
+            entry_abs = max(float((a - c).abs().max())
+                            for a, c in zip(eg, et))
             ms = cuda_time_ms(kern, reps)
             plain_ms = cuda_time_ms(plain, min(reps, PLAIN_REPS))
             library_ms = cuda_time_ms(library, reps)
-            print(f"K1 {rule} {name}: max relative error {err:.3e}; kernel "
+            entry_ms = cuda_time_ms(entry, reps)
+            entry_dev_ms = graph_time_ms(entry, reps)
+            door_ms = ms - solve_ms - entry_ms
+            print(f"K1 {rule} {name}: max relative error {err:.3e}, fused "
+                  f"entry against its twin {entry_err:.3e}; kernel "
                   f"{ms * 1e3:.1f} us, twin {plain_ms * 1e3:.1f} us, "
                   f"torch.linalg.solve {library_ms * 1e3:.1f} us; "
                   f"{bound['bytes']} bytes, {bound['flops']} FLOP, bound "
-                  f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}) "
-                  f"[{card}]", flush=True)
-            if not err <= DERIV_TOL:
-                raise RuntimeError(f"K1 {rule} {name}: {err:.3e} > "
-                                   f"{DERIV_TOL:.0e}")
-            out[f"{rule} {name}"] = dict(max_rel_err=err, ms=ms,
-                                         plain_ms=plain_ms,
-                                         library_ms=library_ms, **bound)
+                  f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}); "
+                  f"split: device {(solve_dev_ms + entry_dev_ms) * 1e3:.1f} "
+                  f"us (solve {solve_dev_ms * 1e3:.1f} + entry "
+                  f"{entry_dev_ms * 1e3:.1f}), bare calls solve "
+                  f"{solve_ms * 1e3:.1f} + entry {entry_ms * 1e3:.1f} us, "
+                  f"door {door_ms * 1e3:.1f} us [{card}]", flush=True)
+            if not (err <= DERIV_TOL and entry_err <= DERIV_TOL):
+                raise RuntimeError(f"K1 {rule} {name}: {err:.3e}, entry "
+                                   f"{entry_err:.3e} > {DERIV_TOL:.0e}")
+            out[f"{rule} {name}"] = dict(
+                max_rel_err=err, entry_rel_err=entry_err,
+                entry_abs_err=entry_abs, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, entry_ms=entry_ms,
+                entry_device_ms=entry_dev_ms, solve_ms=solve_ms,
+                solve_device_ms=solve_dev_ms, door_ms=door_ms, **bound)
     return out
 
 
@@ -751,7 +792,8 @@ def k1_dff_jacobian_cases(card, cc, sol, tab):
     from cadnip_tpu_torch.analyses.sweeps import batch_params
     from cadnip_tpu_torch.mna.assemble import make_assembler, pad_state
     from cadnip_tpu_torch.mna.spec import MODE_TRANOP
-    from cadnip_tpu_torch.ops.gj_solve import GJSolve, gj_solve_plain
+    from cadnip_tpu_torch.ops.gj_solve import (GJSolve, gj_solve,
+                                               gj_solve_plain)
 
     assemble = make_assembler(cc)
     bp = batch_params(cc, tab)
@@ -768,8 +810,11 @@ def k1_dff_jacobian_cases(card, cc, sol, tab):
                                     device=cc.device) for _ in range(3))
     cond = np.linalg.cond(A.cpu().numpy())
     bound = JAC_DERIV_FACTOR * n * cond * np.finfo(np.float64).eps
+    torch.cuda.synchronize()
+    gj_solve.rule_launches = 0
     got = {"jvp": (jvp(GJSolve.apply, (A, Bt), (dA, dBt))[1],),
            "vjp": vjp(GJSolve.apply, A, Bt)[1](gXt)}
+    rule_launches = gj_solve.rule_launches
     ref = {"jvp": (jvp(gj_solve_plain, (A, Bt), (dA, dBt))[1],),
            "vjp": vjp(gj_solve_plain, A, Bt)[1](gXt)}
     out = {}
@@ -790,6 +835,12 @@ def k1_dff_jacobian_cases(card, cc, sol, tab):
             raise RuntimeError(f"K1 {rule} on DFF Jacobians: lane {worst} "
                                f"error {err[worst]:.3e} > {bound[worst]:.3e}")
         out[rule] = float(err.max())
+    print(f"K1 fused rule entries launched {rule_launches} times (one per "
+          f"rule) [{card}]", flush=True)
+    if rule_launches != 2:
+        raise RuntimeError(f"K1 rules on DFF Jacobians: {rule_launches} "
+                           f"fused entry launches, want 2")
+    out["rule_launches"] = rule_launches
     return out
 
 
@@ -1763,9 +1814,35 @@ def dff_sensitivity(dev):
             gj_solve.launches)
 
 
+def count_rule_calls():
+    """Wrap GJSolve's rules and its apply with counters: (counts, undo)."""
+    from cadnip_tpu_torch.ops.gj_solve import GJSolve
+
+    counts = {"jvp": 0, "backward": 0, "vmap": 0, "apply": 0}
+    saved = {name: GJSolve.__dict__[name] for name in counts}
+
+    def counted(name, fn):
+        def run(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return run
+
+    for name in ("jvp", "backward", "vmap"):
+        setattr(GJSolve, name, staticmethod(counted(name,
+                                                    getattr(GJSolve, name))))
+    apply = GJSolve.apply.__func__
+    GJSolve.apply = classmethod(counted("apply", apply))
+
+    def undo():
+        for name, v in saved.items():
+            setattr(GJSolve, name, v)
+    return counts, undo
+
+
 def rc_jacfwd(dev):
     """torch.func.jacfwd through tran() of an RC on `dev`: dv(out, 1 ms)/dR,
-    K1's launches in it and its wall."""
+    K1's launches in it, its wall and its rule calls and crossings of
+    GJSolve.apply."""
     import torch
     import cadnip_tpu_torch as ct
     from cadnip_tpu_torch.ops.gj_solve import gj_solve
@@ -1781,11 +1858,15 @@ def rc_jacfwd(dev):
         sol = ct.tran(cc, (0, 1e-3), params=p, dt=1e-5, n_save=11)
         return sol.xs[-1, cc.index_of("out")]
 
+    calls, undo = count_rule_calls()
     gj_solve.launches = 0
     t = time.perf_counter()
-    d = float(torch.func.jacfwd(vout)(
-        torch.tensor(1e3, dtype=torch.float64, device=dev)))
-    return d, gj_solve.launches, time.perf_counter() - t
+    try:
+        d = float(torch.func.jacfwd(vout)(
+            torch.tensor(1e3, dtype=torch.float64, device=dev)))
+    finally:
+        undo()
+    return d, gj_solve.launches, time.perf_counter() - t, calls
 
 
 def cpu_derivatives():
@@ -1798,7 +1879,7 @@ def derivatives(card, cpu_job):
     the card, through K1, against the same on the CPU (`cpu_job`, the CPU
     worker's cpu_derivatives())."""
     sens, launches = dff_sensitivity("cuda")
-    d, jlaunches, wall = rc_jacfwd("cuda")
+    d, jlaunches, wall, calls = rc_jacfwd("cuda")
     sens_cpu, d_cpu = cpu_job.result()
 
     errs = {k: rel_err(sens[k], sens_cpu[k]) for k in SENS_NAMES}
@@ -1818,11 +1899,14 @@ def derivatives(card, cpu_job):
     err = abs(d - d_cpu) / abs(d_cpu)
     print(f"jacfwd through tran() RC, dv(out, 1 ms)/dR: card {d:.10e}, CPU "
           f"{d_cpu:.10e}, analytic {exact:.10e}; relative |card - CPU| "
-          f"{err:.3e}; K1 launches {jlaunches}, {wall:.3f} s [{card}]",
-          flush=True)
+          f"{err:.3e}; K1 launches {jlaunches}, wall {wall:.3f} s; rule "
+          f"calls: jvp {calls['jvp']}, vmap {calls['vmap']}, crossings of "
+          f"GJSolve.apply {calls['apply']} [{card}]", flush=True)
     if not (jlaunches > 0 and err <= CPU_TOL
             and abs(d - exact) <= 5e-2 * abs(exact)):
         raise RuntimeError("jacfwd through tran: card result off")
+    return dict(jacfwd_wall=wall, jacfwd_launches=jlaunches,
+                jacfwd_calls=calls)
 
 
 def _ekv_group_ms(cc, x, reps):
@@ -2632,7 +2716,7 @@ def main():
         return res
 
     cases = phase("3 K1", kernel_cases, card)
-    phase("3b K1 rules", k1_derivative_cases, card)
+    rules = phase("3b K1 rules", k1_derivative_cases, card)
     dff = phase("4 DFF tran", run_dff, card)
     phase("5 K2 device eval", device_eval, card)
     twin = phase("6 K2 vs twin", k2_vs_twin, card)
@@ -2658,10 +2742,10 @@ def main():
         deriv_job = cpu.submit(cpu_derivatives)
         ekv_job = cpu.submit(cpu_ekv_tran)
         phase("9b profile", profile_montecarlo, card, mc["tab"], mc["sol"])
-        phase("9c K1 rules on Jacobians", k1_dff_jacobian_cases, card,
-              mc["cc"], mc["sol"], mc["tab"])
+        jac_rules = phase("9c K1 rules on Jacobians", k1_dff_jacobian_cases,
+                          card, mc["cc"], mc["sol"], mc["tab"])
         phase("10 dcsweep", dc_sweep_rescue, card)
-        phase("11 derivatives", derivatives, card, deriv_job)
+        deriv = phase("11 derivatives", derivatives, card, deriv_job)
         va = phase("12 VA (EKV DFF)", va_ekv, card, ekv_job, cpu)
         twin_jobs = {name: cpu.submit(cpu_k2_twin, c["net"], c["setup"])
                      for name, c in twin.items() if name not in TWIN_ON_CARD}
@@ -2732,6 +2816,29 @@ def main():
                                                  "library_ms", "plain_ms")}
                         for what, r in bbd_rows.items()},
                 "bbd_newton_iteration_ms": pg["newton_ms"]},
+               {"name": "K1 rules (fused tangent and adjoint entries, "
+                        "gj_rule_*; under torch.func)",
+                "route": "cuda",
+                "source": "cadnip_tpu_torch/ops/csrc/gj_solve.cu",
+                "replaces": "cadnip_tpu/ops/pallas_solve.py:35",
+                "launches": jac_rules["rule_launches"],
+                "max_abs_err": max(r["entry_abs_err"]
+                                   for r in rules.values()),
+                "ms": rules[RULE_ROW]["ms"],
+                "plain_ms": rules[RULE_ROW]["plain_ms"],
+                "bound_ms": rules[RULE_ROW]["bound_ms"],
+                "bound_us": rules[RULE_ROW]["bound_ms"] * 1e3,
+                "bound_by": rules[RULE_ROW]["bound_by"],
+                "library_ms": rules[RULE_ROW]["library_ms"],
+                "row": RULE_ROW,
+                "rows": {row: {k: r[k] for k in (
+                    "ms", "library_ms", "plain_ms", "entry_ms",
+                    "entry_device_ms", "solve_device_ms", "door_ms",
+                    "bound_ms", "max_rel_err", "entry_rel_err")}
+                    for row, r in rules.items()},
+                "jacfwd_wall_s": deriv["jacfwd_wall"],
+                "jacfwd_launches": deriv["jacfwd_launches"],
+                "jacfwd_rule_calls": deriv["jacfwd_calls"]},
                {"name": "K2 vmem_tran", "route": "cuda",
                 "source": "cadnip_tpu_torch/ops/csrc/vmem_tran.cu",
                 "replaces": "archive/pallas_tran.py:372",

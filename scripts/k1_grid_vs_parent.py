@@ -3,6 +3,7 @@ turns.
 
     git archive <commit> cadnip_tpu_torch | tar -x -C scratch/parent
     python scripts/k1_grid_vs_parent.py scratch/parent
+    python scripts/k1_grid_vs_parent.py scratch/parent --rules-only
 
 Loads the earlier tree's `cadnip_tpu_torch` (under the name `parent_port`,
 built from its own csrc/ into its own build/) beside this tree's, and times
@@ -22,9 +23,14 @@ tree's result against its blocked plain twin, and counts its launches (one
 per call). Then kernel K2 of both trees, in the same turns, on
 chip_smoke.py's phase-6 circuits (the 125-section RC ladder, whose Newton
 solve is K1's block form, and the DFF, graetz and the darlington, whose
-is the warp form): cycles per Newton iteration and step counts. Prints one
-line per shape and circuit, the card's name and power limit, and a JSON
-line of the rows. Needs a CUDA card.
+is the warp form): cycles per Newton iteration and step counts. Then K1's
+derivative rules of both trees in the same turns: `torch.func.jvp` and
+`torch.func.vjp` (forward and pullback) of `gj_solve` at chip_smoke.py
+phase 3b's shapes (n = 19, k = 1, b = 1 and 4096) beside the same calls
+on `torch.linalg.solve`, and phase 11's `torch.func.jacfwd` through
+`tran()` of an RC (wall and K1 launches). `--rules-only` runs the rules
+alone. Prints one line per shape and circuit, the card's name and power
+limit, and a JSON line of the rows. Needs a CUDA card.
 """
 import argparse
 import importlib.util
@@ -92,6 +98,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("parent", help="a directory holding the earlier tree's "
                     "cadnip_tpu_torch/")
+    ap.add_argument("--rules-only", action="store_true",
+                    help="time the derivative rules only")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -104,7 +112,7 @@ def main():
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
     rows = []
-    for b, n, k, what in SHAPES:
+    for b, n, k, what in ([] if args.rules_only else SHAPES):
         rng = np.random.default_rng(n)
         A = torch.as_tensor(rng.standard_normal((b, n, n)) / np.sqrt(n)
                             + 2.0 * np.eye(n), device="cuda")
@@ -141,9 +149,104 @@ def main():
               f"{new[0] * 1e3:.1f} / {new[1] * 1e3:.1f} us{extra}, solve_ex "
               f"{lib * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}); "
               f"{launches} launch per call; vs twin {err:.2e}", flush=True)
-    k2 = k2_rows(parent)
+    k2 = [] if args.rules_only else k2_rows(parent)
+    rules = rule_rows(K1, parent)
     print(card)
-    print(json.dumps({"card": card, "rows": rows, "k2": k2}))
+    print(json.dumps({"card": card, "rows": rows, "k2": k2,
+                      "rules": rules}))
+
+
+def rule_rows(K1, parent):
+    """K1's jvp and vjp rules of both trees, in turns, at n = 19, k = 1,
+    b = 1 and 4096, beside torch.func on torch.linalg.solve; then phase
+    11's jacfwd through tran() of an RC in both trees."""
+    import torch
+    from torch.func import jvp, vjp
+    import cadnip_tpu_torch as ct
+    import parent_port
+    rows = []
+    for b in (1, 4096):
+        n, k = 19, 1
+        rng = np.random.default_rng(5)
+        A = rng.standard_normal((b, n, n)) / np.sqrt(n) + 2.0 * np.eye(n)
+        A[:, [5, 6]] = A[:, [6, 5]]
+        At, dAt = (torch.as_tensor(a, device="cuda")
+                   for a in (A, rng.standard_normal((b, n, n))))
+        Bt, dBt, gXt = (torch.as_tensor(rng.standard_normal((b, n, k)),
+                                        device="cuda") for _ in range(3))
+        reps = 100 if b == 1 else 30
+
+        def run(rule, solve):
+            if rule == "jvp":
+                return lambda: jvp(solve, (At, Bt), (dAt, dBt))[1]
+            return lambda: vjp(solve, At, Bt)[1](gXt)
+
+        for rule in ("jvp", "vjp"):
+            got = run(rule, K1.gj_solve)()
+            ref = run(rule, torch.linalg.solve)()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            err = max(float((a - c).abs().max() / c.abs().max())
+                      for a, c in zip(got, ref))
+            old = [cuda_ms(run(rule, parent.gj_solve), reps)]
+            new = [cuda_ms(run(rule, K1.gj_solve), reps) for _ in range(2)]
+            old.append(cuda_ms(run(rule, parent.gj_solve), reps))
+            lib = cuda_ms(run(rule, torch.linalg.solve), reps)
+            row = dict(rule=rule, shape=[b, n, n + k],
+                       parent_us=[t * 1e3 for t in old],
+                       new_us=[t * 1e3 for t in new], library_us=lib * 1e3,
+                       speedup=min(old) / max(new),
+                       no_slower_than_library=max(new) <= lib,
+                       err_vs_library=err)
+            rows.append(row)
+            print(f"K1 {rule} rule [{b}, {n}, {n}+{k}]: parent "
+                  f"{old[0] * 1e3:.1f} / {old[1] * 1e3:.1f} us, this tree "
+                  f"{new[0] * 1e3:.1f} / {new[1] * 1e3:.1f} us "
+                  f"({row['speedup']:.2f}x), torch.func on "
+                  f"torch.linalg.solve {lib * 1e3:.1f} us; against it "
+                  f"{err:.1e}", flush=True)
+    walls = {}
+    for tree, pkg, mod in (("parent", parent_port, parent),
+                           ("this", ct, K1), ("this", ct, K1),
+                           ("parent", parent_port, parent)):
+        walls.setdefault(tree, []).append(rc_jacfwd(pkg, mod))
+    row = dict(rule="jacfwd through tran() of an RC (phase 11)",
+               parent_s=[w for w, _ in walls["parent"]],
+               new_s=[w for w, _ in walls["this"]],
+               parent_launches=walls["parent"][0][1],
+               launches=walls["this"][0][1])
+    rows.append(row)
+    print(f"jacfwd through tran() RC: parent {row['parent_s'][0]:.3f} / "
+          f"{row['parent_s'][1]:.3f} s ({row['parent_launches']} K1 "
+          f"launches), this tree {row['new_s'][0]:.3f} / "
+          f"{row['new_s'][1]:.3f} s ({row['launches']})", flush=True)
+    return rows
+
+
+def rc_jacfwd(pkg, K1):
+    """chip_smoke.py phase 11's jacfwd through tran() of an RC with the
+    package `pkg` (K1 its gj_solve module): (wall in s, K1 launches)."""
+    import time
+    import torch
+    cir = pkg.Circuit("sens")
+    cir.V("vs", "in", "0", wave=pkg.Pulse(0.0, 1.0, tr=1e-9))
+    cir.R("r1", "in", "out", 1e3)
+    cir.C("c1", "out", "0", 1e-6)
+    cc = cir.compile(device="cuda")
+
+    def vout(r):
+        p = cc.alter(cc.params0(), **{"r1.r": r})
+        sol = pkg.tran(cc, (0, 1e-3), params=p, dt=1e-5, n_save=11)
+        return sol.xs[-1, cc.index_of("out")]
+
+    r0 = torch.tensor(1e3, dtype=torch.float64, device="cuda")
+    torch.func.jacfwd(vout)(r0)
+    torch.cuda.synchronize()
+    K1.gj_solve.launches = 0
+    t = time.perf_counter()
+    torch.func.jacfwd(vout)(r0)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, K1.gj_solve.launches
 
 
 #: K2's cases (chip_smoke.py phase 6): the 125-section RC ladder takes the

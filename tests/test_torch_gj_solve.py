@@ -6,19 +6,26 @@ rules of `GJSolve` (jvp, vjp, vmap) against autodiff of the twin and of
 variants. The CUDA kernel itself runs only on the card (the `gpu`
 marker): there the warp variant is held to `gj_solve_plain`, and the block
 variant at the same shapes to `gj_solve_blocked_plain` (the two forms sum
-in other orders, so they agree to rounding, not bit for bit)."""
+in other orders, so they agree to rounding, not bit for bit), and each
+rule's fused entry (`launch_tangent`, `launch_adjoint`) to its twin. Here
+the twins of the rule entries are held to JAX, the rules' route is counted
+(one crossing of `GJSolve.apply` per solve) and nested transforms go
+through them."""
 import jax
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
-from torch.func import jacfwd, jvp, vjp
+from torch.func import grad, jacfwd, jacrev, jvp, vjp, vmap
 
 from cadnip_tpu.ops.linalg import gauss_solve
 from cadnip_tpu.ops.pallas_solve import gj_solve_f32
-from cadnip_tpu_torch.ops.gj_solve import (GJSolve, gj_solve,
-                                           gj_solve_blocked_plain,
-                                           gj_solve_plain, launch, variant)
+import cadnip_tpu_torch.ops.gj_solve as K1
+from cadnip_tpu_torch.ops.gj_solve import (GJSolve, gj_adjoint_plain,
+                                           gj_solve, gj_solve_blocked_plain,
+                                           gj_solve_plain, gj_tangent_plain,
+                                           launch, launch_adjoint,
+                                           launch_tangent, variant)
 
 torch.set_num_threads(1)
 
@@ -218,16 +225,166 @@ def test_cuda_derivative_rules_match_plain_twin():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     for shape in RULE_SHAPES:
         _, (At, Bt, dAt, dBt, gXt) = _rule_inputs(shape, 7, "cuda")
-        before = gj_solve.launches
+        before, rules = gj_solve.launches, gj_solve.rule_launches
         X, dX = jvp(GJSolve.apply, (At, Bt), (dAt, dBt))
         grads = vjp(GJSolve.apply, At, Bt)[1](gXt)
-        # forward, its tangent, forward again and the cotangent solve
+        # forward, its tangent, forward again and the cotangent solve; the
+        # tangent and the cotangent each one launch of a fused entry
         assert gj_solve.launches == before + 4
+        assert gj_solve.rule_launches == rules + 2
         Xp, dXp = jvp(gj_solve_plain, (At, Bt), (dAt, dBt))
         grads_p = vjp(gj_solve_plain, At, Bt)[1](gXt)
         assert _rel(dX, dXp) <= 1e-12
         for g, gp in zip(grads, grads_p):
             assert _rel(g, gp) <= 1e-12
+
+
+#: the rule entries' shapes: the Newton and sensitivity solves and the
+#: Monte Carlo's 4096 lanes (warp), a block-variant batch, and a grid-variant
+#: system (its rules take torch products around the solve)
+FUSED_SHAPES = [(1, 19, 1), (4096, 19, 1), (64, 128, 1), (1, 241, 1)]
+
+
+@pytest.mark.parametrize("shape, want", [
+    ((3, 19, 2), "warp"), ((2, 40, 1), "block"), ((1, 170, 1), "grid")])
+def test_rule_twins_match_jax(shape, want):
+    # the fused entries' functions in torch ops: dX = A^-1 (dB - dA X) (and
+    # without dB), gB = A^-T gX with gA = -gB X^T, against jax.jvp and
+    # jax.vjp of jnp.linalg.solve, at a shape of each variant
+    (A, B, dA, dB, gX), (At, Bt, dAt, dBt, gXt) = _rule_inputs(shape, 13)
+    assert variant(shape[1], shape[2], 8, shape[0]) == want
+    X, dXj = jax.jvp(jnp.linalg.solve, (A, B), (dA, dB))
+    Xt = torch.as_tensor(np.array(X))
+    assert _rel(gj_tangent_plain(At, Xt, dAt, dBt),
+                torch.as_tensor(np.array(dXj))) <= 1e-12
+    _, dXa = jax.jvp(jnp.linalg.solve, (A, B), (dA, np.zeros_like(B)))
+    assert _rel(gj_tangent_plain(At, Xt, dAt, None),
+                torch.as_tensor(np.array(dXa))) <= 1e-12
+    gAj, gBj = jax.vjp(jnp.linalg.solve, A, B)[1](gX)
+    gA, gB = gj_adjoint_plain(At, Xt, gXt)
+    assert _rel(gA, torch.as_tensor(np.array(gAj))) <= 1e-12
+    assert _rel(gB, torch.as_tensor(np.array(gBj))) <= 1e-12
+    assert gj_adjoint_plain(At, Xt, gXt, want_gA=False)[0] is None
+
+
+def _count_route(monkeypatch):
+    """Count `GJSolve.apply` calls and solves (calls of the twin)."""
+    calls = {"apply": 0, "solve": 0}
+    apply, twin = GJSolve.apply.__func__, K1.plain_twin
+
+    def counted_apply(cls, A, B):
+        calls["apply"] += 1
+        return apply(cls, A, B)
+
+    def counted_twin(A, B):
+        calls["solve"] += 1
+        return twin(A, B)
+
+    monkeypatch.setattr(GJSolve, "apply", classmethod(counted_apply))
+    monkeypatch.setattr(K1, "plain_twin", counted_twin)
+    return calls
+
+
+@pytest.mark.parametrize("transform", ["jvp", "vjp", "jacfwd", "jacrev"])
+def test_rules_cross_once_per_solve(transform, monkeypatch):
+    # each rule computes on the tensors it is given (one transform level
+    # down): under jvp and vjp only the user's call crosses GJSolve.apply;
+    # under jacfwd and jacrev the rule's solve crosses once more, into the
+    # vmap rule (its tangents or cotangents are batched). Never more
+    # crossings than solves, and the results equal autodiff of the twin
+    _, (At, Bt, dAt, dBt, gXt) = _rule_inputs((2, 7, 1), 3)
+    calls = _count_route(monkeypatch)
+    if transform == "jvp":
+        got = jvp(gj_solve, (At, Bt), (dAt, dBt))[1]
+        want = jvp(gj_solve_plain, (At, Bt), (dAt, dBt))[1]
+        route = {"apply": 1, "solve": 2}
+    elif transform == "vjp":
+        got = vjp(gj_solve, At, Bt)[1](gXt)[0]
+        want = vjp(gj_solve_plain, At, Bt)[1](gXt)[0]
+        route = {"apply": 1, "solve": 2}
+    elif transform == "jacfwd":
+        got = jacfwd(gj_solve, argnums=1)(At, Bt)
+        want = jacfwd(gj_solve_plain, argnums=1)(At, Bt)
+        route = {"apply": 2, "solve": 2}
+    else:
+        got = jacrev(gj_solve)(At, Bt)
+        want = jacrev(gj_solve_plain)(At, Bt)
+        route = {"apply": 2, "solve": 2}
+    assert calls["solve"] - calls["apply"] >= 0
+    assert {k: calls[k] for k in route} == route
+    assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.parametrize("nest", ["jacfwd_jacrev", "vmap_grad", "jvp_jvp",
+                                  "double_backward"])
+def test_nested_transforms_through_the_rules(nest):
+    # a transform over a rule: the rule's own arithmetic must carry the
+    # outer level's derivative (the rule goes back through GJSolve.apply);
+    # held to autodiff of the twin and to JAX's jnp.linalg.solve
+    (A, B, dA, _, _), (At, Bt, dAt, _, _) = _rule_inputs((2, 6, 1), 17)
+    w = np.linspace(-1.0, 1.0, 12).reshape(2, 6, 1)
+    wt = torch.as_tensor(w)
+
+    def f(solve, a, wv):
+        return (solve(a, B if isinstance(a, jnp.ndarray) else Bt) * wv).sum()
+
+    if nest == "jacfwd_jacrev":
+        got = jacfwd(jacrev(lambda a: f(gj_solve, a, wt)))(At)
+        want = jacfwd(jacrev(lambda a: f(gj_solve_plain, a, wt)))(At)
+        ref = jax.jacfwd(jax.jacrev(lambda a: f(jnp.linalg.solve, a, w)))(A)
+    elif nest == "vmap_grad":
+        Ws = torch.stack([wt, 2.0 * wt, -wt])
+        got = vmap(grad(lambda a, wv: f(gj_solve, a, wv)),
+                   in_dims=(None, 0))(At, Ws)
+        want = vmap(grad(lambda a, wv: f(gj_solve_plain, a, wv)),
+                    in_dims=(None, 0))(At, Ws)
+        ref = jax.vmap(jax.grad(lambda a, wv: f(jnp.linalg.solve, a, wv)),
+                       in_axes=(None, 0))(A, jnp.asarray(Ws.numpy()))
+    elif nest == "jvp_jvp":
+        def inner(solve, a):
+            return jvp(lambda x: solve(x, Bt), (a,), (dAt,))[1]
+        got = jvp(lambda a: inner(gj_solve, a), (At,), (dAt,))[1]
+        want = jvp(lambda a: inner(gj_solve_plain, a), (At,), (dAt,))[1]
+        ref = jax.jvp(lambda a: jax.jvp(lambda x: jnp.linalg.solve(x, B),
+                                        (a,), (dA,))[1], (A,), (dA,))[1]
+    else:
+        Ar = At.clone().requires_grad_()
+        g1, = torch.autograd.grad(f(gj_solve, Ar, wt), Ar, create_graph=True)
+        got, = torch.autograd.grad((g1 * dAt).sum(), Ar)
+        Ap = At.clone().requires_grad_()
+        p1, = torch.autograd.grad(f(gj_solve_plain, Ap, wt), Ap,
+                                  create_graph=True)
+        want, = torch.autograd.grad((p1 * dAt).sum(), Ap)
+        ref = jax.grad(lambda a: (jax.grad(lambda x: f(jnp.linalg.solve, x,
+                                                       w))(a) * dA).sum())(A)
+    assert _rel(got, want) <= 1e-12
+    assert _rel(got, torch.as_tensor(np.array(ref))) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_cuda_fused_rules_match_twins(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _, (At, Bt, dAt, dBt, gXt) = _rule_inputs(shape, 19, "cuda")
+    X = gj_solve(At, Bt)
+    forms = ([None, "block"] if variant(*shape[1:], 8, shape[0]) == "warp"
+             else [None])
+    for which in forms:
+        for dB in (dBt, None):
+            before = gj_solve.launches
+            dX = launch_tangent(At, X, dAt, dB, which)
+            assert gj_solve.launches == before + 1
+            assert _rel(dX, gj_tangent_plain(At, X, dAt, dB)) <= 1e-12
+        for want_gA in (True, False):
+            before = gj_solve.launches
+            gA, gB = launch_adjoint(At, X, gXt, want_gA, which)
+            assert gj_solve.launches == before + 1
+            pA, pB = gj_adjoint_plain(At, X, gXt)
+            assert _rel(gB, pB) <= 1e-12
+            assert (gA is None) != want_gA
+            if want_gA:
+                assert _rel(gA, pA) <= 1e-12
 
 
 @pytest.mark.parametrize("n, k, batch, want", [
