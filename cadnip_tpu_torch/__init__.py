@@ -58,6 +58,15 @@ with `.hdl` and instantiates them by N/Y/X lines or `.model` cards:
     cir.add(ekv, "m1", ("d", "g", "0", "0"), vto=0.6, vto__given=1.0)
     cc = parse_spice(deck_with_hdl_card)            # `.hdl "ekv26.va"`
 
+Verilog-A `absdelay` runs as a transport delay in `tran` (a history ring
+per lane) and `ac` (the exact phase term e^{-jωτ}). Behavioral B-sources
+and whole decks run too: `simulate` parses a netlist, runs its .op, .tran,
+.ac, .dc (a source sweep or a `.data` table) and .noise cards and then its
+`.meas` cards:
+
+    res = simulate(deck)                            # on "cuda"
+    res["tran"]["out"], res["meas"]["tdel"]
+
 This package imports torch and numpy, never jax or cadnip_tpu.
 """
 from .mna.structure import Circuit, CompiledCircuit  # noqa: F401
@@ -80,7 +89,7 @@ from .analyses.sweeps import (  # noqa: F401
     montecarlo_table)
 from .analyses.sensitivity import dc_sensitivity  # noqa: F401
 from .ops.vmem_tran import supported, vmem_tran  # noqa: F401
-from .frontend.elaborate import parse_spice  # noqa: F401
+from .frontend.elaborate import parse_spice, simulate  # noqa: F401
 from .va.codegen import (  # noqa: F401
     VACompileError, compile_va, load_va_file)
 from . import models  # noqa: F401
@@ -98,7 +107,7 @@ __all__ = [
     "noise", "NoiseSolution",
     "Sweep", "ProductSweep", "TandemSweep", "SerialSweep",
     "dcsweep", "transweep", "montecarlo_table", "dc_sensitivity",
-    "parse_spice", "models", "dff_netlist",
+    "parse_spice", "simulate", "models", "dff_netlist",
     "compile_va", "load_va_file", "VACompileError", "compile_ekv",
 ]
 

@@ -9,6 +9,11 @@ about n = 84 unknowns in f64), its grid variant beyond. A large circuit
 compiled to the block-bordered-diagonal backend keeps the dense
 linearization here, as in the JAX package.
 
+Transport delays (Verilog-A `absdelay`) enter the small-signal system as
+Y(jω) = S diag(e^{-jωτ}) P, with S = ∂F/∂dly and P = ∂probe/∂x at the
+operating point: each frequency's block of the batch then carries its own
+G(ω) and C(ω), and the sweep stays one launch.
+
 `subsystem` exports the single-output descriptor system (A = -G, E = C,
 B = b_ac) as numpy for control-systems tooling; its `freqresp` is host
 numpy, as in the JAX package.
@@ -19,8 +24,10 @@ import numpy as np
 import torch
 
 from ..config import DTYPE
-from ..mna.assemble import ensure_setup, make_ac_rhs, make_assembler, \
-    pad_state
+from torch.func import jacfwd
+
+from ..mna.assemble import (ensure_setup, make_ac_rhs, make_assembler,
+                            make_delay_meta, pad_state)
 from ..mna.spec import MODE_AC
 from ..mna.structure import CompiledCircuit
 from ..ops.linalg import solve_complex
@@ -65,15 +72,6 @@ def acdec(points_per_decade: int, fstart: float, fstop: float) -> np.ndarray:
     return np.logspace(np.log10(fstart), np.log10(fstop), n)
 
 
-def _check_model(cc: CompiledCircuit):
-    # the JAX package folds absdelay sites into each frequency's system
-    # (make_delay_meta); the port refuses them (ROADMAP item 3b)
-    for g in cc.groups:
-        assert not g.model.n_delay_sites, (
-            f"{g.model.name}: absdelay sites need make_delay_meta (ROADMAP, "
-            f"modules still to port, item 3b)")
-
-
 def linearize(cc: CompiledCircuit, assemble, x_op, params, dyn):
     """G, C [n, n] from `make_assembler(cc)` at the operating point x_op
     [n] (unbatched)."""
@@ -86,17 +84,43 @@ def linearize(cc: CompiledCircuit, assemble, x_op, params, dyn):
 def make_ac_sweep(cc: CompiledCircuit):
     """Build ac_sweep(x_op, params, dyn, omegas) -> (x_re, x_im), each
     [n_freq, n]: one batched solve over the frequencies."""
-    _check_model(cc)
     assemble = make_assembler(cc)
     b_ac_fn = make_ac_rhs(cc)
+    dmeta = make_delay_meta(cc)
+
+    def delay_terms(x_op, params, dyn):
+        """G, C with the delayed inputs held at their operating-point
+        values, S = ∂F/∂dly [n, size], P = ∂probe/∂x [size, n] and the
+        delays [size]."""
+        x = torch.as_tensor(x_op, dtype=DTYPE, device=cc.device)
+        xp = pad_state(x[None])
+        lim = assemble.init_lim(xp)
+        vals, taus = dmeta.probe(xp, params, dyn)
+        _, _, G, C, _ = assemble(xp, lim, params, dyn, vals)
+        S = jacfwd(lambda d: assemble(xp, lim, params, dyn,
+                                      d[None])[0][0])(vals[0])
+        P = jacfwd(lambda xx: dmeta.probe(pad_state(xx[None]), params,
+                                          dyn)[0][0])(x)
+        return G[0], C[0], S, P, taus[0]
 
     def ac_sweep(x_op, params, dyn, omegas):
-        G, C = linearize(cc, assemble, x_op, params, dyn)
         br, bi = b_ac_fn(params)
         nf = omegas.shape[0]
         w = omegas[:, None, None]
-        return solve_complex(G.expand(nf, -1, -1), w * C,
-                             br.expand(nf, -1), bi.expand(nf, -1))
+        if dmeta is None:
+            G, C = linearize(cc, assemble, x_op, params, dyn)
+            return solve_complex(G.expand(nf, -1, -1), w * C,
+                                 br.expand(nf, -1), bi.expand(nf, -1))
+        G, C, S, P, taus = delay_terms(x_op, params, dyn)
+        # S diag(e^{-jωτ}) P: the real part joins G, the imaginary part
+        # the ωC slot
+        wt = omegas[:, None] * taus[None, :]
+        cosr = S[None] * torch.cos(wt)[:, None, :]
+        sinr = S[None] * torch.sin(wt)[:, None, :]
+        Gw = G[None] + cosr @ P
+        Cw = C[None] - (sinr @ P) / torch.clamp(w, min=1e-300)
+        return solve_complex(Gw, w * Cw, br.expand(nf, -1),
+                             bi.expand(nf, -1))
 
     return ac_sweep
 
@@ -162,7 +186,6 @@ def subsystem(cc: CompiledCircuit, name, params=None, *,
         params = cc.params0()
     _unbatched(params, "subsystem")
     params = ensure_setup(cc, params)
-    _check_model(cc)
     if op_x is None:
         op_x = dc(cc, params).x
     dyn = cc.spec.dyn(cc.device, mode=MODE_AC)

@@ -7,12 +7,15 @@ the rescue tiers of the JAX package in its order: pseudo-transient
 continuation, then Levenberg-Marquardt (dense circuits only: on a
 block-bordered-diagonal circuit the chain ends with the pseudo-transient
 tier, as in the JAX package). Where they fail too, `dc` returns
-`converged=False`; it does not guess. The JAX package's host-driven
-pseudo-transient tier for Verilog-A circuits (`_ptran_rescue_host`) is
-item 3b of the ROADMAP; a circuit with a hoisted Verilog-A setup pass
-takes the fused pseudo-transient tier here. Every entry point computes
-the setup matrix of such a model first (`ensure_setup`), and the solution
-keeps the parameters it was solved with.
+`converged=False`; it does not guess. The pseudo-transient tier takes the
+JAX package's choice of algorithm, which is keyed on the model: an
+unbatched circuit with a hoisted Verilog-A setup pass (`va_setup`) steps
+its pseudo-time from the host and confirms with the whole DC chain
+(`_ptran_rescue_host`); every other call takes the fused tier
+(`make_ptran_rescue`), which confirms with one plain Newton. Every entry
+point computes the setup matrix of a hoisting model first
+(`ensure_setup`), and the solution keeps the parameters it was solved
+with.
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ import numpy as np
 import torch
 
 from ..config import DTYPE
-from ..mna.assemble import RANK2_LEAVES, ensure_setup, pad_state
+from ..mna.assemble import (RANK2_LEAVES, ensure_setup, make_rhs_assembler,
+                            pad_state)
 from ..mna.newton import (NewtonResult, make_dc_solver, make_lm_rescue,
-                          make_ptran_rescue)
+                          make_ptran_rescue, make_system_assembler,
+                          make_tran_newton)
 from ..mna.spec import MODE_DCOP, MODE_TRANOP
 from ..mna.structure import CompiledCircuit
 
@@ -169,8 +174,13 @@ def dc(cc: CompiledCircuit, params=None, x0=None, *, mode: int = MODE_DCOP,
     params = ensure_setup(cc, params, dyn)
     r = _get_dc_solver(cc)(x, params, dyn)
     if rescue and not bool(r.converged.all()):
-        r = _take(r, _cached(cc, "dc_ptran_rescue", make_ptran_rescue)(
-            x, params, dyn))
+        if B is None and any(g.model.va_setup is not None
+                             for g in cc.groups):
+            r2 = _ptran_rescue_host(cc, x, params, dyn)
+        else:
+            r2 = _cached(cc, "dc_ptran_rescue", make_ptran_rescue)(
+                x, params, dyn)
+        r = _take(r, r2)
     if rescue and cc.bbd is None and not bool(r.converged.all()):
         # LM after pseudo-transient: ptran's charge damping selects the
         # physically reachable basin on bistable circuits, while LM handles
@@ -183,6 +193,34 @@ def dc(cc: CompiledCircuit, params=None, x0=None, *, mode: int = MODE_DCOP,
                           r.resnorm[0], params=params)
     return DCSolution(cc, r.x, r.converged, r.iters, r.resnorm,
                       params=params)
+
+
+def _make_rescue_parts(cc: CompiledCircuit):
+    assemble = make_system_assembler(cc)
+    return (assemble, make_tran_newton(cc, assemble=assemble),
+            make_rhs_assembler(cc))
+
+
+def _ptran_rescue_host(cc: CompiledCircuit, x0, params, dyn, n_steps=15,
+                       h0=1e-12, h1=1e3) -> NewtonResult:
+    """Host-driven pseudo-transient rescue (the JAX package's tier for an
+    unbatched circuit with a hoisted Verilog-A setup pass; reference
+    PseudoTransient tier, `src/mna/solve.jl:463-527`): backward-Euler
+    steps of geometrically growing h from x0 [1, n], each kept only where
+    it converged finite, then the whole DC chain from the marched state.
+    The iteration count adds the steps' Newton iterations to the chain's."""
+    assemble, newton_t, rhs = _cached(cc, "rescue_parts", _make_rescue_parts)
+    x = x0
+    lim = assemble.init_lim(pad_state(x))
+    _, q = rhs(pad_state(x), params, dyn)
+    iters = 0
+    for h in np.geomspace(h0, h1, n_steps):
+        rr = newton_t(x, lim, params, dyn, 1.0 / h, q / h)
+        iters += int(rr.iters[0])
+        if bool(rr.converged[0]) and bool(torch.isfinite(rr.x).all()):
+            x, lim, q = rr.x, rr.lim, rr.q
+    r = _get_dc_solver(cc)(x, params, dyn)
+    return r._replace(iters=r.iters + iters)
 
 
 def op_tran(cc: CompiledCircuit, params=None, x0=None,

@@ -13,6 +13,10 @@ whole sweep.
 
 Device noise sources come from each model's `noise` (white PSD) and
 `flicker` (num / f^exp) channels between its local node pairs.
+
+Noise is quasi-static on transport delays, as in the JAX package: a
+Verilog-A `absdelay` linearizes as the identity here, without the phase
+term that `ac` gives it.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from ..mna.assemble import ensure_setup, make_assembler, pad_state
 from ..mna.spec import MODE_AC
 from ..mna.structure import CompiledCircuit
 from ..ops.linalg import solve_complex
-from .ac import _check_model, _unbatched, linearize
+from .ac import _unbatched, linearize
 from .dc import dc
 
 
@@ -74,7 +78,6 @@ def make_noise_sweep(cc: CompiledCircuit):
     """Build sweep(x_op, params, dyn, omegas, e_out, b_in) -> (onoise [nf],
     inoise [nf] or None, contrib [nf, n_src]), with the (group, n_inst,
     n_pairs) sizes of the contrib columns."""
-    _check_model(cc)
     assemble = make_assembler(cc)
     n, dev = cc.n, cc.device
     src_groups, sizes = [], []

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import DTYPE
+from ..mna.assemble import ensure_setup
 from ..mna.spec import MODE_DCOP
 from ..mna.structure import CompiledCircuit
 from .dc import DCSolution, _get_dc_solver, _take
@@ -125,10 +126,9 @@ def batch_params(cc: CompiledCircuit, table: dict, params=None):
     """Turn {name: values[B]} into parameters whose swept leaves are
     [B, n_inst]; the other leaves (waveform tables included) stay shared.
     NaN entries (from SerialSweep) keep the base value for that point.
-
-    The JAX package then re-runs the hoisted host setup of Verilog-A
-    models (`ensure_setup`). Here `transweep` gets it from `tran`'s entry;
-    `dcsweep`'s is ROADMAP item 3b."""
+    The hoisted host setup of Verilog-A models runs after the batching
+    (`ensure_setup`), so swept parameters re-enter it: its matrix is
+    [B, n_inst, K] where a group's parameter is swept."""
     if params is None:
         params = cc.params0()
     batch = None
@@ -141,7 +141,7 @@ def batch_params(cc: CompiledCircuit, table: dict, params=None):
             raise ValueError("all sweep axes must have equal length")
         over[name] = np.where(np.isnan(vals), _base_value(cc, params, name),
                               vals)
-    return cc.alter(params, **over)
+    return ensure_setup(cc, cc.alter(params, **over))
 
 
 def dcsweep(cc: CompiledCircuit, sweep, params=None, *, mode=MODE_DCOP,

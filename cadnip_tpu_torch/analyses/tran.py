@@ -17,6 +17,16 @@ control (accept/reject, h update, history rotation, saving) runs as masked
 updates on a dict of [B, ...] tensors. The loop reads its termination mask
 to the host once per pass: one sync per Newton iteration, counted in
 `TranSolution.host_syncs`.
+
+Verilog-A `absdelay` (reference DDE path, `src/mna/delay.jl:20-28`): each
+lane carries a chronological ring of `delay_hist` accepted times and the
+delayed expressions' values there, seeded with H copies of the operating
+point's (the constant pre-t0 history). Every trial reads the values at
+t - tau by linear interpolation as explicit history, the step is capped at
+the shortest delay, and an unbatched call also hits the source
+breakpoints' echoes at b + k tau. `trace=True` keeps a ring of the last
+4096 Newton passes per lane: (t_new, h, iteration, converged, violation,
+accepted).
 """
 from __future__ import annotations
 
@@ -27,7 +37,8 @@ import numpy as np
 import torch
 
 from ..config import DTYPE, ITYPE
-from ..mna.assemble import ensure_setup, make_rhs_assembler, pad_state
+from ..mna.assemble import (ensure_setup, make_delay_meta,
+                            make_rhs_assembler, pad_state)
 from ..mna.devices import CLASS_V
 from ..mna.newton import (_make_assemble_solve, abstol_vector, damp_step,
                           make_system_assembler, make_uic_warmup)
@@ -36,6 +47,7 @@ from ..mna.structure import CompiledCircuit
 from .dc import dc, param_lanes
 
 TRTOL = 7.0          # SPICE LTE slack factor
+TRACE_LEN = 4096     # solver-trace ring buffer length
 GROW_MAX = 2.0
 NEWTON_FAIL_CUT = 0.125
 
@@ -55,7 +67,7 @@ class TranSolution:
     a host sync, so on a CUDA circuit they include the device work."""
 
     def __init__(self, cc, ts, xs, stats: TranStats, op_converged=True,
-                 host_syncs: int = 0, op_iters=0, timings=None):
+                 host_syncs: int = 0, op_iters=0, timings=None, trace=None):
         self.cc = cc
         self.ts = ts
         self.xs = xs
@@ -64,6 +76,8 @@ class TranSolution:
         self.host_syncs = host_syncs
         self.op_iters = op_iters
         self.timings = timings or {}
+        # (ring [.., TRACE_LEN, 6], passes recorded [..]) with trace=True
+        self.trace = trace
 
     def __getitem__(self, name):
         return self.xs[..., self.cc.index_of(str(name))]
@@ -99,6 +113,28 @@ def collect_breakpoints(cc: CompiledCircuit, tstop: float) -> np.ndarray:
     return b
 
 
+def _interp_hist(ht, hv, tq):
+    """Per-lane, per-site linear interpolation into the absdelay history
+    ring: ht [B, H] ascending times, hv [B, H, D] recorded values, tq
+    [B, D] query times. Queries outside the recorded range clamp to the
+    nearest endpoint (the pre-t0 history is the DC value, the standard
+    SPICE DDE initial history)."""
+    H = ht.shape[1]
+    i = torch.clip(torch.searchsorted(ht, tq, right=True), 1, H - 1)
+    t_lo = torch.gather(ht, 1, i - 1)
+    t_hi = torch.gather(ht, 1, i)
+    w = torch.clip((tq - t_lo) / torch.clamp(t_hi - t_lo, min=1e-300),
+                   0.0, 1.0)
+    v_lo = torch.gather(hv, 1, (i - 1)[:, None, :])[:, 0]
+    v_hi = torch.gather(hv, 1, i[:, None, :])[:, 0]
+    return v_lo + w * (v_hi - v_lo)
+
+
+def _lane_mask(m, v):
+    """A [B] mask shaped to broadcast against v [B, ...]."""
+    return m.reshape((-1,) + (1,) * (v.ndim - 1))
+
+
 def _divided_diff3(xc, tc, x0, t0, x1, t1, x2, t2):
     """Second and third divided differences over (tc,xc),(t0,x0),(t1,x1),
     (t2,x2); times are [B, 1], states [B, n]."""
@@ -114,16 +150,21 @@ def _divided_diff3(xc, tc, x0, t0, x1, t1, x2, t2):
 
 def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
                      window: int, method: str | None = None,
-                     integ: str = "trap", assemble=None):
+                     integ: str = "trap", assemble=None,
+                     trace: bool = False, delay_hist: int = 1024):
     """Build run(x0, lim0, q0, qdot0, params, dyn0, t0, tstop, h0, hmax,
     hmin, bp_times, save_ts, diff_mask) -> (xs [B, n_save, n], TranStats,
-    passes). x0 etc. carry the lane axis B.
+    passes, trace). x0 etc. carry the lane axis B; trace is (ring
+    [B, TRACE_LEN, 6], passes recorded [B]) with `trace`, else None.
 
     The save grid is written in place under the accept mask, through a
     window of `window` rows at each lane's save cursor (a step crosses
     fewer grid points than that, since h <= hmax); the JAX package instead
-    rewrites the grid functionally every Newton iteration."""
+    rewrites the grid functionally every Newton iteration. The trace ring
+    is written in place too, on the lanes still running."""
     assemble, solve_J, matvec = _make_assemble_solve(cc, assemble, method)
+    dmeta = make_delay_meta(cc)   # absdelay history (None for most circuits)
+    H = int(delay_hist)
     atol = abstol_vector(cc)
     is_v = torch.as_tensor(cc.classes == CLASS_V, device=cc.device)
     spec = cc.spec
@@ -160,12 +201,25 @@ def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
             xs[lanes, rows] = torch.where(put, xi, xs[lanes, rows])
             return si + mask.sum(-1)
 
+        if dmeta is not None:
+            # absdelay history ring, seeded with the initial (DC) probe
+            # values: the constant pre-t0 history function (reference
+            # `src/mna/delay.jl:20-28` h(p, t - tau))
+            v0_dly, taus = dmeta.probe(pad_state(x0), params,
+                                       dyn0._replace(time=t0))
+            tau_cap = torch.where(taus > 0, taus, float("inf")).amin(-1)
+
         def setup_trial(s):
-            """Next trial step (h_eff, t_new, c0, rhs_q, hit_bp, x_pred)
-            from the accepted state in s."""
+            """Next trial step (h_eff, t_new, c0, rhs_q, hit_bp, x_pred,
+            and the delayed values dly) from the accepted state in s."""
             t, h, x = s["t"], s["h"], s["x"]
             bp_t = bp_times[torch.clamp(s["bp_i"], max=n_bp - 1)]
             h_eff = torch.minimum(torch.clamp(h, max=hmax), tstop - t)
+            if dmeta is not None:
+                # never step past the shortest transport delay: the
+                # delayed values are explicit history, so t - tau must
+                # land at or before the last accepted point
+                h_eff = torch.minimum(h_eff, torch.clamp(tau_cap, min=hmin))
             to_bp = bp_t - t
             h_eff = torch.where((to_bp > 0) & (to_bp < h_eff * 1.5),
                                 torch.minimum(h_eff, to_bp), h_eff)
@@ -189,9 +243,13 @@ def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
             slope = (x - s["x1"]) / col(dt1)
             x_pred = torch.where(col(s["naccept"] >= 1),
                                  x + slope * col(h_eff), x)
-            return dict(h_eff=h_eff, t_new=t_new, c0=c0, rhs_q=rhs_q,
-                        hit_bp=hit_bp, use_be=use_be, xi=x_pred,
-                        it=torch.zeros(B, dtype=ITYPE, device=dev))
+            trial = dict(h_eff=h_eff, t_new=t_new, c0=c0, rhs_q=rhs_q,
+                         hit_bp=hit_bp, use_be=use_be, xi=x_pred,
+                         it=torch.zeros(B, dtype=ITYPE, device=dev))
+            if dmeta is not None:
+                trial["dly"] = _interp_hist(s["hist_t"], s["hist_v"],
+                                            col(t_new) - taus)
+            return trial
 
         def lane(v):
             return torch.full((B,), v, dtype=DTYPE, device=dev)
@@ -207,6 +265,13 @@ def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
                  t2=lane(t0 - 2.0), ord=ilane(1), bp_i=zero, si=si0,
                  naccept=zero, nreject=zero, nnewton=zero,
                  fail=~true, nsteps=zero, nrej_run=zero, hold=zero)
+        if dmeta is not None:
+            s["hist_t"] = lane(t0)[:, None].expand(B, H).clone()
+            s["hist_v"] = v0_dly[:, None, :].expand(
+                B, H, v0_dly.shape[1]).clone()
+        if trace:
+            ring = torch.zeros((B, TRACE_LEN, 6), dtype=DTYPE, device=dev)
+            ti = ilane(0)
         s.update(setup_trial(s))
         mode_tran = torch.as_tensor(MODE_TRAN, dtype=ITYPE, device=dev)
         passes = 0
@@ -220,8 +285,9 @@ def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
             # ---- exactly ONE Newton iteration on the in-flight trial
             c0, rhs_q = s["c0"], s["rhs_q"]
             dyn = dyn0._replace(time=s["t_new"], mode=mode_tran)
-            F, Q, G, C, lim_new = assemble(pad_state(s["xi"]), s["lim"],
-                                           params, dyn)
+            F, Q, G, C, lim_new = assemble(
+                pad_state(s["xi"]), s["lim"], params, dyn,
+                s["dly"] if dmeta is not None else None)
             Ft = F + col(c0) * Q - rhs_q
             dx = solve_J(G, C, c0, -Ft)
             if spec.max_dv > 0:
@@ -301,28 +367,48 @@ def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
                     accept, torch.clamp(s["hold"] - 1, min=0), s["hold"])),
                 fail=s["fail"] | fail_now | (s["nrej_run"] > 100),
                 nsteps=s["nsteps"] + newton_done.to(ITYPE))
+            if dmeta is not None:
+                # record the accepted point's delayed-expression values
+                # into the (chronologically ordered, shift-left) ring
+                v_now, _ = dmeta.probe(pad_state(xi_new), params, dyn)
+                ns["hist_t"] = torch.where(col(accept), torch.cat(
+                    [s["hist_t"][:, 1:], col(t_new)], dim=1), s["hist_t"])
+                ns["hist_v"] = torch.where(accept[:, None, None], torch.cat(
+                    [s["hist_v"][:, 1:], v_now[:, None]], dim=1),
+                    s["hist_v"])
             # next trial: fresh setup when this one finished, else continue
             trial = setup_trial(ns)
             keep = dict(h_eff=h_eff, t_new=t_new, c0=c0, rhs_q=rhs_q,
                         hit_bp=s["hit_bp"], use_be=s["use_be"], xi=xi_new,
                         it=it)
+            if dmeta is not None:
+                keep["dly"] = s["dly"]
             for k in trial:
-                m = newton_done if trial[k].ndim == 1 else col(newton_done)
-                ns[k] = torch.where(m, trial[k], keep[k])
+                ns[k] = torch.where(_lane_mask(newton_done, trial[k]),
+                                    trial[k], keep[k])
             # limiter state: keep updating while Newton continues; commit on
             # accept; restore the last accepted step's state on reject
             ns["lim_acc"] = torch.where(col(accept), lim_new, s["lim_acc"])
             ns["lim"] = torch.where(col(accept), lim_new, torch.where(
                 col(newton_done), s["lim_acc"], lim_new))
+            if trace:
+                viol = (dx.abs() / (spec.reltol * torch.maximum(
+                    xi_new.abs(), s["xi"].abs()) + atol)).amax(-1)
+                rec = torch.stack([t_new, h_eff, it.to(DTYPE),
+                                   conv.to(DTYPE), viol, accept.to(DTYPE)],
+                                  dim=-1)
+                row = ti % TRACE_LEN
+                ring[lanes[:, 0], row] = torch.where(
+                    col(active), rec, ring[lanes[:, 0], row])
+                ti = ti + active.to(ITYPE)
             # lanes that have finished keep their state
             for k, v in ns.items():
-                s[k] = torch.where(active if v.ndim == 1 else col(active),
-                                   v, s[k])
+                s[k] = torch.where(_lane_mask(active, v), v, s[k])
 
         ran_out = (s["nsteps"] >= max_steps) & (s["t"] < tstop * (1 - 1e-12))
         stats = TranStats(naccept=s["naccept"], nreject=s["nreject"],
                           nnewton=s["nnewton"], fail=s["fail"] | ran_out)
-        return xs[:, :n_save], stats, passes
+        return xs[:, :n_save], stats, passes, (ring, ti) if trace else None
 
     return run
 
@@ -330,7 +416,8 @@ def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
 def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
          n_save: int | None = None, save_ts=None, max_steps: int = 200_000,
          x0=None, method: str | None = None, integ: str = "trap",
-         ic: dict | None = None, uic: bool = False) -> TranSolution:
+         ic: dict | None = None, uic: bool = False, trace: bool = False,
+         delay_hist: int = 1024) -> TranSolution:
     """Transient analysis over tspan=(t0, tstop).
 
     dt: output resolution (SPICE .tran tstep); dtmax: max internal step
@@ -338,9 +425,16 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     points (default from dt). Parameters with a lane axis give batched
     waveforms xs [B, n_save, n]; otherwise xs is [n_save, n].
 
+    trace: keep the solver trace, `sol.trace = (ring, passes)`: ring
+    [TRACE_LEN, 6] (with a lane axis when batched) of (t_new, h, Newton
+    iteration, converged, max violation of the dx test, accepted) per
+    Newton pass, written at `passes % TRACE_LEN`. delay_hist: length of
+    the absdelay history ring (accepted points kept per lane).
+
     As in the JAX package's vmapped transient (`transweep`), a batched
     call takes its operating point from the bare DC chain, without the
-    rescue tiers, and does not run the `uic` warmup."""
+    rescue tiers, does not run the `uic` warmup and adds no absdelay
+    breakpoint echoes."""
     t0, tstop = float(tspan[0]), float(tspan[1])
     if tstop <= t0:
         raise ValueError(f"tran needs tstop > t0, got tspan=({t0}, {tstop})")
@@ -390,6 +484,25 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     wall_op = time.perf_counter()
     bp = collect_breakpoints(cc, tstop)
     bp = bp[bp > t0]
+    dmeta = make_delay_meta(cc)
+    if dmeta is not None and lanes is None:
+        # transport-delay breakpoint echoes: a source kink at b re-emerges
+        # at the output of every absdelay site at b + k tau (the reference
+        # expands breakpoints into solver tstops, `src/mna/solve.jl:
+        # 1847-1918`; the DDE path needs the delayed images too)
+        _, taus0 = dmeta.probe(pad_state(x0), params,
+                               cc.spec.dyn(dev, mode=MODE_TRANOP, time=t0))
+        taus0 = np.unique(taus0.cpu().numpy())
+        taus0 = taus0[taus0 > 0]
+        ext = [bp, np.asarray([t0])]
+        for k_echo in (1, 2):
+            for tau_v in taus0:
+                ext.append(bp + k_echo * float(tau_v))
+                ext.append(np.asarray([t0 + k_echo * float(tau_v)]))
+        bp = np.unique(np.concatenate(ext))
+        bp = bp[(bp > t0) & (bp <= tstop)]
+        if bp.size == 0 or bp[-1] != tstop:
+            bp = np.append(bp, tstop)
     # a step crosses at most ceil(dtmax / save_dt) + 1 grid points
     dt_min = float(np.min(np.diff(save_np))) if n_save > 1 else dtmax
     W = min(int(np.ceil(dtmax / max(dt_min, 1e-300))) + 2, n_save)
@@ -397,7 +510,8 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     assemble = make_system_assembler(cc)
     rhs = make_rhs_assembler(cc)
     runner = make_tran_runner(cc, n_save, int(max_steps), W, method=method,
-                              integ=integ, assemble=assemble)
+                              integ=integ, assemble=assemble, trace=trace,
+                              delay_hist=delay_hist)
     xp = pad_state(x0)
     lim0 = assemble.init_lim(xp)
     dyn_op = cc.spec.dyn(dev, mode=MODE_TRANOP, time=t0)
@@ -414,7 +528,7 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     # that f64 Newton cannot converge
     hmin = max((tstop - t0) * 1e-12, dt * 1e-5, 1e-18)
     h0 = min(dt / 10.0, dtmax)
-    xs, stats, passes = runner(
+    xs, stats, passes, tr = runner(
         x0, lim0, q0, -f0, params, dyn0, t0, tstop, h0, float(dtmax), hmin,
         torch.as_tensor(bp, dtype=DTYPE, device=dev),
         torch.as_tensor(save_np, dtype=DTYPE, device=dev), diff_mask)
@@ -422,8 +536,10 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
         xs = xs[0]
         stats = TranStats(*(v[0] for v in stats))
         op_conv, op_iters = op_conv[0], op_iters[0]
+        if tr is not None:
+            tr = (tr[0][0], tr[1][0])
     timings = {"op": wall_op - wall0,
                "transient": time.perf_counter() - wall_op}
     return TranSolution(cc, save_np, xs, stats, op_converged=op_conv,
                         host_syncs=passes, op_iters=op_iters,
-                        timings=timings)
+                        timings=timings, trace=tr)

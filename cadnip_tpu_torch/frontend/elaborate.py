@@ -25,9 +25,16 @@ Q, J or Z line whose `.model` card has the module's name as its type
 parameters map case-insensitively, set the `__given` mask, and pick the
 model's per-signature specialization (node collapse).
 
+Behavioral B-sources (`b1 out 0 v={...}` or `i={...}`) become one-off
+DeviceModels whose residual evaluates the expression on tensors
+(`expressions.eval_expr_traced`): v() of any node, i() of a V source or
+inductor (sensed by name) and `time`. `.data` tables and `.meas` cards are
+kept on the Elaborator (`data_tables`, `meas_cards`), and `simulate` runs
+a deck's analysis cards (.op, .tran, .ac, .dc, .dc data=, .noise) and
+then its `.meas` cards.
+
 Not ported yet, and raising NotImplementedError with the feature's name:
-the Spectre dialect, behavioral B-sources and the `simulate` analyses
-runner.
+the Spectre dialect.
 
 `montecarlo_elaborate` elaborates a netlist once per sample with its
 statistical functions (agauss, gauss, aunif, unif) drawing from a seeded
@@ -51,8 +58,8 @@ from ..mna.spec import SimSpec
 from ..mna.structure import GROUND_NAMES, Circuit
 from ..models.registry import getmodel
 from ..va.codegen import load_va_file
-from .expressions import (ExprError, eval_expr, expr_names, parse_expr,
-                          parse_number)
+from .expressions import (ExprError, eval_expr, eval_expr_traced,
+                          expr_names, parse_expr, parse_number)
 from .netlist import (DotCard, Element, IfBlock, LibSection, Netlist,
                       SubcktDef, parse_netlist)
 
@@ -190,6 +197,8 @@ class Elaborator:
             "temper": lambda: self.temp if self.temp is not None else 27.0,
         }
         self.analyses: list[Analysis] = []
+        self.meas_cards: list[str] = []
+        self.data_tables: dict = {}
         self.options: dict = {}
         self.temp: Optional[float] = None
         self.globals: set = set()
@@ -282,6 +291,28 @@ class Elaborator:
         elif kind in ("op", "dc", "ac", "tran", "noise"):
             self.analyses.append(Analysis(kind, {"fields": card.fields,
                                                  "kwargs": card.kwargs}))
+        elif kind == "data":
+            # .data table: name, column names, then row-major values
+            # (ngspice data-driven sweeps; columns are alterable
+            # instance.param keys, consumed by '.dc data=name')
+            words_ = [f[1] for f in card.fields if f[0] == "word"]
+            cols = []
+            i = 1
+            while i < len(words_) and parse_number(words_[i]) is None:
+                cols.append(words_[i].lower())
+                i += 1
+            vals = [parse_number(w) for w in words_[i:]]
+            if cols and vals and len(vals) % len(cols) == 0:
+                arr = np.asarray(vals, float).reshape(-1, len(cols))
+                self.data_tables[words_[0].lower()] = {
+                    c: arr[:, j] for j, c in enumerate(cols)}
+            else:
+                self._warn_once(("data", words_[0] if words_ else "?"),
+                                f".data {card.line!r}: malformed table")
+        elif kind in ("meas", "measure"):
+            # evaluated after the analyses in simulate() (ngspice .meas
+            # semantics, analyses/measure.py)
+            self.meas_cards.append(card.line)
         elif kind == "title":
             pass
         else:
@@ -641,9 +672,23 @@ class Elaborator:
         elif L == "X":
             self._subckt_call(card, scope, prefix, flat_node)
         elif L == "B":
-            _not_ported("behavioral B-sources", "item 9")
+            self._bsource(card, scope, prefix, flat_node)
         else:
             raise ElabError(f"element type {L!r} not supported yet")
+
+    def _bsource(self, card: Element, scope, prefix, flat_node):
+        name = prefix + card.name
+        words = [fld[1] for fld in card.fields if fld[0] == "word"]
+        n1, n2 = words[0], words[1]
+        is_v = "v" in card.kwargs
+        expr_f = card.kwargs.get("v") or card.kwargs.get("i")
+        if expr_f is None:
+            raise ElabError(f"{name}: B source needs V= or I=")
+        ast = parse_expr(expr_f[1])
+        model, nodes, sense = _make_bsource_model(
+            name, ast, is_v, scope, flat_node, (flat_node(n1),
+                                                flat_node(n2)), prefix)
+        self.cir.add(model, name, nodes, sense=sense)
 
     def _tier1_va(self, mc: ModelCard):
         """Tier-1 registry resolution for a model card (reference
@@ -852,6 +897,136 @@ def _make_wave(kind: str, args):
     raise ElabError(kind)
 
 
+# ---------------------------------------------------------------------------
+# behavioral sources
+
+def _behavioral_refs(ast):
+    """Collect v(...)/i(...) references and free parameter names."""
+    vrefs, irefs, names = [], [], set()
+
+    def walk(e):
+        if e[0] == "call":
+            fn = e[1]
+            if fn == "v":
+                args = tuple(a[1] for a in e[2])
+                if args not in vrefs:
+                    vrefs.append(args)
+                return
+            if fn == "i":
+                args = e[2][0][1]
+                if args not in irefs:
+                    irefs.append(args)
+                return
+            for a in e[2]:
+                walk(a)
+        elif e[0] == "name":
+            names.add(e[1].lower())
+        elif e[0] == "bin":
+            walk(e[2])
+            walk(e[3])
+        elif e[0] == "un":
+            walk(e[2])
+        elif e[0] == "cond":
+            for x in e[1:]:
+                walk(x)
+
+    walk(ast)
+    return vrefs, irefs, names
+
+
+def _make_bsource_model(name, ast, is_v, scope, flat_node, out_nodes,
+                        prefix):
+    """Create a one-off DeviceModel for a behavioral source.
+
+    Local layout: [p, n, ctrl_nodes..., sensed currents..., (i_branch if
+    V-source)]. The residual builds its rows out of place (torch.stack),
+    so that vmap and jacrev trace it."""
+    vrefs, irefs, pnames = _behavioral_refs(ast)
+    ctrl_nodes = []
+    for ref in vrefs:
+        for nd in ref:
+            fn = flat_node(nd)
+            if fn not in ctrl_nodes:
+                ctrl_nodes.append(fn)
+    env = _ScopeEnv(scope)
+    const_scope = {}
+    for pn in pnames:
+        if pn in ("time",):
+            continue
+        const_scope[pn] = env[pn]
+
+    # local layout matches structure.py: terminals (p, n, ctrl..., isense...)
+    # then internals (the branch current for a V-type source)
+    n_ctrl = len(ctrl_nodes)
+    ctrl_pos = {nd: 2 + k for k, nd in enumerate(ctrl_nodes)}
+    sense_base = 2 + n_ctrl
+    i_pos = sense_base + len(irefs) if is_v else None
+    n_local = sense_base + len(irefs) + (1 if is_v else 0)
+
+    def node_val(u, nd):
+        fn = flat_node(nd)
+        if fn in GROUND_NAMES:
+            return 0.0
+        if fn == out_nodes[0]:
+            return u[0]
+        if fn == out_nodes[1]:
+            return u[1]
+        return u[ctrl_pos[fn]]
+
+    def residual(u, p, dyn):
+        def vref_val(ref):
+            va = node_val(u, ref[0])
+            if len(ref) > 1:
+                va = va - node_val(u, ref[1])
+            return va
+
+        vcache = {ref: vref_val(ref) for ref in vrefs}
+        icache = {nm: u[sense_base + k] for k, nm in enumerate(irefs)}
+
+        scope_t = dict(const_scope)
+        scope_t["time"] = dyn.time
+
+        # substitute v()/i() calls by their values, then evaluate
+        def subst(e):
+            if e[0] == "call" and e[1] == "v":
+                return ("num", vcache[tuple(a[1] for a in e[2])])
+            if e[0] == "call" and e[1] == "i":
+                return ("num", icache[e[2][0][1]])
+            if e[0] == "call":
+                return ("call", e[1], [subst(a) for a in e[2]])
+            if e[0] == "bin":
+                return ("bin", e[1], subst(e[2]), subst(e[3]))
+            if e[0] == "un":
+                return ("un", e[1], subst(e[2]))
+            if e[0] == "cond":
+                return ("cond", subst(e[1]), subst(e[2]), subst(e[3]))
+            return e
+
+        val = eval_expr_traced(subst(ast), scope_t)
+        z = u[0] * 0.0
+        rows = [z] * n_local
+        if is_v:
+            ib = u[i_pos]
+            rows[0] = z + ib
+            rows[1] = rows[1] - ib
+            rows[i_pos] = u[0] - u[1] - val
+        else:
+            rows[0] = z + val
+            rows[1] = rows[1] - val
+        f = torch.stack(rows)
+        return f, torch.zeros_like(f) * u[0]
+
+    terminals = tuple(["p", "n"] + [f"c{k}" for k in range(n_ctrl)]
+                      + [f"isense{k}" for k in range(len(irefs))])
+    internals = (("i", dv.CLASS_I),) if is_v else ()
+    model = dv.DeviceModel(
+        name=f"bsource:{name}", terminals=terminals, residual=residual,
+        internals=internals, defaults={})
+    nodes = tuple(out_nodes) + tuple(ctrl_nodes)
+    sense = tuple(prefix + nm for nm in irefs)
+    return model, nodes, sense
+
+
 def _looks_like_spectre(text: str) -> bool:
     """The JAX package's Spectre sniffing (`frontend/spectre.py`)."""
     head = text[:2000]
@@ -935,8 +1110,111 @@ def parse_spice(source, *, include_dirs=(), section=None,
     return cir.compile(spice_spec(el, spec), device=device)
 
 
-def simulate(source, **kw):
-    _not_ported("the netlist analyses runner (simulate)", "item 9")
+def simulate(source, *, include_dirs=(), section=None,
+             spec: SimSpec | None = None, device=DEFAULT_DEVICE):
+    """Parse a netlist, compile it on `device` (the card by default, "cpu"
+    for the host) and run its analysis cards (.op, .dc, .tran, .ac,
+    .noise), then its .meas cards.
+
+    Returns {analysis_kind: solution} (the last card of each kind wins the
+    key; every result is listed under 'all', the circuit under 'circuit',
+    the measurements under 'meas')."""
+    from ..analyses.ac import ac as ac_run, acdec
+    from ..analyses.dc import dc as dc_run
+    from ..analyses.noise import noise as noise_run
+    from ..analyses.sweeps import dcsweep
+    from ..analyses.tran import tran as tran_run
+
+    cir, el = elaborate_netlist(source, include_dirs=include_dirs,
+                                section=section)
+    cc = cir.compile(spice_spec(el, spec), device=device)
+    results = {"all": [], "circuit": cc}
+    for an in el.analyses:
+        if an.args.get("spectre"):
+            _not_ported("the Spectre dialect", "item 9")
+        fields = an.args["fields"]
+        vals = []
+        words = []
+        for fld in fields:
+            num = parse_number(fld[1]) if fld[0] == "word" else None
+            if num is not None or fld[0] == "expr":
+                vals.append(num if num is not None
+                            else float(fld[1]))
+            elif fld[0] == "word":
+                words.append(fld[1])
+        if an.kind == "op":
+            sol = dc_run(cc, nodeset=el.options.get("nodeset"))
+        elif an.kind == "tran":
+            # .tran tstep tstop [tstart [tmax]] [uic]
+            tstep = vals[0]
+            tstop = vals[1]
+            tstart = vals[2] if len(vals) > 2 else 0.0
+            tmax = vals[3] if len(vals) > 3 else None
+            integ = ("gear2" if str(el.options.get("method", "")) == "gear"
+                     else "trap")
+            sol = tran_run(cc, (tstart, tstop), dt=tstep, dtmax=tmax,
+                           integ=integ, ic=el.options.get("ic"),
+                           uic=any(w.lower() == "uic" for w in words))
+        elif an.kind == "ac":
+            mode = words[0].lower() if words else "dec"
+            npts = int(vals[0])
+            fstart, fstop = vals[1], vals[2]
+            if mode == "dec":
+                freqs = acdec(npts, fstart, fstop)
+            elif mode == "lin":
+                freqs = np.linspace(fstart, fstop, npts)
+            else:
+                freqs = np.geomspace(fstart, fstop, npts)
+            sol = ac_run(cc, freqs)
+        elif an.kind == "dc":
+            kwargs = an.args.get("kwargs", {})
+            if "data" in kwargs:
+                # .dc data=tab: data-driven sweep over the table columns
+                tab = el.data_tables.get(str(kwargs["data"][1]).lower())
+                if tab is None:
+                    raise ElabError(f".dc data: unknown table "
+                                    f"{kwargs['data'][1]!r}")
+                sol = dcsweep(cc, dict(tab))
+            else:
+                # .dc srcname start stop step
+                src = words[0]
+                start, stop, step = vals[0], vals[1], vals[2]
+                pts = np.arange(start, stop + step * 0.5, step)
+                sol = dcsweep(cc, {f"{src}.dc": pts})
+        elif an.kind == "noise":
+            # .noise v(out[,ref]) src dec npts fstart fstop
+            out = None
+            for fld in fields:
+                if fld[0] == "group":
+                    inner = [g[1] for g in fld[1] if g[0] == "word"]
+                    out = tuple(inner) if len(inner) > 1 else inner[0]
+            vwords = [w for w in words if w.lower() not in
+                      ("dec", "lin", "oct", "v")]
+            srcname = vwords[0] if vwords else None
+            npts = int(vals[0])
+            freqs = acdec(npts, vals[1], vals[2])
+            sol = noise_run(cc, out, freqs, input=srcname)
+        else:
+            continue
+        results[an.kind] = sol
+        results["all"].append((an.kind, sol))
+    if el.meas_cards:
+        from ..analyses.measure import MeasError, eval_meas
+        meas = {}
+        for line in el.meas_cards:
+            m = re.match(r"^\.\s*meas(?:ure)?\s+(\w+)", line.strip(),
+                         re.I)
+            sol = results.get(m.group(1).lower()) if m else None
+            if sol is None:
+                continue
+            try:
+                nm, val = eval_meas(line, sol, meas)
+                meas[nm] = val
+            except MeasError as e:
+                import warnings
+                warnings.warn(f".meas failed: {e}")
+        results["meas"] = meas
+    return results
 
 
 def montecarlo_elaborate(source, n: int, seed: int = 0, *,

@@ -7,9 +7,10 @@ ternary, the SPICE function library, and number literals with magnitude
 suffixes (`1k`, `2.5u`, `1meg`, trailing unit letters ignored: `10pF`).
 
 Expressions evaluate against a scope dict with plain Python floats during
-elaboration. This module is the JAX package's expression parser, copied
-(pure Python, no JAX); only the tensor-valued evaluator of behavioral
-sources is not ported yet.
+elaboration (`eval_expr`), or as torch tensors for behavioral B-sources
+(`eval_expr_traced`: every value a tensor, ternaries through torch.where,
+comparisons as 0/1 masks; traceable by torch.func). The parser is the JAX
+package's, copied (pure Python).
 """
 from __future__ import annotations
 
@@ -293,10 +294,95 @@ def eval_expr(ast, scope, funcs=None):
 
 
 def eval_expr_traced(ast, scope, funcs=None):
-    """Tensor-valued evaluation for behavioral B-sources: not ported yet."""
-    raise NotImplementedError(
-        "behavioral B-sources (eval_expr_traced) are not ported to "
-        "cadnip_tpu_torch yet (ROADMAP, modules still to port, item 9)")
+    """Evaluate an AST with tensor semantics, traceable by torch.func:
+    a ternary becomes torch.where, a comparison a float mask, and the
+    function library its torch twin. Used for behavioral B-sources, where
+    node voltages, currents and `time` are tensors (reference B-source
+    expression transformation, `src/spc/codegen.jl:1226-1494`).
+
+    Every number is promoted to an f64 tensor on the device of the
+    scope's tensors, so that both arms of a `where` are tensors and no
+    branch falls back to Python control flow."""
+    import torch
+
+    from ..config import DTYPE
+
+    dev = next((v.device for v in scope.values()
+                if isinstance(v, torch.Tensor)), None)
+
+    def t(v):
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.tensor(float(v), dtype=DTYPE, device=dev)
+
+    one, zero = t(1.0), t(0.0)
+
+    def mask(c):
+        return torch.where(c, one, zero)
+
+    F1 = {"sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+          "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+          "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+          "exp": torch.exp, "ln": torch.log, "log": torch.log,
+          "log10": torch.log10, "sqrt": torch.sqrt, "abs": torch.abs,
+          "int": torch.trunc, "nint": torch.round, "floor": torch.floor,
+          "ceil": torch.ceil, "sgn": torch.sign,
+          "u": lambda x: mask(x > 0),
+          "uramp": lambda x: torch.maximum(x, zero)}
+    F2 = {"pow": torch.pow,
+          "pwr": lambda a, b: torch.pow(torch.abs(a), b) * torch.sign(a),
+          "min": torch.minimum, "max": torch.maximum, "atan2": torch.atan2,
+          "hypot": torch.hypot, "mod": torch.fmod}
+    F3 = {"limit": lambda x, lo, hi: torch.minimum(torch.maximum(x, lo),
+                                                   hi)}
+
+    def ev(e):
+        tag = e[0]
+        if tag == "num":
+            return t(e[1])
+        if tag == "name":
+            key = e[1].lower()
+            if key in scope:
+                return t(scope[key])
+            raise ExprError(f"undefined parameter {e[1]!r}")
+        if tag == "un":
+            a = ev(e[2])
+            if e[1] == "-":
+                return -a
+            if e[1] == "+":
+                return a
+            return mask(a == 0)
+        if tag == "bin":
+            op = e[1]
+            a, b = ev(e[2]), ev(e[3])
+            table = {
+                "+": lambda: a + b, "-": lambda: a - b,
+                "*": lambda: a * b, "/": lambda: a / b,
+                "**": lambda: torch.pow(a, b),
+                "<": lambda: mask(a < b), ">": lambda: mask(a > b),
+                "<=": lambda: mask(a <= b), ">=": lambda: mask(a >= b),
+                "==": lambda: mask(a == b), "!=": lambda: mask(a != b),
+                "&&": lambda: mask((a != 0) & (b != 0)),
+                "||": lambda: mask((a != 0) | (b != 0)),
+            }
+            return table[op]()
+        if tag == "cond":
+            return torch.where(ev(e[1]) != 0, ev(e[2]), ev(e[3]))
+        if tag == "call":
+            fname = e[1]
+            args = [ev(a) for a in e[2]]
+            if funcs and fname in funcs:
+                return t(funcs[fname](*args))
+            if fname in F1 and len(args) == 1:
+                return F1[fname](args[0])
+            if fname in F2 and len(args) == 2:
+                return F2[fname](*args)
+            if fname in F3 and len(args) == 3:
+                return F3[fname](*args)
+            raise ExprError(f"unknown function {fname!r}/{len(args)}")
+        raise ExprError(f"bad AST node {e!r}")
+
+    return ev(ast)
 
 
 def expr_names(ast):

@@ -124,14 +124,6 @@ def ensure_setup(cc: CompiledCircuit, params, dyn=None):
     return out
 
 
-def _check_model(model):
-    if model.n_delay_sites:
-        raise NotImplementedError(
-            f"{model.name}: Verilog-A absdelay is not ported to "
-            f"cadnip_tpu_torch yet (ROADMAP, modules still to port, item "
-            f"3b)")
-
-
 #: leaves whose unbatched rank is 2: waveform coefficients [n_inst, width]
 #: and the host-setup matrix [n_inst, K]
 RANK2_LEAVES = ("coeffs", "__setup__")
@@ -249,17 +241,26 @@ def _group_eval(model, u, u_lim_prev, p, dyn):
 class GroupEvaluator:
     """The gather -> vmapped evaluation half of an assembly, shared by the
     dense assembler and the block-bordered-diagonal one
-    (`mna/bbd_assemble.py`): `evaluate(x_pad, lim, params, dyn)` gives per
-    group the flattened [B, ...] residual, charge, local Jacobians and
-    limiter state, which each assembler scatters into its own form."""
+    (`mna/bbd_assemble.py`): `evaluate(x_pad, lim, params, dyn, dly)` gives
+    per group the flattened [B, ...] residual, charge, local Jacobians and
+    limiter state, which each assembler scatters into its own form.
+
+    `dly` [B, n_delay] holds the absdelay history values of the transient
+    runner, instance-major per group with delay sites (`dly_slices`); each
+    such group reads its slice as p["__dly__"] [n_inst, n_sites]."""
 
     def __init__(self, cc: CompiledCircuit):
         dev = cc.device
         self.device = dev
         self.consts = []
+        self.dly_slices = []
         lim_off = 0
+        dly_off = 0
         for g in cc.groups:
-            _check_model(g.model)
+            S = g.model.n_delay_sites
+            self.dly_slices.append(
+                (dly_off, dly_off + g.conn.shape[0] * S, S) if S else None)
+            dly_off += g.conn.shape[0] * S
             conn = torch.as_tensor(g.conn, dtype=ITYPE, device=dev)
             sl = None
             if g.model.residual_lim is not None:
@@ -273,6 +274,7 @@ class GroupEvaluator:
                            _group_eval(_m, u, ul, p, d))
             self.consts.append((g.model, conn, sl, batched))
         self.n_lim = lim_off
+        self.n_delay = dly_off
 
     def init_lim(self, x_pad):
         parts = [_lim_seed(model, conn, x_pad)
@@ -282,7 +284,7 @@ class GroupEvaluator:
                                device=self.device)
         return torch.cat(parts, dim=1)
 
-    def eval_group(self, gi, x_pad, lim, p, dyn: DynSpec):
+    def eval_group(self, gi, x_pad, lim, p, dyn: DynSpec, dly=None):
         """Group gi alone -> (f, q, J, C, lim_part) per lane-instance."""
         _, conn, sl, batched = self.consts[gi]
         B = x_pad.shape[0]
@@ -290,16 +292,21 @@ class GroupEvaluator:
         u = x_pad[:, conn].reshape(B * I, L)
         u_lim_prev = (lim[:, sl[0]:sl[1]].reshape(B * I, sl[2])
                       if sl is not None else u)
-        return batched(u, u_lim_prev, _lane_params(p, B, I),
-                       _lane_dyn(dyn, B, I))
+        lp = _lane_params(p, B, I)
+        dsl = self.dly_slices[gi]
+        if dsl is not None and dly is not None:
+            # the delayed-expression history values, per instance
+            lp["__dly__"] = dly[:, dsl[0]:dsl[1]].reshape(B * I, dsl[2])
+        return batched(u, u_lim_prev, lp, _lane_dyn(dyn, B, I))
 
-    def evaluate(self, x_pad, lim, params, dyn: DynSpec):
+    def evaluate(self, x_pad, lim, params, dyn: DynSpec, dly=None):
         """(fs, qs, Js, Cs, lim_new): per group [B, ...] lists, flattened
         instance-major, and the new limiter state [B, n_lim]."""
         B = x_pad.shape[0]
         fs, qs, Js, Cs, lims = [], [], [], [], []
         for gi, p in enumerate(params):
-            f, q, J, C, u_eval = self.eval_group(gi, x_pad, lim, p, dyn)
+            f, q, J, C, u_eval = self.eval_group(gi, x_pad, lim, p, dyn,
+                                                 dly)
             if self.consts[gi][2] is not None:
                 lims.append(u_eval.reshape(B, -1))
             fs.append(f.reshape(B, -1))
@@ -310,12 +317,15 @@ class GroupEvaluator:
 
 
 def make_assembler(cc: CompiledCircuit):
-    """Build assemble(x_pad, lim, params, dyn) -> (F, Q, G, C, lim_new).
+    """Build assemble(x_pad, lim, params, dyn, dly=None) -> (F, Q, G, C,
+    lim_new).
 
     x_pad is [B, n+1] (ground slot last, always 0). F/Q are [B, n]; G/C
     dense [B, n, n]. `lim` [B, n_lim] holds each limited device's last
-    evaluation point, concatenated over groups. The function also carries
-    `init_lim(x_pad)`, `n_lim` and `eval_group(gi, x_pad, lim, p, dyn)`,
+    evaluation point, concatenated over groups; `dly` [B, n_delay] the
+    absdelay history values (None: every delay is the identity). The
+    function also carries `init_lim(x_pad)`, `n_lim`, `n_delay` and
+    `eval_group(gi, x_pad, lim, p, dyn)`,
     which evaluates group gi alone -> (f, q, J, C, lim_part) per
     lane-instance (what the assembly scatters; used to time a group)."""
     n = cc.n
@@ -329,9 +339,9 @@ def make_assembler(cc: CompiledCircuit):
     # gshunt lands on node-voltage diagonals only (reference build.jl)
     vmask = torch.as_tensor(cc.classes == CLASS_V, dtype=DTYPE, device=dev)
 
-    def assemble(x_pad, lim, params, dyn: DynSpec):
+    def assemble(x_pad, lim, params, dyn: DynSpec, dly=None):
         B = x_pad.shape[0]
-        fs, qs, Js, Cs, lim_new = ev.evaluate(x_pad, lim, params, dyn)
+        fs, qs, Js, Cs, lim_new = ev.evaluate(x_pad, lim, params, dyn, dly)
         F = fq_scatter(fs)[:, :n]
         Q = fq_scatter(qs)[:, :n]
         G = gc_scatter(Js).reshape(B, np1, np1)[:, :n, :n]
@@ -344,8 +354,47 @@ def make_assembler(cc: CompiledCircuit):
 
     assemble.init_lim = ev.init_lim
     assemble.n_lim = ev.n_lim
+    assemble.n_delay = ev.n_delay
     assemble.eval_group = ev.eval_group
     return assemble
+
+
+class DelayMeta:
+    """Delay-history metadata of a circuit with absdelay devices: `size`
+    (delay sites over all instances) and `probe(x_pad, params, dyn) ->
+    (vals, taus)`, each [B, size]: the instantaneous values and delays of
+    every absdelay'd expression, in the flat order of the assembler's
+    `dly` (instance-major per group)."""
+
+    def __init__(self, cc: CompiledCircuit):
+        self.groups = []
+        self.size = 0
+        for gi, g in enumerate(cc.groups):
+            if not g.model.n_delay_sites:
+                continue
+            self.groups.append((gi, torch.as_tensor(
+                g.conn, dtype=ITYPE, device=cc.device),
+                vmap(g.model.delay_probe)))
+            self.size += g.conn.shape[0] * g.model.n_delay_sites
+
+    def probe(self, x_pad, params, dyn: DynSpec):
+        B = x_pad.shape[0]
+        vals, taus = [], []
+        for gi, conn, probe in self.groups:
+            I, L = conn.shape
+            v, t = probe(x_pad[:, conn].reshape(B * I, L),
+                         _lane_params(params[gi], B, I),
+                         _lane_dyn(dyn, B, I))
+            vals.append(v.reshape(B, -1))
+            taus.append(t.reshape(B, -1))
+        return torch.cat(vals, dim=1), torch.cat(taus, dim=1)
+
+
+def make_delay_meta(cc: CompiledCircuit):
+    """A DelayMeta for a circuit with absdelay sites, else None."""
+    if not any(g.model.n_delay_sites for g in cc.groups):
+        return None
+    return DelayMeta(cc)
 
 
 def make_ac_rhs(cc: CompiledCircuit):
@@ -383,7 +432,6 @@ def make_rhs_assembler(cc: CompiledCircuit):
     dev = cc.device
     consts = []
     for g in cc.groups:
-        _check_model(g.model)
         consts.append((torch.as_tensor(g.conn, dtype=ITYPE, device=dev),
                        vmap(g.model.residual)))
     scatter = make_sorted_scatter([g.conn for g in cc.groups], np1, dev)

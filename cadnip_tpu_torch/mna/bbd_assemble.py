@@ -163,7 +163,7 @@ def _dest(part: BBDPartition, gi: int, gj: int):
 
 
 def make_bbd_assembler(cc: CompiledCircuit, part: BBDPartition):
-    """Build assemble(x_pad, lim, params, dyn) ->
+    """Build assemble(x_pad, lim, params, dyn, dly=None) ->
     (F, Q, (GD, GE, GF, GB), (CD, CE, CF, CB), lim_new), batch-first:
     x_pad [B, n+1], F / Q [B, n], GD [B, K, bs, bs], GE [B, K, bs, nbl],
     GF [B, K, nbl, bs], GB [B, nb+1, nb+1]. It carries `init_lim`, `n_lim`
@@ -203,9 +203,9 @@ def make_bbd_assembler(cc: CompiledCircuit, part: BBDPartition):
         t, flat = _dest(part, int(i), int(i))
         gsh[t][flat] = 1.0
 
-    def assemble(x_pad, lim, params, dyn: DynSpec):
+    def assemble(x_pad, lim, params, dyn: DynSpec, dly=None):
         B = x_pad.shape[0]
-        fs, qs, Js, Cs, lim_new = ev.evaluate(x_pad, lim, params, dyn)
+        fs, qs, Js, Cs, lim_new = ev.evaluate(x_pad, lim, params, dyn, dly)
         gs = torch.as_tensor(dyn.gshunt).reshape(-1, 1)
         F = fq_scatter(fs)[:, :n] + gs * vmask * x_pad[:, :n]
         Q = fq_scatter(qs)[:, :n]
@@ -217,5 +217,6 @@ def make_bbd_assembler(cc: CompiledCircuit, part: BBDPartition):
 
     assemble.init_lim = ev.init_lim
     assemble.n_lim = ev.n_lim
+    assemble.n_delay = ev.n_delay
     assemble.eval_group = ev.eval_group
     return assemble

@@ -88,10 +88,10 @@ class DeviceModel:
     lim_branches: tuple = ()              # ((p_local, n_local|None), ...)
     n_lim_sites: int = 0
     # VA `absdelay` transport-delay sites (reference DDE path,
-    # `src/mna/delay.jl:20-28`). The history ring that feeds them in the
-    # transient is a later slice (ROADMAP item 3b): the compiler counts the
-    # sites, leaves `delay_probe` unset, and the assembler refuses a model
-    # with any.
+    # `src/mna/delay.jl:20-28`): delay_probe(u, p, dyn) -> (vals, taus),
+    # each [n_delay_sites]: the current value of every delayed expression
+    # and its delay. The transient runner records vals into a history ring
+    # and feeds the residual the interpolated past values as p["__dly__"].
     n_delay_sites: int = 0
     delay_probe: Optional[Callable] = None
     # VA node collapse (reference detect_short_circuits, vasim.jl:2723):

@@ -38,11 +38,13 @@ the pass (the JAX package's `.at[i].add` in the same order).
 the laplace_nd/zp/np/zd filters (controllable-canonical state-space with
 extra internal unknowns), `idt` and `$limit` (pnjlim / fetlim / limvds
 or a user-named function against the previous ITERATE's limited value)
-are supported. `absdelay` sites are discovered and counted
-(`n_delay_sites`), and the assembler refuses such a model: its history
-ring in the transient is a later slice (ROADMAP item 3b). Loop trip
-counts and laplace coefficients must be host-evaluable from parameter
-defaults, as in the JAX package.
+are supported. `absdelay` is a transport delay: a probe pass
+(`make_delay_probe`) records each site's instantaneous value and delay,
+the transient runner keeps them in a history ring and feeds the residual
+the interpolated past values through `p["__dly__"]`; DC, noise and any
+evaluation without that leaf take the instantaneous value (the identity).
+Loop trip counts and laplace coefficients must be host-evaluable from
+parameter defaults, as in the JAX package.
 '''
 from __future__ import annotations
 
@@ -302,7 +304,7 @@ class _Env:
 
     __slots__ = ("vars", "contrib", "mask", "noise_acc", "compiler",
                  "lim_w", "lim_d", "lim_rec", "lim_vnew", "lim_wsite",
-                 "vmask", "ddx_vals", "ddx_recording", "cse")
+                 "vmask", "ddx_vals", "ddx_recording", "delay_rec", "cse")
 
     def __init__(self, compiler, n_local):
         self.vars = {}
@@ -326,6 +328,9 @@ class _Env:
         # recording sink (jvp pre-pass sub-evaluation)
         self.ddx_vals = None
         self.ddx_recording = None
+        # absdelay probe pass: {site_idx: (value_now, tau)} sink; None in
+        # the residual pass (which reads p['__dly__'] instead)
+        self.delay_rec = None
         # switch-branch bookkeeping: accumulated activation mask per
         # V-contribution branch unknown (LRM switch branches: a branch with
         # no active V contribution this evaluation is an OPEN branch, its
@@ -1327,6 +1332,36 @@ class VACompiler:
 
         return residual_lim
 
+    def make_delay_probe(self):
+        """probe(u, p, dyn) -> (vals, taus), each [n_delay_sites]: the
+        instantaneous value of every absdelay'd expression and its delay,
+        in site order. The transient runner records vals into a per-site
+        history ring on every accepted step and interpolates at t - tau
+        for the residual (reference DDE history function,
+        `src/mna/delay.jl:20-28`)."""
+        if not self.delay_sites:
+            return None
+        comp = self
+        S = len(self.delay_sites)
+
+        def probe(u, p, dyn):
+            eff, sv = comp._runtime_base(u, p, dyn)
+            env = _Env(comp, comp.n_local)
+            env.vars = dict(sv)
+            env.delay_rec = {}
+            if comp.ddx_sites:
+                env.ddx_vals = comp._ddx_prepass(u, p, dyn, eff, 0.0,
+                                                 setup_vals=sv)
+            comp._init_vars(env, u, p, dyn, eff, 0.0)
+            for st in comp.runtime_stmts:
+                comp._exec(st, env, u, p, dyn, eff, 0.0)
+            zero = torch.zeros((), dtype=DTYPE, device=u.device)
+            vals = _stack([env.delay_rec[j][0] for j in range(S)], zero)
+            taus = _stack([env.delay_rec[j][1] for j in range(S)], zero)
+            return vals, taus
+
+        return probe
+
     def make_noise(self):
         comp = self
         if not self.noise_sites:
@@ -1760,10 +1795,22 @@ class VACompiler:
             # filtering lands with event timing support)
             return self._eval_expr(e[2][0], env, u, p, dyn, eff, s)
         if fn == "absdelay":
-            # transport delay (reference `src/mna/delay.jl:20-28`): the
-            # identity at DC. Its history ring in the transient is a later
-            # slice (ROADMAP item 3b); the assembler refuses models with
-            # delay sites.
+            # transport delay (reference `src/mna/delay.jl:20-28`).
+            # Probe pass: record (value now, tau) for the history ring.
+            # Residual pass inside the transient runner: read the
+            # interpolated past value from p['__dly__'] (explicit
+            # coupling: the delayed value is history, constant with
+            # respect to the current unknowns). DC and every evaluation
+            # without a runner take the instantaneous value (absdelay is
+            # the identity at DC).
+            j = self.delay_sites[id(e)]
+            if env.delay_rec is not None:
+                val = self._eval_expr(e[2][0], env, u, p, dyn, eff, s)
+                tau = self._eval_expr(e[2][1], env, u, p, dyn, eff, s)
+                env.delay_rec[j] = (val, tau)
+                return val
+            if isinstance(p, dict) and "__dly__" in p:
+                return p["__dly__"][j]
             return self._eval_expr(e[2][0], env, u, p, dyn, eff, s)
         if fn == "limexp":
             return _limexp(self._eval_expr(e[2][0], env, u, p, dyn, eff, s))
@@ -2384,6 +2431,7 @@ def compile_va_module(mod: VAModule, include_dirs=(),
         opvars=opvars_fn,
         structural_params=tuple(sorted(comp.structural_params)),
         n_delay_sites=len(comp.delay_sites),
+        delay_probe=comp.make_delay_probe(),
         collapses=tuple(sorted(collapses, key=str)),
         va_setup=comp.host_setup if comp.host_setup_enabled else None,
     )

@@ -117,6 +117,19 @@ Phases, each of which raises (exit code != 0) on failure:
      block and Schur shapes (and the nested level's) against its twin,
      bound and solve_ex, and the BBD Newton iteration split into the
      Schur launch, the block solves' launch and host time;
+ 16. (after phase 15, inside the wait on phase 13's process) Verilog-A
+     absdelay, behavioral B-sources and simulate() on the card: the delay
+     line of tests/test_delay.py (td = 5 us, a pulse) through tran() over
+     0-30 us within its gates (out(t) = in(t - td) within 0.03, the
+     plateaus within 1e-6), the mixed delay over 0-12 us with trace=True
+     (1.0 at 3 us, 1.5 at 9 us), each against the CPU port (equal step
+     counts, 1e-9 V, the trace's rows at equal indices) with K1 launches
+     at least its Newton passes; the delay line's AC over 801 frequencies
+     from 1 to 100 kHz (|H| = 1, phase -wt, one K1 launch, 1e-9 of max
+     |H| of the CPU port's); simulate() of the .meas, .op/.ac/.tran and
+     B-source decks of tests/test_frontend.py against the CPU port; the
+     wall, Newton passes, ms per pass and the delay probe's host time per
+     accepted step;
  14. phase 6's and 8b's comparisons with their CPU twins and phase 8c's
      ladder against the CPU port, the wall time of every phase and of the
      whole run, a JSON line of the kernels, the card's name and power
@@ -124,10 +137,11 @@ Phases, each of which raises (exit code != 0) on failure:
 
 From phase 9 on, two spawned worker processes replay the CPU references
 beside the card's host loop: worker A phase 9's check lanes, phases 11 and
-12, then phase 6's twins; worker B phase 8b's reference and phase 8c's
-ladder. Phase 13 runs at the same time in a spawned process on the card
-(the card must be in the Default compute mode), with a worker of its own
-for mul's serial_trap witness and its replays; its gates and launch counts
+12, then phase 6's twins; worker B phase 8b's reference, phase 8c's
+ladder and phase 16's CPU side. Phase 13 runs at the same time in a
+spawned process on the card (the card must be in the Default compute
+mode), with a worker of its own for mul's serial_trap witness and its
+replays; its gates and launch counts
 come back to the main process, and its failure fails the run. Every read
 of a worker's result prints its wait. The workers never open the card,
 and the script stops every process it started on every exit.
@@ -586,7 +600,13 @@ def kernel_cases(card):
              # gives small batches of wide systems to the grid variant)
              (NESTED_BLOCK_ROW, 104, 86, 10, torch.float64, False),
              ("f64 n=160 k=1 b=1", 160, 1, 1, torch.float64, False),
-             ("f64 n=167 k=1 b=1", 167, 1, 1, torch.float64, False)]
+             ("f64 n=167 k=1 b=1", 167, 1, 1, torch.float64, False),
+             # phase 16's shapes: a Newton pass of the delay lines (n = 4)
+             # and the delayed AC sweep (2n = 8, 801 frequencies)
+             ("f64 n=4 k=1 b=1 (delay line Newton)", 4, 1, 1,
+              torch.float64, False),
+             ("f64 n=8 k=1 b=801 (delayed AC sweep)", 8, 1, 801,
+              torch.float64, False)]
     results = {}
     for name, n, k, b, dtype, zero_diag in cases:
         # well-conditioned (eigenvalues within ~1 of 2), so the residual
@@ -2685,6 +2705,300 @@ def pit_engines(card, cpu2, graetz_k2, dar, witness_job):
     return out
 
 
+
+#: phase 16: Verilog-A absdelay, behavioral B-sources and simulate(). The
+#: delay modules and decks of tests/test_delay.py (`{va}` is the path of
+#: DELAY_VA written to a temporary directory), their gates, and the decks
+#: of tests/test_frontend.py's meas, simulate and B-source cases
+DELAY_VA = """
+`include "disciplines.vams"
+module dline(a, y);
+  inout a, y;
+  electrical a, y;
+  parameter real td = 5u from (0:inf);
+  analog V(y) <+ absdelay(V(a), td);
+endmodule
+
+module dmix(a, y);
+  inout a, y;
+  electrical a, y;
+  parameter real td = 4u;
+  parameter real k = 0.5;
+  analog V(y) <+ V(a) + k * absdelay(V(a), td);
+endmodule
+"""
+DELAY_DECKS = {
+    "dline": """delay line
+.hdl "{va}"
+v1 in 0 dc 0 pulse 0 1 2u 1u 1u 10u 40u
+x1 in out dline td=5u
+r1 out 0 1k
+""",
+    "dmix": """delay mix
+.hdl "{va}"
+v1 in 0 dc 0 pulse 0 1 1u 0.5u 0.5u 20u 50u
+x1 in out dmix td=4u k=0.5
+r1 out 0 1k
+""",
+    "dline ac": """delay ac
+.hdl "{va}"
+v1 in 0 dc 1 ac 1
+x1 in out dline td=5u
+r1 out 0 1k
+"""}
+DLINE_TD, DLINE_SPAN, DMIX_SPAN, DELAY_DT = 5e-6, 30e-6, 12e-6, 0.1e-6
+#: dline's gates: max |out(t) - in(t - td)|, and the plateaus (time, volts)
+DLINE_SHIFT_TOL, DLINE_PLATEAUS = 0.03, ((12e-6, 1.0), (25e-6, 0.0),
+                                         (5e-6, 0.0))
+DMIX_GATES = ((3e-6, 1.0), (9e-6, 1.5))    # within 1e-3
+DELAY_AC_FREQS = (400, 1e3, 1e5)           # acdec: 801 points
+#: dmix's trace, card against CPU: the violation column (max |dx| over
+#: its tolerance) of a converged pass is at the rounding floor of dx, where
+#: K1's sums and the twin's part; the other columns are held to 1e-12
+TRACE_VIOL_TOL = 1e-6
+SIM_DECKS = {
+    "meas": """meas test
+vs in 0 dc 0 pulse 0 1 1u 1n 1n 4u 10u
+r1 in out 1k
+c1 out 0 1n
+.tran 0.05u 8u
+.meas tran vmax max v(out) from=0 to=8u
+.meas tran vend find v(out) at=4u
+.meas tran tcross when v(out)=0.5 rise=1
+.meas tran tdel trig v(in) val=0.5 rise=1 targ v(out) val=0.5 rise=1
+.meas tran vsq param = vmax*vmax
+""",
+    "cards": """auto
+v1 in 0 dc 5 ac 1
+r1 in out 1k
+c1 out 0 1u
+.op
+.ac dec 5 10 10k
+.tran 10u 1m
+""",
+    "bsource": """bsrc
+v1 in 0 2
+r1 in 0 1k
+bsq out 0 v={v(in)*v(in) + 1}
+rl out 0 1k
+.op
+"""}
+
+
+def delay_sim_runs(device):
+    """Phase 16's runs on `device` (the card in the main process, "cpu" in
+    a worker): dline through tran() over DLINE_SPAN and dmix over
+    DMIX_SPAN with trace=True, dline's AC over DELAY_AC_FREQS, and
+    simulate() on SIM_DECKS. Each run's K1 launches (0 on the CPU), wall
+    and, for the transients, the host time of the delay probe; the
+    results as numpy."""
+    import tempfile
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.mna import assemble as asm
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    probe, probe_s = asm.DelayMeta.probe, [0.0]
+
+    def timed_probe(self, *args):
+        t = time.perf_counter()
+        try:
+            return probe(self, *args)
+        finally:
+            probe_s[0] += time.perf_counter() - t
+
+    def host(v):
+        return v.detach().cpu().numpy()
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dline.va")
+        with open(path, "w") as fh:
+            fh.write(DELAY_VA)
+        decks = {k: v.format(va=path) for k, v in DELAY_DECKS.items()}
+        ccs = {k: ct.parse_spice(v, device=device) for k, v in decks.items()}
+    asm.DelayMeta.probe = timed_probe
+    try:
+        for name, span, kw in (("dline", DLINE_SPAN, {}),
+                               ("dmix", DMIX_SPAN, {"trace": True})):
+            sync()
+            gj_solve.launches, probe_s[0] = 0, 0.0
+            t = time.perf_counter()
+            sol = ct.tran(ccs[name], (0, span), dt=DELAY_DT, **kw)
+            sync()
+            out[name] = dict(
+                wall=time.perf_counter() - t, launches=gj_solve.launches,
+                probe_s=probe_s[0], converged=bool(sol.converged),
+                counts=tuple(int(v) for v in sol.stats[:3]),
+                op_iters=int(sol.op_iters), ts=np.asarray(sol.ts),
+                xs=host(sol.xs), vin=host(sol["in"]), vout=host(sol["out"]),
+                trace=None if sol.trace is None else
+                (host(sol.trace[0]), int(sol.trace[1])))
+    finally:
+        asm.DelayMeta.probe = probe
+    cc = ccs["dline ac"]
+    op = ct.dc(cc)
+    freqs = ct.acdec(*DELAY_AC_FREQS)
+    sync()
+    gj_solve.launches = 0
+    t = time.perf_counter()
+    h = ct.ac(cc, freqs, op_x=op.x)["out"]
+    sync()
+    out["ac"] = dict(freqs=freqs, h=h, wall=time.perf_counter() - t,
+                     launches=gj_solve.launches,
+                     converged=bool(op.converged))
+    for name, deck in SIM_DECKS.items():
+        sync()
+        gj_solve.launches = 0
+        t = time.perf_counter()
+        res = ct.simulate(deck, device=device)
+        sync()
+        r = dict(wall=time.perf_counter() - t, launches=gj_solve.launches,
+                 meas=res.get("meas", {}))
+        if "op" in res:
+            r["op"] = host(res["op"].x)
+            r["op_out"] = float(res["op"]["out"])
+            r["op_converged"] = bool(res["op"].converged)
+        if "ac" in res:
+            r["ac"] = res["ac"]["out"]
+        if "tran" in res:
+            r["tran_counts"] = tuple(int(v) for v in res["tran"].stats[:3])
+            r["tran_xs"] = host(res["tran"].xs)
+            r["tran_converged"] = bool(res["tran"].converged)
+        out[f"simulate {name}"] = r
+    return out
+
+
+def cpu_delay_sim():
+    """Phase 16's CPU side (a worker)."""
+    return delay_sim_runs("cpu")
+
+
+def delays_simulate(card, job):
+    """Phase 16: Verilog-A absdelay, B-sources and simulate() on the card.
+    dline over DLINE_SPAN within test_delay.py's gates (the shift, the
+    plateaus), dmix over DMIX_SPAN with the solver trace within its gates,
+    and dline's delayed AC sweep (|H| = 1, phase -ωτ, one K1 launch), each
+    against the CPU port (`job`: the worker's cpu_delay_sim()) with equal
+    step counts, voltages within 1e-9 V, the trace's rows at equal
+    indices and AC within AC_TOL of max |H|; the transients' K1 launches
+    at least their Newton passes. Then simulate() on the card on the
+    meas, cards and B-source decks of SIM_DECKS against the CPU port."""
+    got = delay_sim_runs("cuda")
+    t = time.perf_counter()
+    ref = job.result()
+    waited = time.perf_counter() - t
+    print(f"phase 16's CPU side read after a wait of {waited:.3f} s",
+          flush=True)
+    launches = {}
+    for name, span in (("dline", DLINE_SPAN), ("dmix", DMIX_SPAN)):
+        g, r = got[name], ref[name]
+        passes = g["counts"][2] + g["op_iters"]
+        dx = float(np.abs(g["xs"] - r["xs"]).max())
+        line = (f"{name} tran() 0-{span * 1e6:.0f} us on the card: wall "
+                f"{g['wall']:.3f} s, Newton passes {g['counts'][2]} + DC "
+                f"{g['op_iters']}, {g['wall'] / passes * 1e3:.2f} ms per "
+                f"pass, delay probe {g['probe_s'] * 1e3 / g['counts'][0]:.3f}"
+                f" ms of host time per accepted step; accepted, rejected, "
+                f"newton card / CPU {g['counts']} / {r['counts']}, max |dx| "
+                f"{dx:.3e} V, K1 launches {g['launches']} [{card}]")
+        print(line, flush=True)
+        if not (g["converged"] and r["converged"]):
+            raise RuntimeError(f"{line}: a transient failed")
+        if g["counts"] != r["counts"] or not dx <= CPU_TOL:
+            raise RuntimeError(f"{line}: card against CPU off")
+        if g["launches"] < passes:
+            raise RuntimeError(f"{line}: fewer K1 launches than Newton "
+                               f"passes")
+        launches[f"{name} tran (phase 16)"] = g["launches"]
+    g = got["dline"]
+    ts = g["ts"]
+    shift = int(round(DLINE_TD / (ts[1] - ts[0])))
+    err = float(np.abs(g["vout"][shift:] - g["vin"][:-shift]).max())
+    plat = [float(g["vout"][np.argmin(np.abs(ts - t0))] - v)
+            for t0, v in DLINE_PLATEAUS]
+    print(f"dline gates: max |out(t) - in(t - td)| {err:.4f} (gate "
+          f"{DLINE_SHIFT_TOL}), plateaus off by {plat}", flush=True)
+    if not (err < DLINE_SHIFT_TOL and max(map(abs, plat)) <= 1e-6):
+        raise RuntimeError("dline: the delayed waveform misses its gates")
+    g, r = got["dmix"], ref["dmix"]
+    vals = [float(g["vout"][np.argmin(np.abs(g["ts"] - t0))])
+            for t0, _ in DMIX_GATES]
+    (ring, ti), (rring, rti) = g["trace"], r["trace"]
+    k = min(ti, ring.shape[0])
+    a, b = ring[:k], rring[:k]
+    rel = float((np.abs(a[:, :2] - b[:, :2])
+                 / np.abs(b[:, :2]).clip(1e-300)).max())
+    viol = float(np.abs(a[:, 4] - b[:, 4]).max())
+    same = bool((a[:, [2, 3, 5]] == b[:, [2, 3, 5]]).all())
+    print(f"dmix: out {vals} at {[t0 for t0, _ in DMIX_GATES]} s; trace "
+          f"rows {ti} card / {rti} CPU, t and h within {rel:.3e} "
+          f"relative, iteration / converged / accepted columns equal "
+          f"{same}, violation within {viol:.3e} [{card}]", flush=True)
+    if not all(abs(v - w) <= 1e-3 for v, (_, w) in zip(vals, DMIX_GATES)):
+        raise RuntimeError("dmix: the mixed delay misses its gates")
+    if not (ti == rti and same and rel <= 1e-12 and viol <= TRACE_VIOL_TOL):
+        raise RuntimeError("dmix: the card's trace parts from the CPU's")
+    g, r = got["ac"], ref["ac"]
+    w = 2 * np.pi * g["freqs"]
+    mag = float(np.abs(np.abs(g["h"]) - 1.0).max())
+    phase = float(np.abs(np.angle(g["h"] * np.exp(1j * w * DLINE_TD))).max())
+    aerr = float(np.abs(g["h"] - r["h"]).max() / np.abs(r["h"]).max())
+    print(f"dline delayed AC, {len(w)} frequencies "
+          f"{g['freqs'][0]:.0f}-{g['freqs'][-1]:.0f} Hz: ||H| - 1| "
+          f"{mag:.3e}, phase against -wt {phase:.3e} rad, card against CPU "
+          f"{aerr:.3e} of max |H|, K1 launches {g['launches']}, wall "
+          f"{g['wall'] * 1e3:.1f} ms [{card}]", flush=True)
+    if not (g["converged"] and mag <= 1e-6 and phase <= 1e-6
+            and aerr <= AC_TOL and g["launches"] == 1):
+        raise RuntimeError("dline delayed AC: a gate failed")
+    launches["delayed AC sweep (phase 16)"] = g["launches"]
+    sim_launches = 0
+    for name in SIM_DECKS:
+        g, r = got[f"simulate {name}"], ref[f"simulate {name}"]
+        errs = {}
+        if g["meas"] or r["meas"]:
+            if set(g["meas"]) != set(r["meas"]):
+                raise RuntimeError(f"simulate {name}: .meas results "
+                                   f"{sorted(g['meas'])} / {sorted(r['meas'])}")
+            errs["meas"] = max(abs(g["meas"][k] - v) / max(abs(v), 1e-300)
+                               for k, v in r["meas"].items())
+        if "op" in r:
+            if not (g["op_converged"] and r["op_converged"]):
+                raise RuntimeError(f"simulate {name}: .op failed")
+            errs["op"] = float(np.abs(g["op"] - r["op"]).max()
+                               / np.abs(r["op"]).max())
+        if "ac" in r:
+            errs["ac"] = float(np.abs(g["ac"] - r["ac"]).max()
+                               / np.abs(r["ac"]).max())
+        if "tran_xs" in r:
+            if g["tran_counts"] != r["tran_counts"] or not (
+                    g["tran_converged"] and r["tran_converged"]):
+                raise RuntimeError(f"simulate {name}: .tran counts "
+                                   f"{g['tran_counts']} / {r['tran_counts']}")
+            errs["tran"] = float(np.abs(g["tran_xs"] - r["tran_xs"]).max()
+                                 / np.abs(r["tran_xs"]).max())
+        print(f"simulate() {name} deck on the card: wall {g['wall']:.3f} s, "
+              f"K1 launches {g['launches']}; card against CPU, relative: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + (f"; .meas {g['meas']}" if g["meas"] else "")
+              + f" [{card}]", flush=True)
+        if not all(v <= CPU_TOL for v in errs.values()) or not g["launches"]:
+            raise RuntimeError(f"simulate {name}: card against CPU off")
+        sim_launches += g["launches"]
+    vout = got["simulate bsource"]["op_out"]
+    print(f"B-source deck (bsq out 0 v={{v(in)*v(in) + 1}}, v(in) = 2 V): "
+          f"out {vout!r} V on the card", flush=True)
+    if not abs(vout - 5.0) <= 5.0 * 1e-8:
+        raise RuntimeError(f"B-source deck: out {vout} V, want 5 V")
+    launches["simulate() decks (phase 16)"] = sim_launches
+    return dict(launches=launches)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2730,11 +3044,13 @@ def main():
     # host-bound walls of phases 3-8c see no neighbour. Worker A: phase 9's
     # lanes, phases 11 and 12, then phase 6's twins (queued after phase
     # 12's jobs, so that phase 12 never waits); worker B: phase 8b's
-    # reference and phase 8c's ladder; phase 13's process has its own
+    # reference, phase 8c's ladder and phase 16's CPU side; phase 13's
+    # process has its own
     cpu, cpu2, child, done = cpu_worker(), cpu_worker(), None, False
     try:
         dar_job = cpu2.submit(cpu_darlington_ref)
         ladder_job = cpu2.submit(cpu_ladder_ac)
+        delay_job = cpu2.submit(cpu_delay_sim)
         child = start_pit_child(graetz_k2, dar)
         mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"],
                    cpu)
@@ -2750,6 +3066,8 @@ def main():
         twin_jobs = {name: cpu.submit(cpu_k2_twin, c["net"], c["setup"])
                      for name, c in twin.items() if name not in TWIN_ON_CARD}
         pg = phase("15 BBD power grid", power_grid, card)
+        dly = phase("16 delays, B-sources, simulate", delays_simulate, card,
+                    delay_job)
         res13 = phase("13 (its process: the wait)", join_pit_child, child)
         lin, pit = res13["lin"], res13["pit"]
         walls.update({f"{k} (own process)": v
@@ -2782,7 +3100,8 @@ def main():
                                   ("seed", "periodic seed"),
                                   ("windows", "windows"))},
                "ladder AC (phase 8c)": ac["ladder"]["launches"],
-               "power grid BBD dc + tran (phase 15)": pg["launches"]}
+               "power grid BBD dc + tran (phase 15)": pg["launches"],
+               **dly["launches"]}
     kernels = [{"name": "K1 gj_solve (warp, block and grid variants; jvp, "
                         "vjp)",
                 "route": "cuda",

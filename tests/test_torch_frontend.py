@@ -267,7 +267,7 @@ def test_once_deferred_lines_build_like_jax(line, what):
 
 
 @pytest.mark.parametrize("line, what", [
-    ("bsq a 0 v={v(b)*2}", "B-sources"),
+    ("simulator lang=spectre", "the Spectre dialect"),
     (".hdl \"diode.va\"", "Verilog-A"),
     ("ma a b 0 0 m2 w=1u l=1u\n.model m2 nmos level=49", "tier-1"),
     ("qv a b 0 q4\n.model q4 npn level=4", "tier-1"),

@@ -410,17 +410,27 @@ endmodule
 
 
 def test_absdelay_is_refused_at_assembly():
+    """absdelay is no longer refused: the compiler sets the delay probe,
+    the assembler takes the model, and at DC the delay is the identity,
+    as in the JAX package (the transient and AC cases are in
+    tests/test_torch_delay.py)."""
     src = """
 module dly(p, n, c);
   inout p, n, c; electrical p, n, c;
   analog V(p, n) <+ absdelay(V(c), 1n);
 endmodule
 """
-    m = tcg.compile_va(src)["dly"]
-    assert m.n_delay_sites == 1 and m.delay_probe is None
-    cir = tct.Circuit("dly")
-    cir.V("v1", "c", "0", dc=1.0)
-    cir.add(m, "x1", ("o", "0", "c"))
-    cir.R("r1", "o", "0", 1e3)
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        tct.dc(cir.compile(device="cpu"))
+    sols = []
+    for ct, cg, kw in ((jct, jcg, {}), (tct, tcg, {"device": "cpu"})):
+        m = cg.compile_va(src)["dly"]
+        assert m.n_delay_sites == 1 and m.delay_probe is not None
+        cir = ct.Circuit("dly")
+        cir.V("v1", "c", "0", dc=1.0)
+        cir.add(m, "x1", ("o", "0", "c"))
+        cir.R("r1", "o", "0", 1e3)
+        sols.append(ct.dc(cir.compile(**kw)))
+    js, ts = sols
+    assert bool(ts.converged) and int(ts.iters) == int(js.iters)
+    assert float(ts["o"]) == pytest.approx(1.0, abs=1e-12)
+    np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x),
+                               rtol=DC_RTOL, atol=DC_ATOL)
