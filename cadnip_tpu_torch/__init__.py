@@ -67,6 +67,19 @@ and whole decks run too: `simulate` parses a netlist, runs its .op, .tran,
     res = simulate(deck)                            # on "cuda"
     res["tran"]["out"], res["meas"]["tdel"]
 
+Spectre decks parse through the same entry points (the dialect is
+sniffed), with their analysis statements and `sweep` / `montecarlo`
+containers run by `simulate`; the writers turn a Circuit back into text
+(`frontend/writer.py`: `to_spice`, `to_spectre`, `to_veriloga`, and the
+`python -m cadnip_tpu_torch.convert` CLI); `summary`, `query`, `find` and
+`op_table` describe a circuit and its operating point; `explore` opens
+matplotlib sliders over a transient; `TranSolution.save` / `load` keep
+waveforms in the JAX package's .npz layout:
+
+    from cadnip_tpu_torch.frontend.writer import to_spectre
+    cc = parse_spice(to_spectre(parse_spice(dff_netlist(), compile=False)))
+    print(summary(cc)); print(op_table(dc(cc)))
+
 This package imports torch and numpy, never jax or cadnip_tpu.
 """
 from .mna.structure import Circuit, CompiledCircuit  # noqa: F401
@@ -89,7 +102,11 @@ from .analyses.sweeps import (  # noqa: F401
     montecarlo_table)
 from .analyses.sensitivity import dc_sensitivity  # noqa: F401
 from .ops.vmem_tran import supported, vmem_tran  # noqa: F401
-from .frontend.elaborate import parse_spice, simulate  # noqa: F401
+from .frontend.elaborate import (  # noqa: F401
+    parse_spice, simulate, circuit_from_file, register_pdk)
+from .frontend.netlist import alter_text  # noqa: F401
+from .frontend.introspect import find, op_table, query, summary  # noqa: F401
+from .frontend.explore import explore, Explorer  # noqa: F401
 from .va.codegen import (  # noqa: F401
     VACompileError, compile_va, load_va_file)
 from . import models  # noqa: F401
@@ -107,7 +124,10 @@ __all__ = [
     "noise", "NoiseSolution",
     "Sweep", "ProductSweep", "TandemSweep", "SerialSweep",
     "dcsweep", "transweep", "montecarlo_table", "dc_sensitivity",
-    "parse_spice", "simulate", "models", "dff_netlist",
+    "parse_spice", "simulate", "circuit_from_file", "register_pdk",
+    "alter_text",
+    "find", "op_table", "query", "summary", "explore", "Explorer",
+    "models", "dff_netlist",
     "compile_va", "load_va_file", "VACompileError", "compile_ekv",
 ]
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import DTYPE, ITYPE
+from ..interop import to_numpy
 from ..mna.assemble import (ensure_setup, make_delay_meta,
                             make_rhs_assembler, pad_state)
 from ..mna.devices import CLASS_V
@@ -96,6 +97,21 @@ class TranSolution:
                 f"accepted={s.naccept.tolist()}, "
                 f"rejected={s.nreject.tolist()}, "
                 f"newton={s.nnewton.tolist()}, fail={s.fail.tolist()})")
+
+    def save(self, path):
+        """Persist the waveforms and the name table to .npz (the JAX
+        package's keys: ts, xs, names), from host copies."""
+        names = sorted(self.cc.names, key=self.cc.names.get)
+        np.savez_compressed(path, ts=to_numpy(self.ts),
+                            xs=to_numpy(self.xs),
+                            names=np.asarray(names, dtype=str))
+
+    @staticmethod
+    def load(path):
+        """Load saved waveforms: (ts, {name: values}) as numpy arrays."""
+        z = np.load(path)
+        xs = z["xs"]
+        return z["ts"], {nm: xs[..., i] for i, nm in enumerate(z["names"])}
 
 
 def collect_breakpoints(cc: CompiledCircuit, tstop: float) -> np.ndarray:

@@ -1,6 +1,5 @@
 """Netlist elaboration: card AST -> `Circuit` + analysis cards (PyTorch
-port of `cadnip_tpu/frontend/elaborate.py`, the SPICE subset the built-in
-devices of the port need).
+port of `cadnip_tpu/frontend/elaborate.py`).
 
 Parameter dependency toposort, subcircuit expansion (instance line
 outranks subckt default; expressions see the instantiating scope),
@@ -33,8 +32,19 @@ kept on the Elaborator (`data_tables`, `meas_cards`), and `simulate` runs
 a deck's analysis cards (.op, .tran, .ac, .dc, .dc data=, .noise) and
 then its `.meas` cards.
 
-Not ported yet, and raising NotImplementedError with the feature's name:
-the Spectre dialect.
+Spectre: a deck is sniffed (`spectre.looks_like_spectre`, or
+`dialect="spectre"`) and parsed by `spectre.parse_spectre` into the same
+card AST; an included file is sniffed on its own (`_parse_file`). Spectre
+numbers are case-sensitive (M is mega), `[...]` vectors become tuples,
+`real f(...) { return ...; }` declares a netlist function, and an
+instance `name (nodes) master p=v` names a primitive (resistor,
+capacitor, inductor, vsource, isource, iprobe, vcvs, vccs, cccs, ccvs,
+mutual_inductor, bsource), a subckt, a model card or a VA module.
+Spectre analysis statements (`tran`, `dc`, `op`, `ac`, `noise`) and the
+`sweep` and `montecarlo` containers run in `simulate`: a sweep runs its
+points one after another through `alter` or re-elaboration, a Monte
+Carlo re-elaborates run i with `np.random.default_rng([seed, i])`.
+`statistics { vary }` is parsed and warned about, not sampled.
 
 `montecarlo_elaborate` elaborates a netlist once per sample with its
 statistical functions (agauss, gauss, aunif, unif) drawing from a seeded
@@ -61,7 +71,9 @@ from ..va.codegen import load_va_file
 from .expressions import (ExprError, eval_expr, eval_expr_traced,
                           expr_names, parse_expr, parse_number)
 from .netlist import (DotCard, Element, IfBlock, LibSection, Netlist,
-                      SubcktDef, parse_netlist)
+                      SubcktDef, alter_text, parse_netlist)
+from .spectre import (_SpectreInst, looks_like_spectre, parse_spectre,
+                      parse_spectre_number)
 
 # registered PDK/model packages for jlpkg://-style includes
 _PDK_PACKAGES: dict[str, str] = {}
@@ -73,11 +85,6 @@ def register_pdk(name: str, path: str):
 
 class ElabError(ValueError):
     pass
-
-
-def _not_ported(feature: str, item: str):
-    raise NotImplementedError(f"{feature} is not ported to cadnip_tpu_torch "
-                              f"yet (ROADMAP, modules still to port, {item})")
 
 
 @dataclasses.dataclass
@@ -175,7 +182,9 @@ class Analysis:
 
 
 class Elaborator:
-    def __init__(self, *, include_dirs=(), section=None, rng=None):
+    def __init__(self, *, include_dirs=(), section=None, dialect="spice",
+                 rng=None):
+        self.dialect = dialect          # "spice" or "spectre" numbers
         self.include_dirs = list(include_dirs)
         self.section = section          # .lib section selection
         # Monte Carlo hook: the statistical netlist functions sample from
@@ -198,6 +207,8 @@ class Elaborator:
         }
         self.analyses: list[Analysis] = []
         self.meas_cards: list[str] = []
+        # Spectre `statistics` / `paramset` blocks: kept, not sampled
+        self.statistics_cards: list = []
         self.data_tables: dict = {}
         self.options: dict = {}
         self.temp: Optional[float] = None
@@ -219,7 +230,8 @@ class Elaborator:
         """Numeric value of a field token."""
         kind, val = field[0], field[1]
         if kind == "word":
-            num = parse_number(val)
+            num = (parse_spectre_number(val) if self.dialect == "spectre"
+                   else parse_number(val))
             if num is not None:
                 return num
             return eval_expr(parse_expr(val), _ScopeEnv(scope, extra),
@@ -231,12 +243,16 @@ class Elaborator:
             return self.value_of(val[0], scope, extra)
         if kind == "str":
             return val                      # string parameter, verbatim
+        if kind == "vec":
+            # bracketed Spectre vector [a b (expr) ...] -> value tuple
+            return tuple(self.value_of(f, scope, extra) for f in val)
         raise ElabError(f"expected a value, got {field!r}")
 
     # ------------------------------------------------ pass 1: scope building
     def collect(self, cards, scope: Scope):
         """Collect params/models/subckts/options into scope; return the
-        element and .if cards in order."""
+        element and .if cards in order. Spectre analysis statements become
+        Analysis cards marked "spectre"."""
         elements = []
         for card in cards:
             if isinstance(card, SubcktDef):
@@ -248,12 +264,33 @@ class Elaborator:
             elif isinstance(card, IfBlock):
                 elements.append(card)
             elif isinstance(card, DotCard):
-                if card.kind.startswith("spectre_"):
-                    _not_ported("the Spectre dialect", "item 9")
-                self._dot(card, scope, elements)
-            elif isinstance(card, Element):
+                if card.kind == "spectre_func":
+                    self._spectre_func(card, scope)
+                elif card.kind in ("spectre_statistics",
+                                   "spectre_paramset"):
+                    self.statistics_cards.append(card)
+                elif card.kind.startswith("spectre_"):
+                    self.analyses.append(Analysis(
+                        card.kind[8:], {"fields": card.fields,
+                                        "kwargs": card.kwargs,
+                                        "spectre": True}))
+                else:
+                    self._dot(card, scope, elements)
+            elif isinstance(card, (Element, _SpectreInst)):
                 elements.append(card)
         return elements
+
+    def _spectre_func(self, card: DotCard, scope: Scope):
+        """`real f(a, b) { return expr; }`: a netlist function whose
+        arguments bind over the defining scope's parameter chain."""
+        fargs = [a.lower() for a in card.kwargs["args"]]
+        fast = card.kwargs["expr"]
+
+        def fn(*vals):
+            return eval_expr(fast, _ScopeEnv(scope, dict(zip(fargs, vals))),
+                             funcs=self.expr_funcs)
+
+        self.expr_funcs[card.kwargs["name"]] = fn
 
     def _dot(self, card: DotCard, scope: Scope, elements):
         kind = card.kind
@@ -336,10 +373,36 @@ class Elaborator:
         return path
 
     def _parse_file(self, path):
+        """Parse an included file in its own dialect, whichever the
+        including deck's. A SPICE parent switches to the Spectre parser
+        only on definitive markers: `simulator lang=spectre`, a .scs
+        extension, or at least two Spectre-shaped statement lines (one
+        misfires: an HSPICE parenthesized node list matches the instance
+        pattern, and a SPICE library may open with `parameters`)."""
         with open(path) as fh:
             text = fh.read()
-        if _looks_like_spectre(text) or str(path).lower().endswith(".scs"):
-            _not_ported("the Spectre dialect", "item 9")
+        head = text[:2000]
+        if re.search(r"simulator\s+lang\s*=\s*spectre", head) or \
+                str(path).lower().endswith(".scs"):
+            return parse_spectre(text)
+        if self.dialect == "spectre":
+            if re.search(r"simulator\s+lang\s*=\s*spice", head):
+                return parse_netlist(text, title_line=False)
+            return parse_spectre(text)
+        score = 0
+        for raw in head.splitlines():
+            s = re.sub(r"//.*", "", raw).strip()
+            if not s or s.startswith(("*", ".")):
+                continue
+            first = s.split()[0].lower()
+            if first in ("library", "section", "endsection", "endlibrary",
+                         "parameters", "global", "ahdl_include", "paramset",
+                         "statistics", "inline", "subckt", "ends"):
+                score += 1
+            elif re.match(r"^\w+\s*\([^)]*\)\s*\w+", s):
+                score += 1
+        if score >= 2:
+            return parse_spectre(text)
         return parse_netlist(text, title_line=False)
 
     def _include(self, card, scope, elements):
@@ -476,10 +539,14 @@ class Elaborator:
                         self.build(inner, scope, prefix, node_map)
                         break
                 continue
-            if not isinstance(card, Element):
+            if isinstance(card, _SpectreInst):
+                handler = self._spectre_inst
+            elif isinstance(card, Element):
+                handler = self._element
+            else:
                 continue
             try:
-                self._element(card, scope, prefix, flat_node)
+                handler(card, scope, prefix, flat_node)
             except (ExprError, ElabError, ValueError) as e:
                 raise ElabError(
                     f"line {card.line_no}: {e}\n    {card.line}") from None
@@ -815,6 +882,114 @@ class Elaborator:
         adder(name, flat_node(nodes[0]), flat_node(nodes[1]), wave=wave,
               acmag=acmag, acphase=acphase)
 
+    def _spectre_inst(self, card: _SpectreInst, scope, prefix, flat_node):
+        """Spectre instance: a primitive master, a subckt, a model card or
+        a VA module (reference Spectre primitives, `codegen.jl:1877-2188`)."""
+        name = prefix + card.name
+        master = card.master
+        ml = master.lower()
+        nodes = [flat_node(n) for n in card.nodes]
+
+        def val(key, default=None):
+            if key in card.kwargs:
+                return self.value_of(card.kwargs[key], scope)
+            return default
+
+        def word(key):
+            return str(card.kwargs.get(key, ("word", ""))[1])
+
+        if ml == "resistor":
+            self.cir.R(name, nodes[0], nodes[1], val("r", 1e3))
+        elif ml == "capacitor":
+            self.cir.C(name, nodes[0], nodes[1], val("c", 1e-12))
+        elif ml == "inductor":
+            self.cir.L(name, nodes[0], nodes[1], val("l", 1e-9))
+        elif ml in ("vsource", "isource", "iprobe"):
+            ty = card.kwargs["type"][1].lower() if "type" in card.kwargs \
+                else ""
+            wave = None
+            if ty == "pulse":
+                wave = wf.Pulse(val("val0", 0.0), val("val1", 1.0),
+                                val("delay", 0.0), val("rise", 1e-9),
+                                val("fall", 1e-9), val("width", 1e30),
+                                val("period", 1e30))
+            elif ty in ("sine", "sin"):
+                wave = wf.Sin(val("sinedc", val("dc", 0.0)),
+                              val("ampl", 1.0), val("freq", 1e3),
+                              val("delay", 0.0), val("damp", 0.0))
+            elif ty == "pwl":
+                pts = card.kwargs.get("wave")
+                if pts is not None and pts[0] in ("group", "vec"):
+                    wave = wf.PWL([self.value_of(x, scope) for x in pts[1]])
+            if wave is None:
+                wave = wf.DC(val("dc", 0.0))
+            elif val("dc") is not None:
+                wave = dataclasses.replace(wave, dc=val("dc"))
+            adder = self.cir.I if ml == "isource" else self.cir.V
+            adder(name, nodes[0], nodes[1], wave=wave,
+                  acmag=val("mag", 0.0), acphase=val("phase", 0.0))
+        elif ml == "vcvs":
+            self.cir.add(dv.VCVS, name, tuple(nodes[:4]),
+                         gain=val("gain", 1.0))
+        elif ml == "vccs":
+            self.cir.add(dv.VCCS, name, tuple(nodes[:4]),
+                         gm=val("gm", val("gain", 1.0)))
+        elif ml == "cccs":
+            self.cir.add(dv.CCCS, name, tuple(nodes[:2]),
+                         sense=prefix + word("probe"), gain=val("gain", 1.0))
+        elif ml == "ccvs":
+            self.cir.add(dv.CCVS, name, tuple(nodes[:2]),
+                         sense=prefix + word("probe"),
+                         r=val("rm", val("gain", 1.0)))
+        elif ml == "bsource":
+            # `name (p n) bsource v=expr` (the asap7 deck idiom, reference
+            # `test/bsimcmg/asap7_inv.scs`)
+            m = re.search(r"\b([vi])\s*=\s*(.+?)\s*$", card.line,
+                          re.IGNORECASE)
+            if m is None:
+                raise ElabError(f"{name}: bsource needs v= or i=")
+            model, bnodes, sense = _make_bsource_model(
+                name, parse_expr(m.group(2).strip('"')),
+                m.group(1).lower() == "v", scope, flat_node,
+                (nodes[0], nodes[1]), prefix)
+            self.cir.add(model, name, bnodes, sense=sense)
+        elif ml == "mutual_inductor":
+            l1, l2 = prefix + word("ind1"), prefix + word("ind2")
+            k = float(val("coupling", 0.0))
+            self.cir.add(dv.MUTUAL, name, (), sense=(l1, l2), m=k)
+            self._mutuals.append((name, l1, l2, k))
+        else:
+            self._spectre_master(card, scope, prefix, flat_node)
+
+    def _spectre_master(self, card: _SpectreInst, scope, prefix, flat_node):
+        """A Spectre instance of a subckt, a VA module or a model card over
+        a built-in type, through the SPICE letter paths."""
+        master = card.master
+        words = [("word", n) for n in card.nodes] + [("word", master)]
+        if scope.lookup_subckt(master) is not None:
+            self._subckt_call(Element("element", card.line_no, card.line,
+                                      letter="X", name=card.name,
+                                      fields=words, kwargs=card.kwargs),
+                              scope, prefix, flat_node)
+            return
+        mc = scope.lookup_model(master)
+        va = scope.lookup_va(mc.mtype if mc else master)
+        if va is not None:
+            extra = {k: self.value_of(v, scope)
+                     for k, v in card.kwargs.items()}
+            self._va_inst(prefix + card.name, va, card.nodes, flat_node,
+                          dict(mc.params if mc else {}, **extra))
+            return
+        letter = {"d": "D", "nmos": "M", "pmos": "M", "npn": "Q",
+                  "pnp": "Q"}.get(mc.mtype) if mc else None
+        if letter is None:
+            raise ElabError(f"{prefix + card.name}: unknown master "
+                            f"{master!r}")
+        self._element(Element("element", card.line_no, card.line,
+                              letter=letter, name=card.name, fields=words,
+                              kwargs=card.kwargs),
+                      scope, prefix, flat_node)
+
     def _subckt_call(self, card: Element, scope, prefix, flat_node):
         words = [fld[1] for fld in card.fields if fld[0] == "word"]
         if not words:
@@ -1027,47 +1202,38 @@ def _make_bsource_model(name, ast, is_v, scope, flat_node, out_nodes,
     return model, nodes, sense
 
 
-def _looks_like_spectre(text: str) -> bool:
-    """The JAX package's Spectre sniffing (`frontend/spectre.py`)."""
-    head = text[:2000]
-    if re.search(r"simulator\s+lang\s*=\s*spectre", head):
-        return True
-    if re.search(r"^\s*\w+\s*\([^)]*\)\s*\w+", head, re.M):
-        return True
-    for raw in head.splitlines():
-        s = re.sub(r"//.*", "", raw).strip()
-        if not s or s.startswith("*"):
-            continue
-        return s.split()[0].lower() in (
-            "library", "section", "parameters", "global", "ahdl_include",
-            "paramset", "statistics", "inline")
-    return False
-
-
 # ---------------------------------------------------------------------------
 # public entry points
 
 def elaborate_netlist(source, *, include_dirs=(), section=None, title=None,
-                      rng=None, hdl=()):
-    """SPICE text (or a parsed Netlist) -> (Circuit, Elaborator). The
-    Elaborator carries the parsed analysis cards, .options and .temp.
-    rng: a numpy Generator the statistical functions sample from (None:
-    nominal values). hdl: Verilog-A file paths preloaded into the root
-    scope (the programmatic `.hdl` card; model cards may then name the
-    modules)."""
+                      dialect="auto", rng=None, hdl=()):
+    """SPICE or Spectre text (or a parsed Netlist) -> (Circuit,
+    Elaborator). The Elaborator carries the parsed analysis cards,
+    .options and .temp. dialect: "spice", "spectre" or "auto" (sniffed by
+    `looks_like_spectre`). rng: a numpy Generator the statistical
+    functions sample from (None: nominal values). hdl: Verilog-A file
+    paths preloaded into the root scope (the programmatic `.hdl` card;
+    model cards may then name the modules)."""
     if isinstance(source, Netlist):
         nl = source
+        if dialect == "auto":
+            dialect = "spice"
     else:
-        if _looks_like_spectre(source):
-            _not_ported("the Spectre dialect", "item 9")
-        nl = parse_netlist(source)
-    el = Elaborator(include_dirs=include_dirs, section=section, rng=rng)
+        if dialect == "auto":
+            dialect = "spectre" if looks_like_spectre(source) else "spice"
+        nl = (parse_spectre(source) if dialect == "spectre"
+              else parse_netlist(source))
+    el = Elaborator(include_dirs=include_dirs, section=section,
+                    dialect=dialect, rng=rng)
     root = Scope()
     for path in ([hdl] if isinstance(hdl, str) else hdl):
         for name, model in load_va_file(path).items():
             root.va_modules[name.lower()] = model
     elements = el.collect(nl.cards, root)
     el.eval_params(root)
+    # top-scope parameter names: the Spectre sweep container checks its
+    # target against them before it appends a `parameters` card
+    el.param_names = frozenset(str(k).lower() for k in root.param_vals)
     el.cir = Circuit(title or nl.title or "netlist")
     el.build(elements, root, "", {})
     # resolve mutual inductances now that both L values are known
@@ -1099,22 +1265,34 @@ def spice_spec(el: Elaborator, base: SimSpec | None = None) -> SimSpec:
 
 def parse_spice(source, *, include_dirs=(), section=None,
                 spec: SimSpec | None = None, compile=True,
-                device=DEFAULT_DEVICE, hdl=()):
-    """SPICE netlist text -> CompiledCircuit on `device`: the card by
-    default (raises where there is none), "cpu" for the host; or the
-    Circuit if compile=False. hdl: Verilog-A files to preload."""
+                device=DEFAULT_DEVICE, hdl=(), dialect="auto"):
+    """SPICE or Spectre netlist text -> CompiledCircuit on `device`: the
+    card by default (raises where there is none), "cpu" for the host; or
+    the Circuit if compile=False. hdl: Verilog-A files to preload."""
     cir, el = elaborate_netlist(source, include_dirs=include_dirs,
-                                section=section, hdl=hdl)
+                                section=section, hdl=hdl, dialect=dialect)
     if not compile:
         return cir
     return cir.compile(spice_spec(el, spec), device=device)
+
+
+def circuit_from_file(path, *, section=None, spec=None, compile=True,
+                      device=DEFAULT_DEVICE):
+    """parse_spice of a netlist file, its includes resolved against the
+    file's directory."""
+    with open(path) as fh:
+        text = fh.read()
+    return parse_spice(text, include_dirs=[os.path.dirname(
+        os.path.abspath(path))], section=section, spec=spec,
+        compile=compile, device=device)
 
 
 def simulate(source, *, include_dirs=(), section=None,
              spec: SimSpec | None = None, device=DEFAULT_DEVICE):
     """Parse a netlist, compile it on `device` (the card by default, "cpu"
     for the host) and run its analysis cards (.op, .dc, .tran, .ac,
-    .noise), then its .meas cards.
+    .noise, and the Spectre statements with their sweep and montecarlo
+    containers), then its .meas cards.
 
     Returns {analysis_kind: solution} (the last card of each kind wins the
     key; every result is listed under 'all', the circuit under 'circuit',
@@ -1131,7 +1309,16 @@ def simulate(source, *, include_dirs=(), section=None,
     results = {"all": [], "circuit": cc}
     for an in el.analyses:
         if an.args.get("spectre"):
-            _not_ported("the Spectre dialect", "item 9")
+            if an.kind in ("sweep", "montecarlo"):
+                sol = _run_spectre_container(
+                    source, cc, el, an, include_dirs=include_dirs,
+                    section=section, spec=spec, device=device)
+            else:
+                sol = _run_spectre_analysis(cc, an)
+            if sol is not None:
+                results[an.kind] = sol
+                results["all"].append((an.kind, sol))
+            continue
         fields = an.args["fields"]
         vals = []
         words = []
@@ -1250,3 +1437,150 @@ def montecarlo_elaborate(source, n: int, seed: int = 0, *,
         return torch.stack(leaves)
 
     return cc, [stack([p[gi] for p in plist]) for gi in range(len(cc.groups))]
+
+
+# ---------------------------------------------------------------------------
+# Spectre analysis statements and their sweep / montecarlo containers
+
+def _sp_num(tok):
+    """Numeric value of a Spectre keyword token (no scope)."""
+    if tok[0] == "word":
+        num = parse_spectre_number(tok[1])
+        if num is not None:
+            return num
+    try:
+        return float(tok[1])
+    except (TypeError, ValueError):
+        return None
+
+
+def _run_spectre_analysis(cc, an, params=None):
+    """Run one Spectre analysis statement (`tran stop= step= maxstep=`,
+    `dc`, `op`, `ac start= stop= dec=`, `noise out= ...`); None for any
+    other."""
+    from ..analyses.ac import ac as ac_run, acdec
+    from ..analyses.dc import dc as dc_run
+    from ..analyses.noise import noise as noise_run
+    from ..analyses.tran import tran as tran_run
+
+    kw = an.args["kwargs"]
+
+    def val(key, default=None):
+        num = _sp_num(kw[key]) if key in kw else None
+        return default if num is None else num
+
+    if an.kind in ("op", "dc"):
+        return dc_run(cc, params)
+    if an.kind == "tran":
+        stop = val("stop")
+        if stop is None:
+            return None
+        return tran_run(cc, (val("start", 0.0), stop), params,
+                        dt=val("step", stop / 1000.0), dtmax=val("maxstep"))
+    if an.kind == "ac":
+        freqs = acdec(int(val("dec", 10)), val("start", 1.0),
+                      val("stop", 1e9))
+        return ac_run(cc, freqs, params)
+    if an.kind == "noise":
+        out = kw.get("out")
+        freqs = acdec(int(val("dec", 10)), val("start", 1.0),
+                      val("stop", 1e6))
+        return noise_run(cc, out[1] if out else None, freqs, params)
+    return None
+
+
+def _sweep_values(kw):
+    """A sweep's points from its keywords: values=[...], or start= and
+    stop= with step=, lin= or dec= (11 linear points by default)."""
+    if "values" in kw and kw["values"][0] == "vec":
+        return [_sp_num(f) for f in kw["values"][1]]
+    start = _sp_num(kw.get("start", ("word", "")))
+    stop = _sp_num(kw.get("stop", ("word", "")))
+    if start is None or stop is None:
+        raise ElabError("sweep needs values=[...] or start=/stop=")
+    if "step" in kw:
+        step = _sp_num(kw["step"])
+        return list(np.arange(start, stop + step * 0.5, step))
+    if "lin" in kw:
+        return list(np.linspace(start, stop, int(_sp_num(kw["lin"]))))
+    if "dec" in kw:
+        npts = int(round(np.log10(stop / start) * _sp_num(kw["dec"]))) + 1
+        return list(np.geomspace(start, stop, npts))
+    return list(np.linspace(start, stop, 11))
+
+
+def _run_spectre_container(source, cc, el, an, *, include_dirs=(),
+                           section=None, spec=None, device=DEFAULT_DEVICE):
+    """`name sweep ... { children }` and `name montecarlo ... { children }`:
+    the child analyses run once per point, one point after another.
+
+    sweep: over a device parameter (`dev=r1 param=r`, or
+    `param=inst.param`) through `cc.alter`, or over a netlist parameter by
+    re-elaboration: a SPICE deck through `alter_text`, a Spectre deck by
+    appending a `parameters` card (later cards win) where the deck
+    declares the name. montecarlo: numruns re-elaborations, run i drawing
+    the deck's statistical functions from `np.random.default_rng([seed,
+    i])`; `statistics { vary }` blocks are not sampled. Every circuit a
+    point re-elaborates is compiled on `device`."""
+    kw = an.args["kwargs"]
+    children = [Analysis(c.kind[8:], {"fields": c.fields,
+                                      "kwargs": c.kwargs, "spectre": True})
+                for c in kw.get("body") or []
+                if isinstance(c, DotCard) and c.kind.startswith("spectre_")]
+
+    def run_children(cc2, params=None):
+        out = {}
+        for a in children:
+            sol = _run_spectre_analysis(cc2, a, params)
+            if sol is not None:
+                out[a.kind] = sol
+        return out
+
+    def rerun(src, rng=None):
+        cir2, el2 = elaborate_netlist(src, include_dirs=include_dirs,
+                                      section=section, rng=rng)
+        return run_children(cir2.compile(spice_spec(el2, spec),
+                                         device=device))
+
+    if an.kind == "sweep":
+        vals = _sweep_values(kw)
+        dev, prm = kw.get("dev"), kw.get("param")
+        if prm is None:
+            raise ElabError("sweep needs param=")
+        target = (f"{dev[1]}.{prm[1]}" if dev is not None
+                  else str(prm[1])).lower()
+        runs = []
+        if target in cc.param_slots:
+            base = cc.params0()
+            for v in vals:
+                runs.append(run_children(cc, cc.alter(
+                    base, **{target: float(v)})))
+            return {"param": target, "values": vals, "runs": runs}
+        # a netlist parameter: the append is for a Spectre deck that
+        # declares the name only; elsewhere it would give N identical runs
+        appendable = el.dialect == "spectre" and target in el.param_names
+        for v in vals:
+            try:
+                src2 = alter_text(source, {target: float(v)})
+            except Exception as e:
+                if not appendable:
+                    raise ElabError(
+                        f"sweep: unknown parameter {target!r} (not an "
+                        "instance/model parameter, netlist .param, or "
+                        "spectre parameters name)") from e
+                src2 = str(source) + f"\nparameters {target}={float(v)}\n"
+            runs.append(rerun(src2))
+        return {"param": target, "values": vals, "runs": runs}
+
+    if an.kind == "montecarlo":
+        numruns = int(_sp_num(kw.get("numruns", ("word", "1"))) or 1)
+        seed = int(_sp_num(kw.get("seed", ("word", "1"))) or 1)
+        if el.statistics_cards:
+            el._warn_once("mc_statistics",
+                          "montecarlo: statistics{vary} sampling not "
+                          "implemented; only deck distribution functions "
+                          "(agauss/gauss/...) are randomized")
+        runs = [rerun(source, np.random.default_rng([seed, i]))
+                for i in range(numruns)]
+        return {"numruns": numruns, "seed": seed, "runs": runs}
+    return None

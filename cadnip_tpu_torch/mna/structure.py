@@ -184,6 +184,15 @@ class CompiledCircuit:
             out.append(d)
         return out
 
+    @staticmethod
+    def _get_leaf(gparams, pname):
+        """Resolve a (possibly dotted, e.g. 'wave.dc') parameter path:
+        (holder, head, tail), the leaf being holder[tail]."""
+        if "." in pname:
+            head, tail = pname.split(".", 1)
+            return gparams[head], head, tail
+        return gparams, None, pname
+
     def alter(self, params, **overrides):
         """Functionally update instance parameters: alter(p, **{'r1.r': 2e3}).
         A 1-D value of length B gives that parameter a leading lane axis
@@ -196,11 +205,9 @@ class CompiledCircuit:
                 raise KeyError(f"unknown parameter {key!r}; e.g. {valid}")
             gi, pname, slot = self.param_slots[key]
             params[gi] = dict(params[gi])
-            holder = params[gi]
-            if "." in pname:
-                head, pname = pname.split(".", 1)
-                holder[head] = dict(holder[head])
-                holder = holder[head]
+            holder, head, pname = self._get_leaf(params[gi], pname)
+            if head is not None:
+                holder = params[gi][head] = dict(holder)
             arr = holder[pname]
             val = torch.as_tensor(val, dtype=DTYPE, device=self.device)
             if val.ndim == 0:

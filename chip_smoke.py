@@ -130,6 +130,19 @@ Phases, each of which raises (exit code != 0) on failure:
      B-source decks of tests/test_frontend.py against the CPU port; the
      wall, Newton passes, ms per pass and the delay probe's host time per
      accepted step;
+ 17. (after phase 16, inside the same wait) the Spectre dialect on the
+     card: the DFF written by to_spectre and sniffed back by parse_spice,
+     its summary() and op_table() equal to the CPU port's, tran() over
+     0-600 ns at phase 4's settings within the golden's bar with K1
+     launches at least its Newton passes (counts printed beside phase
+     4's: the Spectre text rounds five parameters by an ulp), and
+     TranSolution.save / load of it; simulate() of tests/test_spectre.py's
+     decks (the sweep and Monte Carlo containers among them, every point
+     compiled on the card) against the CPU port and the JAX tests'
+     expectations, K1 launches at least one per analysis point; and an R,
+     C, V, E, G network exported by to_veriloga and compiled by compile_va
+     against the built-in elements, DC and an 801-frequency AC in one K1
+     launch;
  14. phase 6's and 8b's comparisons with their CPU twins and phase 8c's
      ladder against the CPU port, the wall time of every phase and of the
      whole run, a JSON line of the kernels, the card's name and power
@@ -138,7 +151,7 @@ Phases, each of which raises (exit code != 0) on failure:
 From phase 9 on, two spawned worker processes replay the CPU references
 beside the card's host loop: worker A phase 9's check lanes, phases 11 and
 12, then phase 6's twins; worker B phase 8b's reference, phase 8c's
-ladder and phase 16's CPU side. Phase 13 runs at the same time in a
+ladder and the CPU sides of phases 16 and 17. Phase 13 runs at the same time in a
 spawned process on the card (the card must be in the Default compute
 mode), with a worker of its own for mul's serial_trap witness and its
 replays; its gates and launch counts
@@ -2999,6 +3012,458 @@ def delays_simulate(card, job):
     return dict(launches=launches)
 
 
+
+#: phase 17: the Spectre dialect. The decks of tests/test_spectre.py, each
+#: given a `dc` statement where it had none so that simulate() runs it
+#: (`{lib}` is the path of SPECTRE_LIB written to a temporary directory),
+#: and per deck the JAX test's expectation: a node and its value at each
+#: analysis point (within 1e-9 relative), or a gate of its own
+SPECTRE_LIB = """
+library mylib
+section tt
+parameters rv=1K
+endsection
+section ss
+parameters rv=3K
+endsection
+endlibrary
+"""
+SPECTRE_DECKS = {
+    "divider": """
+simulator lang=spectre
+v1 (in 0) vsource dc=5
+r1 (in out) resistor r=1K
+r2 (out 0) resistor r=1K
+o1 dc
+""",
+    "parameters and subckt": """
+simulator lang=spectre
+parameters rr=2K vv=6
+subckt halver (a b)
+  parameters r0=1K
+  rt (a mid) resistor r=r0
+  rb (mid b) resistor r=r0
+ends halver
+v1 (in 0) vsource dc=vv
+x1 (in 0) halver r0=rr
+o1 dc
+""",
+    "model card": """
+simulator lang=spectre
+model dmod d is=1e-14
+v1 (in 0) vsource dc=5
+r1 (in a) resistor r=1K
+d1 (a 0) dmod
+o1 dc
+""",
+    "controlled sources": """
+simulator lang=spectre
+v1 (in 0) vsource dc=0.5
+e1 (out 0 in 0) vcvs gain=4
+rl (out 0) resistor r=1K
+o1 dc
+""",
+    "if/else": """
+simulator lang=spectre
+parameters mode=2
+v1 (in 0) vsource dc=6
+if (mode == 1) {
+  r1 (in out) resistor r=1K
+  r2 (out 0) resistor r=1K
+} else if (mode == 2) {
+  r1 (in out) resistor r=2K
+  r2 (out 0) resistor r=1K
+} else {
+  r1 (in out) resistor r=5K
+  r2 (out 0) resistor r=1K
+}
+o1 dc
+""",
+    "user function": """
+simulator lang=spectre
+real rpar(real a, real b) {
+    return a*b/(a+b);
+}
+parameters rload=rpar(2K, 2K)
+v1 (in 0) vsource dc=3
+r1 (in out) resistor r=1K
+r2 (out 0) resistor r=rload
+o1 dc
+""",
+    "library sections": """
+simulator lang=spectre
+include "{lib}" section=ss
+v1 (in 0) vsource dc=4
+r1 (in out) resistor r=rv
+r2 (out 0) resistor r=1K
+o1 dc
+""",
+    "string parameters, no-op statements": """
+simulator lang=spectre
+myopts options reltol=1e-4 rawfmt="psfbin"
+c1 check windows=yes
+s1 set dc=1
+sh shell cmd="ls"
+v1 (in 0) vsource dc=2
+r1 (in 0) resistor r=1K
+o1 dc
+""",
+    "vector PWL tran": """
+simulator lang=spectre
+v1 (in 0) vsource type=pwl wave=[0 0 1m 1 2m 1]
+r1 (in out) resistor r=1
+tr tran stop=2m step=10u
+""",
+    "inline subckt": """
+simulator lang=spectre
+inline subckt pair (a b)
+  ra (a m) resistor r=1K
+  rb (m b) resistor r=1K
+ends pair
+v1 (in 0) vsource dc=2
+x1 (in 0) pair
+o1 dc
+""",
+    "device-parameter sweep": """
+simulator lang=spectre
+v1 (in 0) vsource dc=6
+r1 (in out) resistor r=2K
+r2 (out 0) resistor r=1K
+sw sweep dev=r1 param=r values=[1K 2K 5K] {
+  o1 dc
+}
+""",
+    "netlist-parameter sweep": """
+simulator lang=spectre
+parameters rtop=1K
+v1 (in 0) vsource dc=4
+r1 (in out) resistor r=rtop
+r2 (out 0) resistor r=1K
+sw sweep param=rtop start=1K stop=3K step=1K {
+  o1 dc
+}
+""",
+    "montecarlo": """
+simulator lang=spectre
+parameters rv=agauss(1K, 100, 1)
+v1 (in 0) vsource dc=2
+r1 (in out) resistor r=rv
+r2 (out 0) resistor r=1K
+mc montecarlo numruns=8 seed=7 {
+  o1 dc
+}
+"""}
+SPECTRE_WANT = {
+    "divider": ("out", [2.5]),
+    "parameters and subckt": ("x1.mid", [3.0]),
+    "controlled sources": ("out", [2.0]),
+    "if/else": ("out", [2.0]),
+    "user function": ("out", [1.5]),
+    "library sections": ("out", [1.0]),
+    "string parameters, no-op statements": ("in", [2.0]),
+    "inline subckt": ("x1.m", [1.0]),
+    "device-parameter sweep": ("out", [3.0, 2.0, 1.0]),
+    "netlist-parameter sweep": ("out", [2.0, 4.0 / 3.0, 1.0])}
+#: the Verilog-A export: a network of R, C, V, E and G written by
+#: to_veriloga with ports (in, out), driven and loaded outside the module,
+#: against the same elements built in; AC over 801 frequencies
+VA_EXPORT_FREQS = (100, 1e2, 1e10)
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if hasattr(v, "detach") \
+        else np.asarray(v)
+
+
+def spectre_dff(device):
+    """The DFF written by to_spectre, parsed back on `device`: the text,
+    the dialect the parser sniffed, summary() and op_table() of its
+    operating point (host text), the circuit and the operating point."""
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.frontend.elaborate import elaborate_netlist
+    from cadnip_tpu_torch.frontend.writer import to_spectre
+    text = to_spectre(ct.parse_spice(ct.dff_netlist(), compile=False))
+    cc = ct.parse_spice(text, device=device)
+    op = ct.dc(cc)
+    return dict(text=text, dialect=elaborate_netlist(text)[1].dialect,
+                summary=ct.summary(cc), op_table=ct.op_table(op), cc=cc,
+                op=op)
+
+
+def _analysis_points(res):
+    """Every analysis point of a simulate() result in order (a container's
+    runs unrolled), as host numpy."""
+    pts = []
+    rows = []
+    for kind, sol in res["all"]:
+        if kind in ("sweep", "montecarlo"):
+            rows += [(k, s) for run in sol["runs"] for k, s in run.items()]
+        else:
+            rows.append((kind, sol))
+    for kind, sol in rows:
+        pt = dict(kind=kind, names=dict(sol.cc.names),
+                  converged=bool(sol.converged),
+                  device=sol.cc.device.type)
+        if kind == "tran":
+            pt.update(ts=np.asarray(sol.ts), xs=_host(sol.xs),
+                      counts=tuple(int(v) for v in sol.stats[:3]))
+        else:
+            pt["x"] = _host(sol.x)
+        pts.append(pt)
+    return pts
+
+
+def spectre_deck_runs(device):
+    """simulate() of every SPECTRE_DECKS deck on `device`: its wall, K1
+    launches (0 on the CPU) and analysis points."""
+    import tempfile
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = os.path.join(tmp, "corners.scs")
+        with open(lib, "w") as fh:
+            fh.write(SPECTRE_LIB)
+        for name, deck in SPECTRE_DECKS.items():
+            sync()
+            gj_solve.launches = 0
+            t = time.perf_counter()
+            res = ct.simulate(deck.replace("{lib}", lib), device=device)
+            sync()
+            out[name] = dict(wall=time.perf_counter() - t,
+                             launches=gj_solve.launches,
+                             points=_analysis_points(res))
+    return out
+
+
+def cpu_spectre():
+    """Phase 17's CPU side (a worker): the Spectre DFF's text, summary and
+    operating-point table, and the decks."""
+    d = spectre_dff("cpu")
+    return dict(dff={k: d[k] for k in ("text", "dialect", "summary",
+                                       "op_table")},
+                decks=spectre_deck_runs("cpu"))
+
+
+def spectre_gate(name, pts):
+    """The JAX test's expectation for one deck (tests/test_spectre.py):
+    (the gated values, whether they pass)."""
+    def val(pt, node):
+        return float(pt["x"][pt["names"][node]])
+
+    if name == "vector PWL tran":
+        pt = pts[0]
+        out = pt["xs"][:, pt["names"]["out"]]
+        got = [float(out[np.argmin(np.abs(pt["ts"] - 0.5e-3))]),
+               float(out[-1])]
+        return got, abs(got[0] - 0.5) <= 0.02 and abs(got[1] - 1.0) <= 1e-6
+    if name == "montecarlo":
+        outs = np.array([val(pt, "out") for pt in pts])
+        got = [len(outs), float(outs.mean()), float(outs.std())]
+        return got, len(outs) == 8 and got[2] > 1e-3 and \
+            abs(got[1] - 1.0) < 0.2
+    if name == "model card":
+        got = [val(pts[0], "a")]
+        return got, 0.5 < got[0] < 0.8
+    node, want = SPECTRE_WANT[name]
+    got = [val(pt, node) for pt in pts]
+    return got, len(got) == len(want) and all(
+        abs(g - w) <= 1e-9 * abs(w) for g, w in zip(got, want))
+
+
+def spectre_phase(card, job):
+    """Phase 17: the Spectre dialect on the card.
+
+    1. The DFF written by to_spectre (text equal to the CPU worker's),
+       sniffed as Spectre by parse_spice on "cuda": its summary() and
+       op_table() equal to the CPU's, then tran() over 0-600 ns at phase
+       4's settings within the golden's bar (RMSE_TOL) with K1 launches at
+       least its Newton iterations, its counts printed beside phase 4's
+       (the two circuits differ by an ulp in five parameters), and
+       TranSolution.save / load of it.
+    2. simulate() of SPECTRE_DECKS on the card against the CPU port (the
+       worker's): DC within CPU_TOL relative, transients at equal step
+       counts within CPU_TOL V, every sweep and Monte Carlo point (each
+       point's circuit compiled on the card), the JAX tests' expectations,
+       and K1 launches at least one per analysis point.
+    3. A network exported by to_veriloga and compiled by compile_va,
+       against the same elements built in: DC within CPU_TOL of max |x|,
+       AC over 801 frequencies in exactly one K1 launch within AC_TOL of
+       max |H|."""
+    import tempfile
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+
+    launches = {}
+    d = spectre_dff("cuda")
+    t = time.perf_counter()
+    ref = job.result()
+    print(f"phase 17's CPU side read after a wait of "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    r = ref["dff"]
+    same = {k: d[k] == r[k] for k in ("text", "summary", "op_table")}
+    print(f"Spectre DFF: to_spectre text {len(d['text'])} characters, "
+          f"sniffed as {d['dialect']!r}; equal to the CPU's: {same}\n"
+          f"{d['summary']}\n{d['op_table']}", flush=True)
+    if not (all(same.values()) and d["dialect"] == r["dialect"]
+            == "spectre" and bool(d["op"].converged)):
+        raise RuntimeError(f"Spectre DFF: text, dialect or operating point "
+                           f"parts from the CPU's {same}")
+    cc = d["cc"]
+    torch.cuda.synchronize()
+    gj_solve.launches = 0
+    t = time.perf_counter()
+    sol = ct.tran(cc, (0, 6e-7), dt=3.333e-10, max_steps=100000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k1 = gj_solve.launches
+    counts = tuple(int(v) for v in sol.stats[:3])
+    passes = counts[2] + int(sol.op_iters)
+    rmse = golden_rmse(sol, "dff", "q", scale=5.0)
+    line = (f"Spectre DFF tran() 0-600 ns on the card: wall {wall:.3f} s, "
+            f"accepted, rejected, newton {counts} + DC {int(sol.op_iters)} "
+            f"(phase 4's SPICE DFF: {DFF_TRAN_COUNTS} + DC {DFF_DC_ITERS}), "
+            f"{wall / passes * 1e3:.2f} ms per Newton pass, K1 launches "
+            f"{k1}, q rel RMSE {rmse:.3e} against the golden [{card}]")
+    print(line, flush=True)
+    if not (bool(sol.converged) and rmse <= RMSE_TOL):
+        raise RuntimeError(f"{line}: misses the golden's bar {RMSE_TOL}")
+    if k1 < passes:
+        raise RuntimeError(f"{line}: fewer K1 launches than Newton passes")
+    launches["Spectre DFF tran (phase 17)"] = k1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dff.npz")
+        sol.save(path)
+        ts, waves = ct.TranSolution.load(path)
+    names = sorted(cc.names, key=cc.names.get)
+    xs = _host(sol.xs)
+    if not (np.array_equal(ts, np.asarray(sol.ts)) and list(waves) == names
+            and all(np.array_equal(waves[nm], xs[..., cc.names[nm]])
+                    for nm in names)):
+        raise RuntimeError("Spectre DFF: TranSolution.load gives other "
+                           "arrays or names than were saved")
+    print(f"Spectre DFF TranSolution.save / load: {len(ts)} rows x "
+          f"{len(names)} names, equal", flush=True)
+
+    got = spectre_deck_runs("cuda")
+    deck_launches = 0
+    for name, g in got.items():
+        rr = ref["decks"][name]
+        gp, rp = g["points"], rr["points"]
+        errs = []
+        if len(gp) != len(rp) or not gp:
+            raise RuntimeError(f"Spectre deck {name}: {len(gp)} analysis "
+                               f"points on the card, {len(rp)} on the CPU")
+        for a, b in zip(gp, rp):
+            if not (a["kind"] == b["kind"] and a["names"] == b["names"]
+                    and a["converged"] and b["converged"]
+                    and a["device"] == "cuda"):
+                raise RuntimeError(f"Spectre deck {name}: a point failed, "
+                                   f"ran off the card or parts in kind")
+            if a["kind"] == "tran":
+                if a["counts"] != b["counts"]:
+                    raise RuntimeError(f"Spectre deck {name}: counts "
+                                       f"{a['counts']} / {b['counts']}")
+                errs.append(float(np.abs(a["xs"] - b["xs"]).max()))
+            else:
+                errs.append(float(np.abs(a["x"] - b["x"]).max()
+                                  / np.abs(b["x"]).max()))
+        vals, ok = spectre_gate(name, gp)
+        print(f"Spectre deck {name!r} through simulate() on the card: wall "
+              f"{g['wall']:.3f} s, {len(gp)} analysis points, K1 launches "
+              f"{g['launches']}, card against CPU at most {max(errs):.3e} "
+              f"({'V' if gp[0]['kind'] == 'tran' else 'relative'}), "
+              f"gated {vals} [{card}]", flush=True)
+        if not (max(errs) <= CPU_TOL and ok):
+            raise RuntimeError(f"Spectre deck {name}: off the CPU port or "
+                               f"the JAX test's expectation")
+        if g["launches"] < len(gp):
+            raise RuntimeError(f"Spectre deck {name}: fewer K1 launches "
+                               f"than analysis points")
+        deck_launches += g["launches"]
+    launches["Spectre decks through simulate() (phase 17)"] = deck_launches
+    launches["to_veriloga export dc + AC (phase 17)"] = va_export(card)
+    return dict(launches=launches)
+
+
+def _export_net(ct, cir):
+    """The network phase 17 exports: R, C, V, E and G."""
+    cir.V("vb", "b", "0", dc=1.0)
+    cir.R("r1", "in", "mid", 1e3)
+    cir.R("r2", "b", "mid", 2e3)
+    cir.C("c1", "mid", "0", 1e-9)
+    cir.add(ct.VCCS, "g1", ("gp", "0", "mid", "0"), gm=1e-3)
+    cir.R("rg", "gp", "0", 1e3)
+    cir.C("cg", "gp", "0", 1e-10)
+    cir.add(ct.VCVS, "e1", ("out", "0", "gp", "0"), gain=2.0)
+    return cir
+
+
+def va_export(card):
+    """Phase 17's Verilog-A export: the network written by to_veriloga
+    (ports in and out), compiled by compile_va and instantiated between a
+    driven source and a load on the card, against the same elements built
+    in: DC within CPU_TOL of max |x|, AC within AC_TOL of max |H| in one
+    K1 launch. Returns the export's K1 launches (dc + AC)."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.frontend.writer import to_veriloga
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+    va = to_veriloga(_export_net(ct, ct.Circuit("rcnet")),
+                     module_name="rcnet", ports=["in", "out"])
+    model = ct.compile_va(va)["rcnet"]
+    ccs = {}
+    for what in ("export", "built in"):
+        cir = ct.Circuit(f"{what}")
+        cir.V("v1", "in", "0", dc=1.0, acmag=1.0)
+        if what == "export":
+            cir.add(model, "x1", ("in", "out"))
+        else:
+            _export_net(ct, cir)
+        cir.R("rl", "out", "0", 1e3)
+        ccs[what] = cir.compile(device="cuda")
+    freqs = ct.acdec(*VA_EXPORT_FREQS)
+    res = {}
+    for what, cc in ccs.items():
+        torch.cuda.synchronize()
+        gj_solve.launches = 0
+        op = ct.dc(cc)
+        torch.cuda.synchronize()
+        dc_launches = gj_solve.launches
+        gj_solve.launches = 0
+        h = ct.ac(cc, freqs, op_x=op.x)["out"]
+        torch.cuda.synchronize()
+        res[what] = dict(op=op, h=h, dc_launches=dc_launches,
+                         ac_launches=gj_solve.launches)
+    e, b = res["export"], res["built in"]
+    nodes = {"in": "in", "out": "out", "x1#mid": "mid", "x1#gp": "gp",
+             "x1#b": "b"}
+    xe = np.array([float(e["op"][k]) for k in nodes])
+    xb = np.array([float(b["op"][v]) for v in nodes.values()])
+    dc_err = float(np.abs(xe - xb).max() / np.abs(xb).max())
+    ac_err = float(np.abs(e["h"] - b["h"]).max() / np.abs(b["h"]).max())
+    print(f"to_veriloga export ({len(va.splitlines())} lines, module rcnet,"
+          f" {len(ccs['export'].names)} unknowns) on the card: DC against "
+          f"the built-in elements {dc_err:.3e} of max |x| (out "
+          f"{xe[1]:.6g} V), AC over {len(freqs)} frequencies {ac_err:.3e} of "
+          f"max |H|, K1 launches dc {e['dc_launches']} + AC "
+          f"{e['ac_launches']} [{card}]", flush=True)
+    if not (bool(e["op"].converged) and bool(b["op"].converged)
+            and dc_err <= CPU_TOL and ac_err <= AC_TOL):
+        raise RuntimeError("to_veriloga export: off the built-in circuit")
+    if e["ac_launches"] != 1 or e["dc_launches"] < 1:
+        raise RuntimeError(f"to_veriloga export: {e['ac_launches']} K1 "
+                           f"launches for the AC sweep, want 1")
+    return e["dc_launches"] + e["ac_launches"]
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3044,13 +3509,16 @@ def main():
     # host-bound walls of phases 3-8c see no neighbour. Worker A: phase 9's
     # lanes, phases 11 and 12, then phase 6's twins (queued after phase
     # 12's jobs, so that phase 12 never waits); worker B: phase 8b's
-    # reference, phase 8c's ladder and phase 16's CPU side; phase 13's
+    # reference, phase 8c's ladder and the CPU sides of phases 16 and 17;
+    # phase 13's
     # process has its own
     cpu, cpu2, child, done = cpu_worker(), cpu_worker(), None, False
     try:
         dar_job = cpu2.submit(cpu_darlington_ref)
         ladder_job = cpu2.submit(cpu_ladder_ac)
         delay_job = cpu2.submit(cpu_delay_sim)
+        spectre_job = cpu2.submit(cpu_spectre)
+        t_child = time.perf_counter()
         child = start_pit_child(graetz_k2, dar)
         mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"],
                    cpu)
@@ -3068,7 +3536,14 @@ def main():
         pg = phase("15 BBD power grid", power_grid, card)
         dly = phase("16 delays, B-sources, simulate", delays_simulate, card,
                     delay_job)
+        sp = phase("17 Spectre", spectre_phase, card, spectre_job)
+        main_path = time.perf_counter() - t_child
         res13 = phase("13 (its process: the wait)", join_pit_child, child)
+        wait = walls["13 (its process: the wait)"]
+        print(f"main process's path from phase 13's start to the join "
+              f"{main_path:.1f} s (phase 17 {walls['17 Spectre']:.1f} s of "
+              f"it); phase 13's process {main_path + wait:.1f} s to its "
+              f"end", flush=True)
         lin, pit = res13["lin"], res13["pit"]
         walls.update({f"{k} (own process)": v
                       for k, v in res13["walls"].items()})
@@ -3101,7 +3576,7 @@ def main():
                                   ("windows", "windows"))},
                "ladder AC (phase 8c)": ac["ladder"]["launches"],
                "power grid BBD dc + tran (phase 15)": pg["launches"],
-               **dly["launches"]}
+               **dly["launches"], **sp["launches"]}
     kernels = [{"name": "K1 gj_solve (warp, block and grid variants; jvp, "
                         "vjp)",
                 "route": "cuda",

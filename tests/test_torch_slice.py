@@ -69,7 +69,8 @@ def test_package_imports_no_jax():
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'cadnip_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'cadnip_tpu',\n"
+        "                                  'matplotlib'):\n"
         "            raise ImportError('blocked ' + name)\n"
         "had = 'jax' in sys.modules\n"
         "sys.meta_path.insert(0, Block())\n"
@@ -82,6 +83,9 @@ def test_package_imports_no_jax():
         "assert 'cadnip_tpu_torch.analyses.tran_linear' in sys.modules\n"
         "assert 'cadnip_tpu_torch.ops.bbd' in sys.modules\n"
         "assert 'cadnip_tpu_torch.mna.bbd_assemble' in sys.modules\n"
+        "assert 'cadnip_tpu_torch.frontend.spectre' in sys.modules\n"
+        "assert 'cadnip_tpu_torch.frontend.explore' in sys.modules\n"
+        "assert 'cadnip_tpu_torch.convert' in sys.modules\n"
         "assert had or 'jax' not in sys.modules\n"
         "assert 'cadnip_tpu' not in sys.modules\n"
         "print('ok')\n")
