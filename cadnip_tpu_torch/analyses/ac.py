@@ -81,9 +81,12 @@ def linearize(cc: CompiledCircuit, assemble, x_op, params, dyn):
     return G[0], C[0]
 
 
-def make_ac_sweep(cc: CompiledCircuit):
+def make_ac_sweep(cc: CompiledCircuit, method: str | None = None):
     """Build ac_sweep(x_op, params, dyn, omegas) -> (x_re, x_im), each
-    [n_freq, n]: one batched solve over the frequencies."""
+    [n_freq, n]: one batched solve over the frequencies, by the dense
+    `method` of `ops/linalg.py` ("gauss" by default; "gjpl32ir" makes the
+    sweep one f32 launch of K1, the inverses of the equilibrated 2N
+    forms)."""
     assemble = make_assembler(cc)
     b_ac_fn = make_ac_rhs(cc)
     dmeta = make_delay_meta(cc)
@@ -110,7 +113,8 @@ def make_ac_sweep(cc: CompiledCircuit):
         if dmeta is None:
             G, C = linearize(cc, assemble, x_op, params, dyn)
             return solve_complex(G.expand(nf, -1, -1), w * C,
-                                 br.expand(nf, -1), bi.expand(nf, -1))
+                                 br.expand(nf, -1), bi.expand(nf, -1),
+                                 method)
         G, C, S, P, taus = delay_terms(x_op, params, dyn)
         # S diag(e^{-jωτ}) P: the real part joins G, the imaginary part
         # the ωC slot
@@ -120,7 +124,7 @@ def make_ac_sweep(cc: CompiledCircuit):
         Gw = G[None] + cosr @ P
         Cw = C[None] - (sinr @ P) / torch.clamp(w, min=1e-300)
         return solve_complex(Gw, w * Cw, br.expand(nf, -1),
-                             bi.expand(nf, -1))
+                             bi.expand(nf, -1), method)
 
     return ac_sweep
 

@@ -74,10 +74,11 @@ def _out_selector(cc: CompiledCircuit, out):
     return e
 
 
-def make_noise_sweep(cc: CompiledCircuit):
+def make_noise_sweep(cc: CompiledCircuit, method: str | None = None):
     """Build sweep(x_op, params, dyn, omegas, e_out, b_in) -> (onoise [nf],
     inoise [nf] or None, contrib [nf, n_src]), with the (group, n_inst,
-    n_pairs) sizes of the contrib columns."""
+    n_pairs) sizes of the contrib columns. `method` is the dense method of
+    the adjoint solve (`ops/linalg.py`, "gauss" by default)."""
     assemble = make_assembler(cc)
     n, dev = cc.n, cc.device
     src_groups, sizes = [], []
@@ -121,7 +122,7 @@ def make_noise_sweep(cc: CompiledCircuit):
         zr, zi = solve_complex(
             G.T.expand(nf, -1, -1), omegas[:, None, None] * C.T,
             e_out.expand(nf, -1), torch.zeros((nf, n), dtype=DTYPE,
-                                              device=dev))
+                                              device=dev), method)
         pad = torch.zeros((nf, 1), dtype=DTYPE, device=dev)
         zr, zi = torch.cat([zr, pad], 1), torch.cat([zi, pad], 1)
         hr = zr[:, rp] - zr[:, rn]

@@ -357,6 +357,7 @@ def launch(A, B, which=None, entry=None):
     if err != 0:
         raise RuntimeError(f"gj_solve kernel launch failed: cudaError {err}")
     gj_solve.launches += 1
+    gj_solve.f32_launches += int(not f64)
     return X
 
 
@@ -381,6 +382,7 @@ def _launch_rule(mode, A, B, X, dA, out, gA, which):
         raise RuntimeError(f"gj_solve rule launch failed: cudaError {err}")
     gj_solve.launches += 1
     gj_solve.rule_launches += 1
+    gj_solve.f32_launches += int(A.dtype == F32)
 
 
 def launch_tangent(A, X, dA, dB, which=None):
@@ -649,3 +651,6 @@ gj_solve.launches = 0
 #: in the warp and block forms) since the last reset, also counted in
 #: `launches`
 gj_solve.rule_launches = 0
+#: launches in f32 (the "gjpl32ir" inverses among them) since the last
+#: reset, also counted in `launches`
+gj_solve.f32_launches = 0

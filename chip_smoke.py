@@ -16,7 +16,11 @@ Phases, each of which raises (exit code != 0) on failure:
      solves [10, 104, 190], [64, 128, 129], [1, 160, 161] and the largest
      system one block holds, [1, 167, 168]) and the grid variant's (n =
      512 and 1024, and the 125-section ladder's AC shape [801, 254,
-     255]); where the warp variant takes the shape, the block variant
+     255]), phase 17's to_veriloga AC [801, 16, 17], and K1's f32
+     inverses (k = n) of the gjpl32ir method at phase 18's shapes
+     ([1, 19, 38], [801, 38, 76], [159, 32, 64], [1, 973, 1946]) and the
+     Monte Carlo's [4096, 19, 38] (F32_ROWS; f32 bar 1e-4 of the
+     solution's size); where the warp variant takes the shape, the block variant
      forced at it against the blocked twin (GRID_BLOCK_TOL, the same NaN
      pattern); where one block holds a system above n = 64, the block and
      grid variants forced at it against each other (GRID_BLOCK_TOL: the
@@ -87,10 +91,11 @@ Phases, each of which raises (exit code != 0) on failure:
      the CPU; and a ten-diode chain behind `$limit` at DC against the
      CPU, K1's launches counted per path;
  13. (in a process of its own on the same card, started before phase 9,
-     its output printed when it is joined after phase 15) the fixed-step
+     its output printed when it is joined after phase 18) the fixed-step
      engines at bench.py's settings: the VACASK rc through
      tran_linear() (0-1 s at 1 us, 1,000,001 points, K^-1 one K1 launch)
-     against the closed form; graetz (0-1 s at 1 us) and the darlington
+     against the closed form; graetz (0-1 s at 1 us) and, in phase 13b's
+     process of its own (started with phase 13's), the darlington
      (0-1 ms at 2 ns), full spans, and mul over its first two windows only
      (0-40 us at 10 ns, not bench.py's 0-5 ms: MUL_SPAN says why) through
      tran_pit(), every window-Newton iteration one K1 launch of
@@ -133,9 +138,10 @@ Phases, each of which raises (exit code != 0) on failure:
  17. (after phase 16, inside the same wait) the Spectre dialect on the
      card: the DFF written by to_spectre and sniffed back by parse_spice,
      its summary() and op_table() equal to the CPU port's, tran() over
-     0-600 ns at phase 4's settings within the golden's bar with K1
-     launches at least its Newton passes (counts printed beside phase
-     4's: the Spectre text rounds five parameters by an ulp), and
+     0-300 ns at phase 4's settings and step limit within the golden's
+     bar on its rows up to 300 ns, with K1 launches at least its Newton
+     passes (counts printed: the Spectre text rounds five parameters by
+     an ulp), and
      TranSolution.save / load of it; simulate() of tests/test_spectre.py's
      decks (the sweep and Monte Carlo containers among them, every point
      compiled on the card) against the CPU port and the JAX tests'
@@ -143,6 +149,26 @@ Phases, each of which raises (exit code != 0) on failure:
      C, V, E, G network exported by to_veriloga and compiled by compile_va
      against the built-in elements, DC and an 801-frequency AC in one K1
      launch;
+ 18. the JAX package's accelerator solve methods: (a, in phase 13b's
+     process after the darlington) the DFF through tran(method=
+     "gjpl32ir") over 0-600 ns (K1 in f32 on the equilibrated Jacobian,
+     one launch per Newton pass, two f64 refinement steps), gated on
+     phase 4's counts, the golden's bar and f32 launches at least its
+     Newton passes, held after the join against the CPU port's run
+     (worker B: equal counts, 1e-9 x 5 V); the DFF through
+     tran(method="lu32ir") over 0-100 ns on the golden's rows; (c) the
+     DFF's supply rejection and noise through make_ac_sweep /
+     make_noise_sweep(method="gjpl32ir"), one f32 launch of [801, 38,
+     76] each, against phase 8c's gauss runs (1e-9); (d) phase 15's power
+     grid through tran(method="gjpl32ir"), two f32 launches per Newton
+     iteration (the blocks [159, 32, 64], the Schur [1, 973, 1946]),
+     against phase 15's gauss run; (e) the mesh: tests/
+     test_sharded_dff.py's 1024-lane DFF Monte Carlo through
+     sharded_transweep over two shards of the one card against the local
+     transweep (equal counts, 1e-9 x 5 V, bit-equality printed; the JAX
+     test's gates), and sharded_dcsweep of the same table against the
+     plain DC chain. TF32 is asserted off. Phases c-e run in the main
+     process after phase 17, inside the wait on phases 13 and 13b;
  14. phase 6's and 8b's comparisons with their CPU twins and phase 8c's
      ladder against the CPU port, the wall time of every phase and of the
      whole run, a JSON line of the kernels, the card's name and power
@@ -151,11 +177,11 @@ Phases, each of which raises (exit code != 0) on failure:
 From phase 9 on, two spawned worker processes replay the CPU references
 beside the card's host loop: worker A phase 9's check lanes, phases 11 and
 12, then phase 6's twins; worker B phase 8b's reference, phase 8c's
-ladder and the CPU sides of phases 16 and 17. Phase 13 runs at the same time in a
-spawned process on the card (the card must be in the Default compute
-mode), with a worker of its own for mul's serial_trap witness and its
-replays; its gates and launch counts
-come back to the main process, and its failure fails the run. Every read
+ladder and the CPU sides of phases 16, 17 and 18a. Phases 13 and 13b run
+at the same time in spawned processes on the card (the card must be in
+the Default compute mode), phase 13's with two workers of its own (mul's
+serial_trap witness and its replay; graetz's replay); their gates, launch counts and
+results come back to the main process, and a failure fails the run. Every read
 of a worker's result prints its wait. The workers never open the card,
 and the script stops every process it started on every exit.
 """
@@ -217,6 +243,29 @@ NESTED_BLOCK_ROW = "f64 n=104 k=86 b=10 (nested BBD block solves)"
 #: variants, solve_ex, bound)
 BLOCK_ROWS = (AC_DFF_ROW, NESTED_BLOCK_ROW, "f64 n=128 k=1 b=64",
               "f64 n=160 k=1 b=1", "f64 n=167 k=1 b=1")
+#: phase 3's f32 rows: K1's f32 inverse (k = n) of the "gjpl32ir" method
+#: at each shape it takes (phase 18's paths, and the Monte Carlo's, which
+#: no path of the script runs under gjpl32ir); the first is the kernels
+#: line's f32 row
+F32_ROWS = {"f32 n=19 k=19 b=1 (DFF Newton, gjpl32ir)": (19, 1),
+            "f32 n=38 k=38 b=801 (DFF AC and noise, gjpl32ir)": (38, 801),
+            "f32 n=32 k=32 b=159 (power grid blocks, gjpl32ir)": (32, 159),
+            "f32 n=973 k=973 b=1 (power grid Schur, gjpl32ir)": (973, 1),
+            "f32 n=19 k=19 b=4096 (Monte Carlo, gjpl32ir; no path)":
+                (19, 4096)}
+VA_EXPORT_ROW = "f64 n=16 k=1 b=801 (to_veriloga AC sweep, phase 17)"
+#: tran()'s default dtmax over phase 4's 0-600 ns: a shorter span at this
+#: dtmax takes phase 4's steps up to its end (phases 17 and 18)
+DFF_DTMAX = 6e-7 / 50
+#: phase 17's Spectre DFF and phase 18's lu32ir DFF: the spans they run,
+#: each gated on the golden's rows up to its end
+SPECTRE_DFF_SPAN = 3e-7
+LU32_SPAN = 1e-7
+#: phase 18's mesh: tests/test_sharded_dff.py's workload at full width
+#: (the 1024-way DFF Monte Carlo over MC_SPREADS, seed 7, 0-100 ns), split
+#: over MESH_SHARDS shards on the one card
+MESH_LANES, MESH_SEED, MESH_SHARDS = 1024, 7, 2
+MESH_SPAN, MESH_KW = 1e-7, dict(dt=3.333e-10, max_steps=8000)
 DIODE_CHAIN = """diode chain
 .model dd d is=1e-15 n=1
 vs in 0 dc 0
@@ -546,16 +595,18 @@ def graph_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def golden_rmse(sol, name, node_a, node_b=None, scale=1.0):
+def golden_rmse(sol, name, node_a, node_b=None, scale=1.0, upto=None):
     """Relative RMSE of a waveform against tests/goldens/<name>.npz at the
-    golden's save instants (bench.py's golden_rmse)."""
+    golden's save instants (bench.py's golden_rmse), those up to `upto`
+    where it is given."""
     g = np.load(os.path.join(GOLDENS, f"{name}.npz"))
     v = sol[node_a].cpu().numpy()
     if node_b is not None:
         v = v - sol[node_b].cpu().numpy()
     gv = g[node_a] - (g[node_b] if node_b else 0.0)
-    vi = np.interp(g["ts"], np.asarray(sol.ts), v)
-    return float(np.sqrt(np.mean((vi - gv) ** 2))) / scale
+    m = slice(None) if upto is None else g["ts"] <= upto * (1 + 1e-12)
+    vi = np.interp(g["ts"][m], np.asarray(sol.ts), v)
+    return float(np.sqrt(np.mean((vi - gv[m]) ** 2))) / scale
 
 
 def roofline(bytes_, flops, itemsize):
@@ -619,7 +670,11 @@ def kernel_cases(card):
              ("f64 n=4 k=1 b=1 (delay line Newton)", 4, 1, 1,
               torch.float64, False),
              ("f64 n=8 k=1 b=801 (delayed AC sweep)", 8, 1, 801,
-              torch.float64, False)]
+              torch.float64, False),
+             # phase 17's to_veriloga export: its AC sweep (2n = 16)
+             (VA_EXPORT_ROW, 16, 1, 801, torch.float64, False)]
+    cases += [(name, n, n, b, torch.float32, False)
+              for name, (n, b) in F32_ROWS.items()]
     results = {}
     for name, n, k, b, dtype, zero_diag in cases:
         # well-conditioned (eigenvalues within ~1 of 2), so the residual
@@ -692,7 +747,7 @@ def kernel_cases(card):
             if b == 1 else None
         plain_ms = cuda_time_ms(lambda: plain_twin(At, Bt),
                                 min(reps, PLAIN_REPS, 3 if b * n > 1e5
-                                    else PLAIN_REPS))
+                                    or n > 256 else PLAIN_REPS))
         library_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(At, Bt),
                                   reps)
         bound = roofline(At.element_size() * b * (n * n + 2 * n * k),
@@ -921,7 +976,8 @@ def run_dff(card):
               f"{(nnewton + op_iters) / wall:.1f} Newton it/s, transient "
               f"host syncs {sol.host_syncs}, K1 launches {launches}, q rel "
               f"RMSE {rmse:.3e} [{card}]", flush=True)
-        out[label] = dict(launches=launches, wall=wall)
+        out[label] = dict(launches=launches, wall=wall,
+                          ms=wall / (nnewton + op_iters) * 1e3)
     return out
 
 
@@ -1529,7 +1585,7 @@ def ac_noise(card):
         if not err <= AC_TOL or not all(np.isfinite(v).all() for v in yg):
             raise RuntimeError(f"{label}: card against CPU {err:.3e} > "
                                f"{AC_TOL:.0e}")
-        out[label] = dict(wall=wall, k1_ms=k1_ms, err=err)
+        out[label] = dict(wall=wall, k1_ms=k1_ms, err=err, y=yg)
     out["ladder"] = ladder_ac(card)
     return out
 
@@ -2345,7 +2401,7 @@ def power_grid(card):
                 tran=dict(counts=counts, op_iters=op_it, wall=tr_s),
                 n=cc.n, K=part.K, bs=part.bs, nb=part.nb, nbl=part.nbl,
                 nested=nested, systems=systems, witness_s=w_s,
-                dc_err=dc_err, tran_err=tr_err)
+                dc_err=dc_err, tran_err=tr_err, xs=xs, is_v=v)
 
 
 def bbd_k1_rows(card, pg):
@@ -2396,66 +2452,84 @@ def bbd_k1_rows(card, pg):
     return rows
 
 
-def pit_child(log_path, graetz_k2, dar_coll, results):
-    """Phase 13 in a process of its own on the same card, started before
-    phase 9 so that its host-bound periodic seeds overlap phases 9-12 and
-    15: rc through tran_linear, then pit_engines with its own CPU worker
-    (mul's witness and the replays). Its output goes to `log_path`; its
-    results, or the traceback of its failure, to the queue `results`."""
+def pit_child(which, log_path, graetz_k2, dar_coll, phase4, results):
+    """Phase 13 (`which` "13") or 13b ("13b") in a process of its own on
+    the same card, started before phase 9 so that its host-bound loops
+    overlap phases 9-12 and 15-18. Phase 13: rc through tran_linear, then
+    graetz and mul through pit_engines with two CPU workers of its own
+    (mul's witness, then mul's replay; graetz's replay), so that the
+    replays do not queue behind the witness. Phase 13b: the darlington
+    through pit_engines, then phase 18's DFF runs under the
+    mixed-precision methods (mixed_dff). Its output goes to `log_path`;
+    its results, or the traceback of its failure, to the queue
+    `results`."""
     import contextlib
     import traceback
     _exit_with_parent()
     sys.path.insert(0, ROOT)
-    cpu = None
+    workers = []
     with open(log_path, "w") as log, contextlib.redirect_stdout(log):
         try:
             card = nvidia_smi("name,power.limit")
             from cadnip_tpu_torch.ops.gj_solve import load_library
             load_library()
-            cpu = cpu_worker()
-            witness_job = cpu.submit(cpu_mul_witness)
             walls = {}
             t = time.perf_counter()
-            lin = rc_linear(card)
-            walls["13 rc tran_linear"] = time.perf_counter() - t
-            t = time.perf_counter()
-            pit = pit_engines(card, cpu, graetz_k2, {"coll": dar_coll},
-                              witness_job)
-            walls["13 tran_pit"] = time.perf_counter() - t
-            results.put(("ok", dict(lin=lin, pit=pit, walls=walls)))
+            if which == "13":
+                workers = [cpu_worker(), cpu_worker()]
+                witness_job = workers[0].submit(cpu_mul_witness)
+                lin = rc_linear(card)
+                walls["13 rc tran_linear"] = time.perf_counter() - t
+                t = time.perf_counter()
+                pit = pit_engines(card, {"mul": workers[0],
+                                         "graetz": workers[1]}, graetz_k2,
+                                  None, witness_job, ("graetz", "mul"))
+                walls["13 tran_pit"] = time.perf_counter() - t
+                res = dict(lin=lin, pit=pit, walls=walls)
+            else:
+                pit = pit_engines(card, None, None, {"coll": dar_coll},
+                                  None, ("darlington",))
+                walls["13b tran_pit"] = time.perf_counter() - t
+                t = time.perf_counter()
+                mixed = mixed_dff(card, phase4)
+                walls["18a DFF gjpl32ir, lu32ir"] = time.perf_counter() - t
+                res = dict(pit=pit, mixed=mixed, walls=walls)
+            results.put(("ok", res))
         except Exception:
             results.put(("failed", traceback.format_exc()))
         finally:
-            if cpu is not None:
-                cpu.shutdown(wait=True, cancel_futures=True)
+            for w in workers:
+                w.shutdown(wait=True, cancel_futures=True)
 
 
-def start_pit_child(graetz_k2, dar):
-    """Start pit_child (spawned) and return (process, queue, log path).
-    The card must be in the Default compute mode, where two processes
-    share it."""
+def start_pit_child(which, graetz_k2, dar, phase4=None):
+    """Start pit_child(which, ...) (spawned) and return (process, queue,
+    log path, which). The card must be in the Default compute mode, where
+    several processes share it."""
     import multiprocessing
     import tempfile
     mode = nvidia_smi("compute_mode")
     print(f"compute mode: {mode}", flush=True)
     if mode != "Default":
-        raise RuntimeError(f"compute mode {mode!r}: phase 13's process "
+        raise RuntimeError(f"compute mode {mode!r}: phase {which}'s process "
                            f"needs the card shared (Default)")
     ctx = multiprocessing.get_context("spawn")
     q = ctx.Queue()
-    fd, log_path = tempfile.mkstemp(prefix="chip_smoke_13_", suffix=".log")
+    fd, log_path = tempfile.mkstemp(prefix=f"chip_smoke_{which}_",
+                                    suffix=".log")
     os.close(fd)
     proc = ctx.Process(target=pit_child,
-                       args=(log_path, graetz_k2, np.asarray(dar["coll"]), q))
+                       args=(which, log_path, graetz_k2,
+                             np.asarray(dar["coll"]), phase4, q))
     proc.start()
-    return proc, q, log_path
+    return proc, q, log_path, which
 
 
 def join_pit_child(child):
-    """Wait for phase 13's process, print its output, and return its
-    results; its failure fails the run."""
+    """Wait for phase 13's or 13b's process, print its output, and return
+    its results; its failure fails the run."""
     import queue
-    proc, q, log_path = child
+    proc, q, log_path, which = child
     t = time.perf_counter()
     while True:
         try:
@@ -2471,11 +2545,11 @@ def join_pit_child(child):
     with open(log_path) as fh:
         text = fh.read()
     os.unlink(log_path)
-    print(f"---- phase 13 (its own process, read after a wait of "
-          f"{waited:.1f} s) ----\n{text.rstrip()}\n---- end of phase 13 ----",
-          flush=True)
+    print(f"---- phase {which} (its own process, read after a wait of "
+          f"{waited:.1f} s) ----\n{text.rstrip()}\n---- end of phase {which} "
+          f"----", flush=True)
     if status != "ok":
-        raise RuntimeError(f"phase 13 failed:\n{payload}")
+        raise RuntimeError(f"phase {which} failed:\n{payload}")
     return payload
 
 
@@ -2600,24 +2674,26 @@ def pit_against_cpu(card, name, head, window_iters, window, scale, job):
     return dict(card_it=card_it, cpu_it=cpu_it, err=err, wall=ref["wall"])
 
 
-def pit_engines(card, cpu2, graetz_k2, dar, witness_job):
-    """Phase 13: graetz, mul and the darlington through tran_pit on the
-    card at bench.py's settings (PIT_RUNS), each window iteration one K1
+def pit_engines(card, cpus, graetz_k2, dar, witness_job, names):
+    """Phase 13: `names` of graetz, mul and the darlington (phase 13b's
+    process runs the darlington, phase 13's the others) through tran_pit
+    on the card at bench.py's settings (PIT_RUNS), each window iteration one K1
     launch of [W, n, n + 1]: wall, the periodic seed's serial tran(), the
     windows, iterations, ms per window iteration, K1 launches per part,
     peak device memory; bench.py's gates; graetz against phase 8's K2
     waveform, mul against serial_trap on the CPU (`witness_job`) and the
     golden over its span, the darlington against phase 8b's; K1 at each
     path's shape. The first two windows of graetz and mul are replayed by
-    the CPU port in worker `cpu2` from the card's operating point and seed
-    while the card runs on, and compared at the end."""
+    the CPU port in the worker `cpus[name]` from the card's operating point
+    and seed while the card runs on, and compared at the end."""
     import torch
     import cadnip_tpu_torch as ct
     from cadnip_tpu_torch.models import vacask
     from cadnip_tpu_torch.ops.gj_solve import gj_solve
 
     out, replays = {}, {}
-    for name, (net, span, dt, kw, (na, nb), scale) in PIT_RUNS.items():
+    for name in names:
+        net, span, dt, kw, (na, nb), scale = PIT_RUNS[name]
         cc = ct.parse_spice(getattr(vacask, net), device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2633,7 +2709,7 @@ def pit_engines(card, cpu2, graetz_k2, dar, witness_job):
         if name in PIT_CPU_SPAN:
             head = sol.xs[:2 * sol.window + 1].cpu().numpy()
             replays[name] = (head, sol.window_iters, sol.window, scale,
-                             cpu2.submit(cpu_pit, name, head[0],
+                             cpus[name].submit(cpu_pit, name, head[0],
                                          sol.xseed.cpu().numpy()))
         ts = np.asarray(sol.ts)
         v = sol[na].cpu().numpy()
@@ -3282,10 +3358,11 @@ def spectre_phase(card, job):
 
     1. The DFF written by to_spectre (text equal to the CPU worker's),
        sniffed as Spectre by parse_spice on "cuda": its summary() and
-       op_table() equal to the CPU's, then tran() over 0-600 ns at phase
-       4's settings within the golden's bar (RMSE_TOL) with K1 launches at
-       least its Newton iterations, its counts printed beside phase 4's
-       (the two circuits differ by an ulp in five parameters), and
+       op_table() equal to the CPU's, then tran() over 0-300 ns
+       (SPECTRE_DFF_SPAN) at phase 4's settings and step limit (DFF_DTMAX)
+       within the golden's bar (RMSE_TOL) on its rows up to 300 ns, with K1
+       launches at least its Newton iterations, its counts printed (the
+       two circuits differ by an ulp in five parameters), and
        TranSolution.save / load of it.
     2. simulate() of SPECTRE_DECKS on the card against the CPU port (the
        worker's): DC within CPU_TOL relative, transients at equal step
@@ -3320,18 +3397,19 @@ def spectre_phase(card, job):
     torch.cuda.synchronize()
     gj_solve.launches = 0
     t = time.perf_counter()
-    sol = ct.tran(cc, (0, 6e-7), dt=3.333e-10, max_steps=100000)
+    sol = ct.tran(cc, (0, SPECTRE_DFF_SPAN), dt=3.333e-10, dtmax=DFF_DTMAX,
+                  max_steps=100000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     k1 = gj_solve.launches
     counts = tuple(int(v) for v in sol.stats[:3])
     passes = counts[2] + int(sol.op_iters)
-    rmse = golden_rmse(sol, "dff", "q", scale=5.0)
-    line = (f"Spectre DFF tran() 0-600 ns on the card: wall {wall:.3f} s, "
-            f"accepted, rejected, newton {counts} + DC {int(sol.op_iters)} "
-            f"(phase 4's SPICE DFF: {DFF_TRAN_COUNTS} + DC {DFF_DC_ITERS}), "
-            f"{wall / passes * 1e3:.2f} ms per Newton pass, K1 launches "
-            f"{k1}, q rel RMSE {rmse:.3e} against the golden [{card}]")
+    rmse = golden_rmse(sol, "dff", "q", scale=5.0, upto=SPECTRE_DFF_SPAN)
+    line = (f"Spectre DFF tran() 0-{SPECTRE_DFF_SPAN * 1e9:g} ns on the "
+            f"card: wall {wall:.3f} s, accepted, rejected, newton {counts} + "
+            f"DC {int(sol.op_iters)}, {wall / passes * 1e3:.2f} ms per "
+            f"Newton pass, K1 launches {k1}, q rel RMSE {rmse:.3e} against "
+            f"the golden's rows up to {SPECTRE_DFF_SPAN * 1e9:g} ns [{card}]")
     print(line, flush=True)
     if not (bool(sol.converged) and rmse <= RMSE_TOL):
         raise RuntimeError(f"{line}: misses the golden's bar {RMSE_TOL}")
@@ -3464,6 +3542,344 @@ def va_export(card):
     return e["dc_launches"] + e["ac_launches"]
 
 
+#: phase 18: the JAX package's accelerator solve methods on the card:
+#: "gjpl32ir" (K1 in f32 on the equilibrated matrix, one launch per
+#: factorization for its inverse, then two f64 refinement steps per solve)
+#: and "lu32ir" (torch.linalg's f32 LU of it, the same refinement). The
+#: DFF's q on the card against the CPU port under gjpl32ir at equal counts
+#: (V): the test file holds the CPU port to the JAX package at 7.4e-15 V
+MIXED_CPU_TOL = 1e-9 * 5.0
+#: the power grid under gjpl32ir against phase 15's gauss run, node
+#: voltages: at equal counts, else at the BBD-against-dense bar
+PG_MIXED_SAME_TOL, PG_MIXED_TOL = 1e-8, 1e-3
+
+
+def _full_fp32():
+    """The f32 products of the mixed-precision methods run at full FP32:
+    TF32 off, as torch's defaults have it."""
+    import torch
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    prec = torch.get_float32_matmul_precision()
+    if tf32 or prec != "highest":
+        raise RuntimeError(f"f32 matmuls not at full FP32: allow_tf32 "
+                           f"{tf32}, float32 matmul precision {prec!r}")
+    return f"TF32 off (allow_tf32 {tf32}, precision {prec!r})"
+
+
+def _k1_window(fn):
+    """fn() on the card with K1's counts set to 0 just before: (its
+    result, K1 launches, of them in f32, wall seconds)."""
+    import torch
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+    torch.cuda.synchronize()
+    gj_solve.launches = gj_solve.f32_launches = 0
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, gj_solve.launches, gj_solve.f32_launches, \
+        time.perf_counter() - t
+
+
+def mixed_dff(card, phase4):
+    """Phase 18a (in phase 13b's process): the DFF through
+    tran(method="gjpl32ir") over 0-600 ns at phase 4's settings, gated on
+    phase 4's counts, the golden's bar and at least one f32 K1 launch per
+    transient Newton pass (the operating point takes the default chain,
+    K1 in f64), its wall and ms per pass beside phase 4's; then
+    tran(method="lu32ir") over 0-100 ns at phase 4's step limit, gated on
+    the golden's rows up to 100 ns. The CPU port's gjpl32ir run (worker B)
+    is compared in main (mixed_check)."""
+    import cadnip_tpu_torch as ct
+    fp32 = _full_fp32()
+    cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
+    sol, k1, f32, wall = _k1_window(lambda: ct.tran(
+        cc, (0, 6e-7), dt=3.333e-10, max_steps=100000, method="gjpl32ir"))
+    counts = tuple(int(v) for v in sol.stats[:3])
+    op_iters = int(sol.op_iters)
+    q = sol["q"].cpu().numpy()
+    rmse = golden_rmse(sol, "dff", "q", scale=5.0)
+    ms = wall / (counts[2] + op_iters) * 1e3
+    line = (f"DFF tran(method='gjpl32ir') 0-600 ns on the card: wall "
+            f"{wall:.3f} s, {ms:.2f} ms per Newton pass (phase 4's gauss "
+            f"run: {phase4['wall']:.3f} s, {phase4['ms']:.2f} ms); accepted, "
+            f"rejected, newton {counts} + DC {op_iters}; K1 launches {k1}, "
+            f"{f32} of them f32 (the transient's inverses; the operating "
+            f"point's K1 runs in f64); q rel RMSE {rmse:.3e} against the "
+            f"golden; {fp32} [{card}]")
+    print(line, flush=True)
+    if not (bool(sol.converged) and np.isfinite(q).all()
+            and counts == DFF_TRAN_COUNTS and op_iters == DFF_DC_ITERS
+            and rmse <= RMSE_TOL):
+        raise RuntimeError(f"{line}: want counts {DFF_TRAN_COUNTS} + DC "
+                           f"{DFF_DC_ITERS} within {RMSE_TOL:.0e}")
+    if f32 < counts[2]:
+        raise RuntimeError(f"{line}: fewer f32 K1 launches than Newton "
+                           f"passes")
+    sol2, k1b, f32b, wall2 = _k1_window(lambda: ct.tran(
+        cc, (0, LU32_SPAN), dt=3.333e-10, dtmax=DFF_DTMAX, max_steps=100000,
+        method="lu32ir"))
+    counts2 = tuple(int(v) for v in sol2.stats[:3])
+    rmse2 = golden_rmse(sol2, "dff", "q", scale=5.0, upto=LU32_SPAN)
+    line2 = (f"DFF tran(method='lu32ir') 0-{LU32_SPAN * 1e9:g} ns on the "
+             f"card: wall {wall2:.3f} s, accepted, rejected, newton "
+             f"{counts2} + DC {int(sol2.op_iters)}; K1 launches {k1b} (the "
+             f"operating point's; the transient's factorizations are "
+             f"torch.linalg's f32 LU), f32 {f32b}; q rel RMSE {rmse2:.3e} "
+             f"against the golden's rows up to {LU32_SPAN * 1e9:g} ns "
+             f"[{card}]")
+    print(line2, flush=True)
+    if not (bool(sol2.converged) and rmse2 <= RMSE_TOL and f32b == 0):
+        raise RuntimeError(f"{line2}: misses the golden's bar {RMSE_TOL}")
+    return dict(counts=counts, op_iters=op_iters, q=q, wall=wall, ms=ms,
+                launches=k1, f32=f32, rmse=rmse,
+                lu32=dict(counts=counts2, wall=wall2, rmse=rmse2,
+                          launches=k1b))
+
+
+def cpu_mixed_dff():
+    """Phase 18a's CPU side (worker B): the CPU port's DFF through
+    tran(method="gjpl32ir") over the card's whole span."""
+    import cadnip_tpu_torch as ct
+    cc = ct.parse_spice(ct.dff_netlist(), device="cpu")
+    t = time.perf_counter()
+    sol = ct.tran(cc, (0, 6e-7), dt=3.333e-10, max_steps=100000,
+                  method="gjpl32ir")
+    return dict(counts=tuple(int(v) for v in sol.stats[:3]),
+                op_iters=int(sol.op_iters), q=sol["q"].numpy(),
+                wall=time.perf_counter() - t)
+
+
+def mixed_check(card, mixed, job):
+    """Phase 18a's comparison (main, after phase 13b's process): the
+    card's gjpl32ir DFF against the CPU port's, equal counts and
+    MIXED_CPU_TOL on q."""
+    t = time.perf_counter()
+    ref = job.result()
+    waited = time.perf_counter() - t
+    got = (mixed["counts"], mixed["op_iters"])
+    want = (ref["counts"], ref["op_iters"])
+    err = float(np.abs(mixed["q"] - ref["q"]).max())
+    line = (f"DFF gjpl32ir, card against the CPU port (worker B, "
+            f"{ref['wall']:.1f} s there, read after a wait of {waited:.3f} "
+            f"s): counts + DC {got} / {want}, max |dq| {err:.3e} V (bar "
+            f"{MIXED_CPU_TOL:.0e}) [{card}]")
+    print(line, flush=True)
+    if got != want or not err <= MIXED_CPU_TOL:
+        raise RuntimeError(line)
+    return err
+
+
+def mixed_ac_noise(card, ac):
+    """Phase 18c: the DFF's supply rejection and output noise through
+    make_ac_sweep / make_noise_sweep(method="gjpl32ir") over the 801
+    frequencies, each one f32 K1 launch of [801, 38, 76] (the inverses of
+    the equilibrated 2n forms), against phase 8c's gauss runs on the card:
+    AC_TOL of max |H|, AC_TOL relative on both PSDs."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.analyses.ac import make_ac_sweep
+    from cadnip_tpu_torch.analyses.noise import make_noise_sweep
+    from cadnip_tpu_torch.mna.spec import MODE_AC
+    fp32 = _full_fp32()
+    cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
+    op = ct.dc(cc)
+    freqs = ct.acdec(*AC_FREQS)
+    om = torch.as_tensor(2 * np.pi * freqs, dtype=torch.float64,
+                         device="cuda")
+    dyn = cc.spec.dyn("cuda", mode=MODE_AC)
+    iq = cc.index_of("q")
+    p = cc.alter(cc.params0(), **{"vvdd.acmag": 1.0})
+    sweep = make_ac_sweep(cc, "gjpl32ir")
+    (xr, xi), k1, f32, wall = _k1_window(lambda: sweep(op.x, p, dyn, om))
+    h = (xr[:, iq] + 1j * xi[:, iq]).cpu().numpy()
+    ref = ac["DFF PSRR (ac, q / vvdd)"]["y"][0]
+    err = float(np.abs(h - ref).max() / np.abs(ref).max())
+    print(f"DFF PSRR through make_ac_sweep(method='gjpl32ir'), {len(freqs)} "
+          f"frequencies: K1 launches {k1} ({f32} f32), wall "
+          f"{wall * 1e3:.1f} ms; against phase 8c's gauss run {err:.3e} of "
+          f"max |H| (bar {AC_TOL:.0e}); {fp32} [{card}]", flush=True)
+    if not (k1 == f32 == 1 and err <= AC_TOL and np.isfinite(h).all()):
+        raise RuntimeError(f"DFF PSRR gjpl32ir: {k1} launches ({f32} f32), "
+                           f"{err:.3e} from gauss")
+    e_out = torch.zeros(cc.n, dtype=torch.float64, device="cuda")
+    e_out[iq] = 1.0
+    gi, slot = cc.inst_group["vvdd"]
+    grp = cc.groups[gi]
+    b = np.zeros(cc.n + 1)
+    for local, sign in grp.model.ac_rhs:
+        b[grp.conn[slot, local]] += sign
+    b_in = torch.as_tensor(b[:cc.n], dtype=torch.float64, device="cuda")
+    nsweep, _ = make_noise_sweep(cc, "gjpl32ir")
+    (on, inn, _), k1n, f32n, walln = _k1_window(
+        lambda: nsweep(op.x, cc.params0(), dyn, om, e_out, b_in))
+    ys = (on.cpu().numpy(), inn.cpu().numpy())
+    refn = ac["DFF output noise (noise, q, input vvdd)"]["y"]
+    errn = max(float((np.abs(a - c) / np.abs(c)).max())
+               for a, c in zip(ys, refn))
+    print(f"DFF output noise through make_noise_sweep(method='gjpl32ir'): "
+          f"K1 launches {k1n} ({f32n} f32), wall {walln * 1e3:.1f} ms; "
+          f"against phase 8c's gauss run {errn:.3e} relative on the output "
+          f"and input-referred PSDs (bar {AC_TOL:.0e}) [{card}]", flush=True)
+    if not (k1n == f32n == 1 and errn <= AC_TOL
+            and all(np.isfinite(y).all() for y in ys)):
+        raise RuntimeError(f"DFF noise gjpl32ir: {k1n} launches ({f32n} "
+                           f"f32), {errn:.3e} from gauss")
+    return dict(launches=k1 + k1n, err=err, errn=errn)
+
+
+def mixed_power_grid(card, pg):
+    """Phase 18d: phase 15's power grid through tran(method="gjpl32ir")
+    over 0-3 ns: per transient Newton iteration two f32 K1 launches, the
+    block inverses [159, 32, 64] (warp) and the Schur inverse [1, 973,
+    1946] (grid); the operating point takes the default chain (K1 in
+    f64). Node voltages against phase 15's gauss run within
+    PG_MIXED_SAME_TOL at equal counts, else PG_MIXED_TOL."""
+    import cadnip_tpu_torch as ct
+    _full_fp32()
+    cc = ct.parse_spice(power_grid_netlist(), device="cuda")
+    per_it = 3 if cc.bbd_nested is not None else 2
+    sol, k1, f32, wall = _k1_window(lambda: ct.tran(
+        cc, (0, PG_SPAN), dt=PG_DT, method="gjpl32ir"))
+    counts = tuple(int(v) for v in sol.stats[:3])
+    op_it = int(sol.op_iters)
+    xs = sol.xs.cpu().numpy()
+    same = (counts == pg["tran"]["counts"]
+            and op_it == pg["tran"]["op_iters"])
+    err = float(np.abs(xs - pg["xs"])[:, pg["is_v"]].max())
+    tol = PG_MIXED_SAME_TOL if same else PG_MIXED_TOL
+    ms = wall / max(counts[2] + op_it, 1) * 1e3
+    line = (f"power grid tran(method='gjpl32ir') 0-{PG_SPAN * 1e9:g} ns: "
+            f"accepted, rejected, newton {counts} + DC {op_it} (phase 15's "
+            f"gauss: {pg['tran']['counts']} + DC {pg['tran']['op_iters']}); "
+            f"K1 launches {k1}, {f32} of them f32 ({per_it} per transient "
+            f"Newton iteration); wall {wall:.3f} s, {ms:.1f} ms per Newton "
+            f"iteration (gauss: {pg['newton_ms']:.1f} ms); node voltages "
+            f"against the gauss run {err:.3e} V (bar {tol:.0e}: counts "
+            f"{'equal' if same else 'differ'}) [{card}]")
+    print(line, flush=True)
+    if not (bool(sol.converged) and np.isfinite(xs).all()):
+        raise RuntimeError(f"{line}: failed")
+    if f32 != per_it * counts[2] or k1 != per_it * (counts[2] + op_it):
+        raise RuntimeError(f"{line}: K1 launches off the per-iteration "
+                           f"count")
+    if not err <= tol:
+        raise RuntimeError(line)
+    return dict(launches=k1, f32=f32, counts=counts, same=same, err=err,
+                ms=ms)
+
+
+def _batch_witness(card, cc, shards):
+    """Where the sharded lanes part from the local ones in the last bits:
+    the transient's batched operations outside the DC chain (which is
+    bit-equal) evaluated at the Monte Carlo's shapes on the whole batch and
+    on its shards, bit-equality printed: the charge correction's batched
+    matrix-vector product (the dense `matvec`), and K1 and the residual
+    assembly's sorted-scatter sum for comparison."""
+    import torch
+    from cadnip_tpu_torch.mna.assemble import make_assembler, pad_state
+    from cadnip_tpu_torch.ops.gj_solve import gj_solve
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n, B = cc.n, MESH_LANES
+    M = torch.randn((B, n, n), dtype=torch.float64, device="cuda",
+                    generator=g)
+    v = torch.randn((B, n), dtype=torch.float64, device="cuda", generator=g)
+    parts = [slice(i * B // shards, (i + 1) * B // shards)
+             for i in range(shards)]
+
+    def split_equal(fn, *args):
+        whole = fn(*args)
+        return all(torch.equal(whole[p], fn(*(a[p] for a in args)))
+                   for p in parts)
+
+    asm = make_assembler(cc)
+    xp = pad_state(3.3 * torch.rand((B, n), dtype=torch.float64,
+                                    device="cuda", generator=g))
+    p0 = cc.params0()
+    res = {"matvec (M @ v[..., None])": split_equal(
+               lambda a, b: (a @ b[..., None])[..., 0], M, v),
+           "K1 [B, n, n + 1]": split_equal(
+               lambda a, b: gj_solve(a + 4 * torch.eye(n, device="cuda",
+                                                       dtype=a.dtype), b),
+               M, v),
+           "assembly F (sorted scatter)": split_equal(
+               lambda x: asm(x, asm.init_lim(x), p0,
+                             cc.spec.dyn("cuda"))[0], xp)}
+    print(f"mesh: the transient's batched operations, {B} lanes against "
+          f"{shards} shards, bit-equal: {res} [{card}]", flush=True)
+
+
+def mesh_phase(card):
+    """Phase 18e: the sweep mesh on the one card. tests/test_sharded_dff.py's
+    workload at full width (MESH_LANES lanes, MC_SPREADS, seed MESH_SEED,
+    0-100 ns) through sharded_transweep over MESH_SHARDS shards of
+    "cuda:0" against the local transweep: every lane's counts equal and
+    its waveform within MC_TOL x 5 V (bit-equality printed), all finite,
+    max q after 90 ns < 0.5 (the JAX test's gates); then sharded_dcsweep
+    of the same table against the plain DC chain on the whole table.
+    Overlap across cards is not measured: the machine has one."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.analyses.dc import _get_dc_solver
+    from cadnip_tpu_torch.analyses.sweeps import batch_params
+    from cadnip_tpu_torch.parallel.mesh import (sharded_dcsweep,
+                                                sharded_transweep,
+                                                sweep_mesh)
+    cc = ct.parse_spice(ct.dff_netlist(), device="cuda")
+    tab = ct.montecarlo_table(cc, MC_SPREADS, MESH_LANES, seed=MESH_SEED)
+    mesh = sweep_mesh(("cuda:0",) * MESH_SHARDS)
+    span = (0, MESH_SPAN)
+    loc, k1l, _, wl = _k1_window(lambda: ct.transweep(cc, tab, span,
+                                                      **MESH_KW))
+    sh, k1s, _, ws = _k1_window(lambda: sharded_transweep(
+        cc, tab, span, mesh=mesh, **MESH_KW))
+    same_counts = all(torch.equal(getattr(sh.stats, f),
+                                  getattr(loc.stats, f))
+                      for f in ("naccept", "nreject", "nnewton", "fail"))
+    bit = torch.equal(sh.xs, loc.xs)
+    err = float((sh.xs - loc.xs).abs().max())
+    q = sh["q"].cpu().numpy()
+    ql = loc["q"].cpu().numpy()
+    late = np.asarray(sh.ts) > 9e-8
+    qmax = max(float(q[:, late].max()), float(ql[:, late].max()))
+    finite = bool(torch.isfinite(sh.xs).all() and torch.isfinite(loc.xs)
+                  .all())
+    line = (f"mesh: sharded_transweep of {MESH_LANES} DFF lanes over "
+            f"{len(mesh)} shards on {mesh[0]} (torch.cuda.device_count() "
+            f"{torch.cuda.device_count()}) against the local transweep, "
+            f"0-{MESH_SPAN * 1e9:g} ns: wall {ws:.3f} s sharded, {wl:.3f} s "
+            f"local; K1 launches {k1s} / {k1l}; counts equal per lane "
+            f"{same_counts}; bit-equal {bit}, max |dx| {err:.3e} V (bar "
+            f"{MC_TOL * 5.0:.0e}); all finite {finite}; max q after 90 ns "
+            f"{qmax:.3e} V (gate 0.5); overlap across cards is not measured "
+            f"(one card) [{card}]")
+    print(line, flush=True)
+    if not (sh.xs.shape == loc.xs.shape and same_counts and finite
+            and err <= MC_TOL * 5.0 and qmax < 0.5
+            and sh.xs.device == loc.xs.device):
+        raise RuntimeError(line)
+    if not bit:
+        _batch_witness(card, cc, len(mesh))
+    dsol, k1d, _, wd = _k1_window(lambda: sharded_dcsweep(cc, tab,
+                                                          mesh=mesh))
+    r = _get_dc_solver(cc)(
+        torch.zeros((MESH_LANES, cc.n), dtype=torch.float64, device="cuda"),
+        batch_params(cc, tab), cc.spec.dyn("cuda"))
+    dbit = torch.equal(dsol.x, r.x) and torch.equal(dsol.iters, r.iters)
+    derr = float((dsol.x - r.x).abs().max())
+    line = (f"mesh: sharded_dcsweep of the same table over {len(mesh)} "
+            f"shards: wall {wd:.3f} s, K1 launches {k1d}, converged "
+            f"{int(dsol.converged.sum())}/{MESH_LANES}; against the plain DC "
+            f"chain on the whole table: iterations equal "
+            f"{torch.equal(dsol.iters, r.iters)}, bit-equal {dbit}, max "
+            f"|dx| {derr:.3e} V (bar {CPU_TOL:.0e}) [{card}]")
+    print(line, flush=True)
+    if not (bool(dsol.converged.all()) and torch.equal(dsol.iters, r.iters)
+            and derr <= CPU_TOL):
+        raise RuntimeError(line)
+    return dict(launches=k1l + k1s + k1d, bit=bit, dc_bit=dbit, err=err,
+                wall=ws, local_wall=wl)
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3479,7 +3895,8 @@ def main():
 
     card = nvidia_smi("name,power.limit")
     print(f"card: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}", flush=True)
+          f"{torch.version.cuda}; host CPUs (os.cpu_count()) "
+          f"{os.cpu_count()}", flush=True)
     t = time.perf_counter()
     nvcc.build(["gj_solve", "vmem_tran"])
     load_k1()
@@ -3504,22 +3921,23 @@ def main():
     dar = phase("8b darlington", k2_darlington, card)
     ac = phase("8c AC + noise", ac_noise, card)
     # from here on, the CPU references run in two worker processes beside
-    # the card's host loop, and phase 13 in a process of its own on the
-    # card; they are idle until now, so that the kernel timings and
+    # the card's host loop, and phases 13 and 13b in processes of their own
+    # on the card; they are idle until now, so that the kernel timings and
     # host-bound walls of phases 3-8c see no neighbour. Worker A: phase 9's
     # lanes, phases 11 and 12, then phase 6's twins (queued after phase
     # 12's jobs, so that phase 12 never waits); worker B: phase 8b's
-    # reference, phase 8c's ladder and the CPU sides of phases 16 and 17;
-    # phase 13's
-    # process has its own
-    cpu, cpu2, child, done = cpu_worker(), cpu_worker(), None, False
+    # reference, phase 8c's ladder and the CPU sides of phases 16, 17 and
+    # 18a; phase 13's process has two of its own
+    cpu, cpu2, children, done = cpu_worker(), cpu_worker(), [], False
     try:
         dar_job = cpu2.submit(cpu_darlington_ref)
         ladder_job = cpu2.submit(cpu_ladder_ac)
         delay_job = cpu2.submit(cpu_delay_sim)
         spectre_job = cpu2.submit(cpu_spectre)
+        mixed_job = cpu2.submit(cpu_mixed_dff)
         t_child = time.perf_counter()
-        child = start_pit_child(graetz_k2, dar)
+        children.append(start_pit_child("13", graetz_k2, dar))
+        children.append(start_pit_child("13b", None, dar, dff["cold"]))
         mc = phase("9 Monte Carlo", dff_montecarlo, card, dff["cold"]["wall"],
                    cpu)
         # queued behind phase 9's lanes, done long before they are read
@@ -3537,16 +3955,28 @@ def main():
         dly = phase("16 delays, B-sources, simulate", delays_simulate, card,
                     delay_job)
         sp = phase("17 Spectre", spectre_phase, card, spectre_job)
+        ac18 = phase("18c AC + noise gjpl32ir", mixed_ac_noise, card, ac)
+        pg18 = phase("18d power grid gjpl32ir", mixed_power_grid, card, pg)
+        mesh = phase("18e mesh", mesh_phase, card)
         main_path = time.perf_counter() - t_child
-        res13 = phase("13 (its process: the wait)", join_pit_child, child)
-        wait = walls["13 (its process: the wait)"]
-        print(f"main process's path from phase 13's start to the join "
-              f"{main_path:.1f} s (phase 17 {walls['17 Spectre']:.1f} s of "
-              f"it); phase 13's process {main_path + wait:.1f} s to its "
-              f"end", flush=True)
-        lin, pit = res13["lin"], res13["pit"]
-        walls.update({f"{k} (own process)": v
-                      for k, v in res13["walls"].items()})
+        res13 = phase("13 (its process: the wait)", join_pit_child,
+                      children[0])
+        res13b = phase("13b (its process: the wait)", join_pit_child,
+                       children[1])
+        w13, w13b = (walls[f"{w} (its process: the wait)"]
+                     for w in ("13", "13b"))
+        print(f"main process's path from phase 13's start to the joins "
+              f"{main_path:.1f} s (phase 17 {walls['17 Spectre']:.1f} s, "
+              f"phase 18's {sum(v for k, v in walls.items() if k[:2] == '18'):.1f} "
+              f"s of it); phase 13's process {main_path + w13:.1f} s to its "
+              f"end, phase 13b's {main_path + w13 + w13b:.1f} s at most",
+              flush=True)
+        lin, pit = res13["lin"], {**res13["pit"], **res13b["pit"]}
+        mixed = res13b["mixed"]
+        for res in (res13, res13b):
+            walls.update({f"{k} (own process)": v
+                          for k, v in res["walls"].items()})
+        phase("18a check", mixed_check, card, mixed, mixed_job)
         bbd_rows = phase("15 K1 rows", bbd_k1_rows, card, pg)
         phase("14 twins (6, 8b), ladder AC", lambda: (
             twin_check(card, twin, twin_jobs),
@@ -3554,9 +3984,10 @@ def main():
             ladder_ac_check(card, ac["ladder"], ladder_job)))
         done = True
     finally:
-        if child is not None and child[0].is_alive():
-            child[0].terminate()
-            child[0].join()
+        for child in children:
+            if child[0].is_alive():
+                child[0].terminate()
+                child[0].join()
         # after a failure nothing waits for a worker's running job: the
         # workers end with this process (_exit_with_parent)
         cpu.shutdown(wait=done, cancel_futures=True)
@@ -3569,7 +4000,8 @@ def main():
         cases[GRID_ROW]
     by_path = {"Monte Carlo (phase 9)": mc["launches"], **va["launches"],
                "rc tran_linear (phase 13)": lin["launches"],
-               **{f"{name} tran_pit {part} (phase 13)": r["launches"][k]
+               **{f"{name} tran_pit {part} (phase "
+                  f"{'13b' if name == 'darlington' else '13'})": r["launches"][k]
                   for name, r in pit.items()
                   for k, part in (("op", "operating point"),
                                   ("seed", "periodic seed"),
@@ -3577,6 +4009,17 @@ def main():
                "ladder AC (phase 8c)": ac["ladder"]["launches"],
                "power grid BBD dc + tran (phase 15)": pg["launches"],
                **dly["launches"], **sp["launches"]}
+    by_path_f32 = {"DFF tran gjpl32ir (phase 18a)": mixed["f32"],
+                   "DFF AC + noise gjpl32ir (phase 18c)": ac18["launches"],
+                   "power grid tran gjpl32ir (phase 18d)": pg18["f32"]}
+    by_path.update({"DFF tran gjpl32ir (phase 18a)": mixed["launches"],
+                    "DFF tran lu32ir, its operating point (phase 18a)":
+                        mixed["lu32"]["launches"],
+                    "DFF AC + noise gjpl32ir (phase 18c)": ac18["launches"],
+                    "power grid tran gjpl32ir (phase 18d)": pg18["launches"],
+                    "mesh transweep, sharded_transweep, sharded_dcsweep "
+                    "(phase 18e)": mesh["launches"]})
+    f32 = cases[next(iter(F32_ROWS))]
     kernels = [{"name": "K1 gj_solve (warp, block and grid variants; jvp, "
                         "vjp)",
                 "route": "cuda",
@@ -3609,7 +4052,28 @@ def main():
                 "bbd": {what: {k: r[k] for k in ("shape", "ms", "bound_ms",
                                                  "library_ms", "plain_ms")}
                         for what, r in bbd_rows.items()},
-                "bbd_newton_iteration_ms": pg["newton_ms"]},
+                "bbd_newton_iteration_ms": pg["newton_ms"],
+                "va_export_ac": {k: cases[VA_EXPORT_ROW][k] for k in (
+                    "ms", "library_ms", "plain_ms", "bound_ms",
+                    "max_abs_err")}},
+               {"name": "K1 gj_solve in f32 (the gjpl32ir inverses: warp, "
+                        "block and grid variants)",
+                "route": "cuda",
+                "source": "cadnip_tpu_torch/ops/csrc/gj_solve.cu",
+                "replaces": "cadnip_tpu/ops/pallas_solve.py:35",
+                "launches": sum(by_path_f32.values()),
+                "launches_by_path": by_path_f32,
+                "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+                "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+                "bound_us": f32["bound_ms"] * 1e3,
+                "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+                "row": next(iter(F32_ROWS)),
+                "rows": {row: {k: cases[row][k] for k in (
+                    "ms", "block_ms", "graph_ms", "library_ms", "plain_ms",
+                    "bound_ms", "bound_by", "max_abs_err")}
+                    for row in F32_ROWS},
+                "mixed_dff_ms_per_pass": mixed["ms"],
+                "mixed_power_grid_ms_per_iteration": pg18["ms"]},
                {"name": "K1 rules (fused tangent and adjoint entries, "
                         "gj_rule_*; under torch.func)",
                 "route": "cuda",
