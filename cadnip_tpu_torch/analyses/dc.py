@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import DTYPE
 from ..mna.assemble import (RANK2_LEAVES, ensure_setup, make_rhs_assembler,
                             pad_state)
@@ -127,12 +128,19 @@ class DCSolution:
 
 def _cached(cc: CompiledCircuit, key, make):
     if key not in cc.cache:
-        cc.cache[key] = make(cc)
+        with obs.span("build"):
+            cc.cache[key] = make(cc)
     return cc.cache[key]
 
 
 def _get_dc_solver(cc: CompiledCircuit):
     return _cached(cc, "dc_solver", make_dc_solver)
+
+
+def _all(flags) -> bool:
+    """Whether every lane holds: a host read, timed as a wait."""
+    with obs.span("sync"):
+        return bool(flags.all())
 
 
 def _take(r: NewtonResult, r2: NewtonResult, take=None) -> NewtonResult:
@@ -173,21 +181,26 @@ def dc(cc: CompiledCircuit, params=None, x0=None, *, mode: int = MODE_DCOP,
     dyn = cc.spec.dyn(cc.device, mode=mode, time=time)
     params = ensure_setup(cc, params, dyn)
     r = _get_dc_solver(cc)(x, params, dyn)
-    if rescue and not bool(r.converged.all()):
+    if rescue and not _all(r.converged):
         if B is None and any(g.model.va_setup is not None
                              for g in cc.groups):
-            r2 = _ptran_rescue_host(cc, x, params, dyn)
+            # built here, outside the tier's span, as the other builds
+            _cached(cc, "rescue_parts", _make_rescue_parts)
+            with obs.span("ptran"):
+                r2 = _ptran_rescue_host(cc, x, params, dyn)
         else:
-            r2 = _cached(cc, "dc_ptran_rescue", make_ptran_rescue)(
-                x, params, dyn)
+            ptran = _cached(cc, "dc_ptran_rescue", make_ptran_rescue)
+            with obs.span("ptran"):
+                r2 = ptran(x, params, dyn)
         r = _take(r, r2)
-    if rescue and cc.bbd is None and not bool(r.converged.all()):
+    if rescue and cc.bbd is None and not _all(r.converged):
         # LM after pseudo-transient: ptran's charge damping selects the
         # physically reachable basin on bistable circuits, while LM handles
         # the near-singular Jacobians of charge-free circuits. Dense
         # circuits only, as in the JAX package (`analyses/dc.py:146`)
-        r = _take(r, _cached(cc, "dc_lm_rescue", make_lm_rescue)(
-            r.x, params, dyn))
+        lm = _cached(cc, "dc_lm_rescue", make_lm_rescue)
+        with obs.span("lm"):
+            r = _take(r, lm(r.x, params, dyn))
     if B is None:
         return DCSolution(cc, r.x[0], r.converged[0], r.iters[0],
                           r.resnorm[0], params=params)

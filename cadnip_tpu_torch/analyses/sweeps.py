@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import DTYPE
 from ..mna.assemble import ensure_setup
 from ..mna.spec import MODE_DCOP
@@ -207,8 +208,7 @@ def transweep(cc: CompiledCircuit, sweep, tspan, params=None, *,
         first.op_converged = cat(lambda s: s.op_converged)
         first.op_iters = cat(lambda s: s.op_iters)
         first.host_syncs = sum(s.host_syncs for s in sols)
-        first.timings = {k: sum(s.timings[k] for s in sols)
-                         for k in first.timings}
+        first.timings = obs.merge(s.timings for s in sols)
         first.table = table
         return first
     sol = tran(cc, tspan, params=batch_params(cc, table, params), **tran_kw)

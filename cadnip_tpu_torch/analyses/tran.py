@@ -30,12 +30,12 @@ accepted).
 """
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import DTYPE, ITYPE
 from ..interop import to_numpy
 from ..mna.assemble import (ensure_setup, make_delay_meta,
@@ -65,7 +65,10 @@ class TranSolution:
     sol['out'] -> values over the save times; sol.ts -> the grid.
     `timings` holds the host wall seconds of the operating point ("op")
     and of the transient loop with its set-up ("transient"); each ends on
-    a host sync, so on a CUDA circuit they include the device work."""
+    a host sync, so on a CUDA circuit they include the device work. Their
+    parts are the spans of `obs` under them (`tran`: "op.direct.iter",
+    "transient.iter.assemble", "transient.sync", ...), each with its
+    count under "<name>#n"."""
 
     def __init__(self, cc, ts, xs, stats: TranStats, op_converged=True,
                  host_syncs: int = 0, op_iters=0, timings=None, trace=None):
@@ -296,130 +299,137 @@ def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
             active = ((s["t"] < tstop * (1.0 - 1e-12)) & ~s["fail"]
                       & (s["nsteps"] < max_steps) & (s["si"] < n_save))
             passes += 1
-            if not bool(active.any()):     # the one host sync per pass
-                break
-            # ---- exactly ONE Newton iteration on the in-flight trial
-            c0, rhs_q = s["c0"], s["rhs_q"]
-            dyn = dyn0._replace(time=s["t_new"], mode=mode_tran)
-            F, Q, G, C, lim_new = assemble(
-                pad_state(s["xi"]), s["lim"], params, dyn,
-                s["dly"] if dmeta is not None else None)
-            Ft = F + col(c0) * Q - rhs_q
-            dx = solve_J(G, C, c0, -Ft)
-            if spec.max_dv > 0:
-                dx = damp_step(dx, is_v, spec.max_dv)
-            xi_new = s["xi"] + dx
-            ok_dx = (dx.abs() <= spec.reltol * torch.maximum(
-                xi_new.abs(), s["xi"].abs()) + atol).all(-1)
-            # residual test relative to each row's own current magnitudes
-            rowscale = F.abs() + (col(c0) * Q).abs() + rhs_q.abs()
-            ok_res = (Ft.abs() <= 1e-9 * rowscale + atol).all(-1)
-            ok = ok_dx | ok_res
-            bad = ~torch.isfinite(xi_new).all(-1)
-            xi_new = torch.where(col(bad), s["xi"], xi_new)
-            lim_new = torch.where(col(bad), s["lim"], lim_new)
-            it = s["it"] + 1
-            conv = ok & ~bad
-            newton_done = conv | bad | (it >= spec.max_newton_iters)
+            with obs.span("sync"):         # the one host sync per pass
+                if not bool(active.any()):
+                    break
+            with obs.span("iter"):
+                # ---- exactly ONE Newton iteration on the in-flight trial
+                c0, rhs_q = s["c0"], s["rhs_q"]
+                dyn = dyn0._replace(time=s["t_new"], mode=mode_tran)
+                with obs.span("assemble"):
+                    F, Q, G, C, lim_new = assemble(
+                        pad_state(s["xi"]), s["lim"], params, dyn,
+                        s["dly"] if dmeta is not None else None)
+                Ft = F + col(c0) * Q - rhs_q
+                with obs.span("solve"):
+                    dx = solve_J(G, C, c0, -Ft)
+                if spec.max_dv > 0:
+                    dx = damp_step(dx, is_v, spec.max_dv)
+                xi_new = s["xi"] + dx
+                ok_dx = (dx.abs() <= spec.reltol * torch.maximum(
+                    xi_new.abs(), s["xi"].abs()) + atol).all(-1)
+                # residual test relative to each row's own current magnitudes
+                rowscale = F.abs() + (col(c0) * Q).abs() + rhs_q.abs()
+                ok_res = (Ft.abs() <= 1e-9 * rowscale + atol).all(-1)
+                ok = ok_dx | ok_res
+                bad = ~torch.isfinite(xi_new).all(-1)
+                xi_new = torch.where(col(bad), s["xi"], xi_new)
+                lim_new = torch.where(col(bad), s["lim"], lim_new)
+                it = s["it"] + 1
+                conv = ok & ~bad
+                newton_done = conv | bad | (it >= spec.max_newton_iters)
 
             # ---- step control (masked: applies only when newton_done)
-            t, x, h_eff, t_new = s["t"], s["x"], s["h_eff"], s["t_new"]
-            d2, d3 = _divided_diff3(xi_new, col(t_new), x, col(t), s["x1"],
-                                    col(s["t1"]), s["x2"], col(s["t2"]))
-            lte = torch.where(col(s["use_be"]), col(h_eff * h_eff) * d2.abs(),
-                              col(0.5 * h_eff ** 3) * d3.abs())
-            etol = TRTOL * (spec.reltol * torch.maximum(xi_new.abs(),
-                                                        x.abs()) + atol)
-            # LTE only on differential variables
-            enorm = torch.where(diff_mask, lte / etol, 0.0).amax(-1)
-            enorm = torch.where(s["naccept"] >= 2, enorm, 0.0)
-            # NaN guard: a NaN enorm would deadlock the controller
-            enorm = torch.where(torch.isnan(enorm), float("inf"), enorm)
-            accept = newton_done & conv & ((enorm <= 1.0)
-                                           | (h_eff <= hmin * 1.01))
-            reject = newton_done & ~accept
-            fac = torch.where(conv, torch.clip(0.9 * torch.pow(
-                torch.clamp(enorm, min=1e-10), -1.0 / 3.0), 0.02, GROW_MAX),
-                NEWTON_FAIL_CUT)
-            fac = torch.where(accept & (s["hold"] > 0),
-                              torch.clamp(fac, max=1.0), fac)
-            h_next = torch.clip(h_eff * fac, hmin, hmax)
-            h_next = torch.where(torch.isfinite(h_next) & (h_next > 0),
-                                 h_next, hmin)
-            fail_now = reject & (h_eff <= hmin * 1.01)
-            # first-order charge correction (Q is at the pre-update iterate)
-            Qc = Q + matvec(C, dx)
-            # qdot from the discretization identity (BE/trap/gear2 alike)
-            qdot_new = col(c0) * Qc - rhs_q
-            acc = accept & active
-            si_new = save_points(s["si"], t, x, t_new, xi_new, acc)
+            with obs.span("control"):
+                t, x, h_eff, t_new = s["t"], s["x"], s["h_eff"], s["t_new"]
+                d2, d3 = _divided_diff3(xi_new, col(t_new), x, col(t), s["x1"],
+                                        col(s["t1"]), s["x2"], col(s["t2"]))
+                lte = torch.where(col(s["use_be"]),
+                                  col(h_eff * h_eff) * d2.abs(),
+                                  col(0.5 * h_eff ** 3) * d3.abs())
+                etol = TRTOL * (spec.reltol * torch.maximum(xi_new.abs(),
+                                                            x.abs()) + atol)
+                # LTE only on differential variables
+                enorm = torch.where(diff_mask, lte / etol, 0.0).amax(-1)
+                enorm = torch.where(s["naccept"] >= 2, enorm, 0.0)
+                # NaN guard: a NaN enorm would deadlock the controller
+                enorm = torch.where(torch.isnan(enorm), float("inf"), enorm)
+                accept = newton_done & conv & ((enorm <= 1.0)
+                                               | (h_eff <= hmin * 1.01))
+                reject = newton_done & ~accept
+                fac = torch.where(conv, torch.clip(0.9 * torch.pow(
+                    torch.clamp(enorm, min=1e-10), -1.0 / 3.0), 0.02,
+                    GROW_MAX), NEWTON_FAIL_CUT)
+                fac = torch.where(accept & (s["hold"] > 0),
+                                  torch.clamp(fac, max=1.0), fac)
+                h_next = torch.clip(h_eff * fac, hmin, hmax)
+                h_next = torch.where(torch.isfinite(h_next) & (h_next > 0),
+                                     h_next, hmin)
+                fail_now = reject & (h_eff <= hmin * 1.01)
+                # first-order charge correction (Q at the pre-update iterate)
+                Qc = Q + matvec(C, dx)
+                # qdot from the discretization identity (BE/trap/gear2 alike)
+                qdot_new = col(c0) * Qc - rhs_q
+                acc = accept & active
+                si_new = save_points(s["si"], t, x, t_new, xi_new, acc)
 
-            def pick(a, b):
-                return torch.where(col(accept) if a.ndim == 2 else accept,
-                                   a, b)
+                def pick(a, b):
+                    return torch.where(col(accept) if a.ndim == 2 else accept,
+                                       a, b)
 
-            one, two = ilane(1), ilane(2)
-            ns = dict(
-                t=pick(t_new, t), h=torch.where(newton_done, h_next, s["h"]),
-                x=pick(xi_new, x), q=pick(Qc, s["q"]),
-                qdot=pick(qdot_new, s["qdot"]), q1=pick(s["q"], s["q1"]),
-                x1=pick(x, s["x1"]), t1=pick(t, s["t1"]),
-                x2=pick(s["x1"], s["x2"]), t2=pick(s["t1"], s["t2"]),
-                # BE after breakpoints and after Newton failures
-                ord=torch.where(accept & s["hit_bp"], one,
-                                torch.where(accept, two,
-                                            torch.where(reject & ~conv, one,
-                                                        s["ord"]))),
-                bp_i=torch.where(accept & s["hit_bp"], s["bp_i"] + 1,
-                                 s["bp_i"]),
-                si=torch.where(accept, si_new, s["si"]),
-                naccept=s["naccept"] + accept.to(ITYPE),
-                nreject=s["nreject"] + reject.to(ITYPE),
-                nnewton=s["nnewton"] + 1,
-                # a long unbroken run of rejects = "timestep too small"
-                nrej_run=torch.where(accept, 0,
-                                     s["nrej_run"] + reject.to(ITYPE)),
-                hold=torch.where(reject, 3, torch.where(
-                    accept, torch.clamp(s["hold"] - 1, min=0), s["hold"])),
-                fail=s["fail"] | fail_now | (s["nrej_run"] > 100),
-                nsteps=s["nsteps"] + newton_done.to(ITYPE))
-            if dmeta is not None:
-                # record the accepted point's delayed-expression values
-                # into the (chronologically ordered, shift-left) ring
-                v_now, _ = dmeta.probe(pad_state(xi_new), params, dyn)
-                ns["hist_t"] = torch.where(col(accept), torch.cat(
-                    [s["hist_t"][:, 1:], col(t_new)], dim=1), s["hist_t"])
-                ns["hist_v"] = torch.where(accept[:, None, None], torch.cat(
-                    [s["hist_v"][:, 1:], v_now[:, None]], dim=1),
-                    s["hist_v"])
-            # next trial: fresh setup when this one finished, else continue
-            trial = setup_trial(ns)
-            keep = dict(h_eff=h_eff, t_new=t_new, c0=c0, rhs_q=rhs_q,
-                        hit_bp=s["hit_bp"], use_be=s["use_be"], xi=xi_new,
-                        it=it)
-            if dmeta is not None:
-                keep["dly"] = s["dly"]
-            for k in trial:
-                ns[k] = torch.where(_lane_mask(newton_done, trial[k]),
-                                    trial[k], keep[k])
-            # limiter state: keep updating while Newton continues; commit on
-            # accept; restore the last accepted step's state on reject
-            ns["lim_acc"] = torch.where(col(accept), lim_new, s["lim_acc"])
-            ns["lim"] = torch.where(col(accept), lim_new, torch.where(
-                col(newton_done), s["lim_acc"], lim_new))
-            if trace:
-                viol = (dx.abs() / (spec.reltol * torch.maximum(
-                    xi_new.abs(), s["xi"].abs()) + atol)).amax(-1)
-                rec = torch.stack([t_new, h_eff, it.to(DTYPE),
-                                   conv.to(DTYPE), viol, accept.to(DTYPE)],
-                                  dim=-1)
-                row = ti % TRACE_LEN
-                ring[lanes[:, 0], row] = torch.where(
-                    col(active), rec, ring[lanes[:, 0], row])
-                ti = ti + active.to(ITYPE)
-            # lanes that have finished keep their state
-            for k, v in ns.items():
-                s[k] = torch.where(_lane_mask(active, v), v, s[k])
+                one, two = ilane(1), ilane(2)
+                ns = dict(
+                    t=pick(t_new, t),
+                    h=torch.where(newton_done, h_next, s["h"]),
+                    x=pick(xi_new, x), q=pick(Qc, s["q"]),
+                    qdot=pick(qdot_new, s["qdot"]), q1=pick(s["q"], s["q1"]),
+                    x1=pick(x, s["x1"]), t1=pick(t, s["t1"]),
+                    x2=pick(s["x1"], s["x2"]), t2=pick(s["t1"], s["t2"]),
+                    # BE after breakpoints and after Newton failures
+                    ord=torch.where(accept & s["hit_bp"], one, torch.where(
+                        accept, two, torch.where(reject & ~conv, one,
+                                                 s["ord"]))),
+                    bp_i=torch.where(accept & s["hit_bp"], s["bp_i"] + 1,
+                                     s["bp_i"]),
+                    si=torch.where(accept, si_new, s["si"]),
+                    naccept=s["naccept"] + accept.to(ITYPE),
+                    nreject=s["nreject"] + reject.to(ITYPE),
+                    nnewton=s["nnewton"] + 1,
+                    # a long unbroken run of rejects = "timestep too small"
+                    nrej_run=torch.where(accept, 0,
+                                         s["nrej_run"] + reject.to(ITYPE)),
+                    hold=torch.where(reject, 3, torch.where(
+                        accept, torch.clamp(s["hold"] - 1, min=0), s["hold"])),
+                    fail=s["fail"] | fail_now | (s["nrej_run"] > 100),
+                    nsteps=s["nsteps"] + newton_done.to(ITYPE))
+                if dmeta is not None:
+                    # record the accepted point's delayed-expression values
+                    # into the (chronologically ordered, shift-left) ring
+                    v_now, _ = dmeta.probe(pad_state(xi_new), params, dyn)
+                    ns["hist_t"] = torch.where(col(accept), torch.cat(
+                        [s["hist_t"][:, 1:], col(t_new)], dim=1), s["hist_t"])
+                    ns["hist_v"] = torch.where(
+                        accept[:, None, None], torch.cat(
+                            [s["hist_v"][:, 1:], v_now[:, None]], dim=1),
+                        s["hist_v"])
+                # next trial: fresh setup when this one finished, else continue
+                trial = setup_trial(ns)
+                keep = dict(h_eff=h_eff, t_new=t_new, c0=c0, rhs_q=rhs_q,
+                            hit_bp=s["hit_bp"], use_be=s["use_be"], xi=xi_new,
+                            it=it)
+                if dmeta is not None:
+                    keep["dly"] = s["dly"]
+                for k in trial:
+                    ns[k] = torch.where(_lane_mask(newton_done, trial[k]),
+                                        trial[k], keep[k])
+                # limiter state: keep updating while Newton continues; commit
+                # on accept; restore the last accepted step's state on reject
+                ns["lim_acc"] = torch.where(col(accept), lim_new, s["lim_acc"])
+                ns["lim"] = torch.where(col(accept), lim_new, torch.where(
+                    col(newton_done), s["lim_acc"], lim_new))
+                if trace:
+                    viol = (dx.abs() / (spec.reltol * torch.maximum(
+                        xi_new.abs(), s["xi"].abs()) + atol)).amax(-1)
+                    rec = torch.stack([t_new, h_eff, it.to(DTYPE),
+                                       conv.to(DTYPE), viol, accept.to(DTYPE)],
+                                      dim=-1)
+                    row = ti % TRACE_LEN
+                    ring[lanes[:, 0], row] = torch.where(
+                        col(active), rec, ring[lanes[:, 0], row])
+                    ti = ti + active.to(ITYPE)
+                # lanes that have finished keep their state
+                for k, v in ns.items():
+                    s[k] = torch.where(_lane_mask(active, v), v, s[k])
 
         ran_out = (s["nsteps"] >= max_steps) & (s["t"] < tstop * (1 - 1e-12))
         stats = TranStats(naccept=s["naccept"], nreject=s["nreject"],
@@ -429,6 +439,7 @@ def make_tran_runner(cc: CompiledCircuit, n_save: int, max_steps: int,
     return run
 
 
+@obs.entry
 def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
          n_save: int | None = None, save_ts=None, max_steps: int = 200_000,
          x0=None, method: str | None = None, integ: str = "trap",
@@ -454,108 +465,106 @@ def tran(cc: CompiledCircuit, tspan, params=None, *, dt=None, dtmax=None,
     t0, tstop = float(tspan[0]), float(tspan[1])
     if tstop <= t0:
         raise ValueError(f"tran needs tstop > t0, got tspan=({t0}, {tstop})")
-    wall0 = time.perf_counter()
-    dev = cc.device
-    if params is None:
-        params = cc.params0()
-    params = ensure_setup(cc, params)
-    lanes = param_lanes(params)
-    B = lanes or 1
-    if dt is None:
-        dt = (tstop - t0) / 1000.0
-    if dtmax is None:
-        dtmax = max((tstop - t0) / 50.0, dt)
-    if save_ts is None:
-        if n_save is None:
-            n_save = int(round((tstop - t0) / dt)) + 1
-        save_ts = np.linspace(t0, tstop, n_save)
-    save_np = np.asarray(save_ts, np.float64)
-    n_save = int(save_np.shape[0])
+    with obs.span("op"):
+        dev = cc.device
+        if params is None:
+            params = cc.params0()
+        params = ensure_setup(cc, params)
+        lanes = param_lanes(params)
+        B = lanes or 1
+        if dt is None:
+            dt = (tstop - t0) / 1000.0
+        if dtmax is None:
+            dtmax = max((tstop - t0) / 50.0, dt)
+        if save_ts is None:
+            if n_save is None:
+                n_save = int(round((tstop - t0) / dt)) + 1
+            save_ts = np.linspace(t0, tstop, n_save)
+        save_np = np.asarray(save_ts, np.float64)
+        n_save = int(save_np.shape[0])
 
-    # operating point at t0 with transient source values; `uic` skips the
-    # DC solve and starts from zeros + .ic values; `ic` forces node
-    # voltages into x0 either way
-    op_conv = torch.ones(B, dtype=torch.bool, device=dev)
-    op_iters = torch.zeros(B, dtype=ITYPE, device=dev)
-    if x0 is None and uic:
-        x0 = torch.zeros((B, cc.n), dtype=DTYPE, device=dev)
-    if x0 is None:
-        op = dc(cc, params, mode=MODE_TRANOP, time=t0,
-                rescue=lanes is None)
-        x0 = op.x.reshape(B, cc.n)
-        op_conv = op.converged.reshape(B)
-        op_iters = op.iters.reshape(B)
-    x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev).expand(B, cc.n).clone()
-    for node, v in (ic or {}).items():
-        x0[:, cc.index_of(str(node))] = float(v)
-    if uic and lanes is None:
-        # consistency projection: a few tiny implicit-Euler steps settle
-        # the algebraic unknowns while the differential states stay put
-        h_w = max((tstop - t0) * 1e-12, dt * 1e-6)
-        x0 = make_uic_warmup(cc, method=method)(
-            x0, params, cc.spec.dyn(dev, mode=MODE_TRAN, time=t0), h_w)
+        # operating point at t0 with transient source values; `uic` skips the
+        # DC solve and starts from zeros + .ic values; `ic` forces node
+        # voltages into x0 either way
+        op_conv = torch.ones(B, dtype=torch.bool, device=dev)
+        op_iters = torch.zeros(B, dtype=ITYPE, device=dev)
+        if x0 is None and uic:
+            x0 = torch.zeros((B, cc.n), dtype=DTYPE, device=dev)
+        if x0 is None:
+            op = dc(cc, params, mode=MODE_TRANOP, time=t0,
+                    rescue=lanes is None)
+            x0 = op.x.reshape(B, cc.n)
+            op_conv = op.converged.reshape(B)
+            op_iters = op.iters.reshape(B)
+        x0 = torch.as_tensor(x0, dtype=DTYPE,
+                             device=dev).expand(B, cc.n).clone()
         for node, v in (ic or {}).items():
             x0[:, cc.index_of(str(node))] = float(v)
+        if uic and lanes is None:
+            # consistency projection: a few tiny implicit-Euler steps settle
+            # the algebraic unknowns while the differential states stay put
+            h_w = max((tstop - t0) * 1e-12, dt * 1e-6)
+            x0 = make_uic_warmup(cc, method=method)(
+                x0, params, cc.spec.dyn(dev, mode=MODE_TRAN, time=t0), h_w)
+            for node, v in (ic or {}).items():
+                x0[:, cc.index_of(str(node))] = float(v)
 
-    wall_op = time.perf_counter()
-    bp = collect_breakpoints(cc, tstop)
-    bp = bp[bp > t0]
-    dmeta = make_delay_meta(cc)
-    if dmeta is not None and lanes is None:
-        # transport-delay breakpoint echoes: a source kink at b re-emerges
-        # at the output of every absdelay site at b + k tau (the reference
-        # expands breakpoints into solver tstops, `src/mna/solve.jl:
-        # 1847-1918`; the DDE path needs the delayed images too)
-        _, taus0 = dmeta.probe(pad_state(x0), params,
-                               cc.spec.dyn(dev, mode=MODE_TRANOP, time=t0))
-        taus0 = np.unique(taus0.cpu().numpy())
-        taus0 = taus0[taus0 > 0]
-        ext = [bp, np.asarray([t0])]
-        for k_echo in (1, 2):
-            for tau_v in taus0:
-                ext.append(bp + k_echo * float(tau_v))
-                ext.append(np.asarray([t0 + k_echo * float(tau_v)]))
-        bp = np.unique(np.concatenate(ext))
-        bp = bp[(bp > t0) & (bp <= tstop)]
-        if bp.size == 0 or bp[-1] != tstop:
-            bp = np.append(bp, tstop)
-    # a step crosses at most ceil(dtmax / save_dt) + 1 grid points
-    dt_min = float(np.min(np.diff(save_np))) if n_save > 1 else dtmax
-    W = min(int(np.ceil(dtmax / max(dt_min, 1e-300))) + 2, n_save)
+    with obs.span("transient"):
+        bp = collect_breakpoints(cc, tstop)
+        bp = bp[bp > t0]
+        dmeta = make_delay_meta(cc)
+        if dmeta is not None and lanes is None:
+            # transport-delay breakpoint echoes: a source kink at b re-emerges
+            # at the output of every absdelay site at b + k tau (the reference
+            # expands breakpoints into solver tstops, `src/mna/solve.jl:
+            # 1847-1918`; the DDE path needs the delayed images too)
+            _, taus0 = dmeta.probe(pad_state(x0), params,
+                                   cc.spec.dyn(dev, mode=MODE_TRANOP, time=t0))
+            taus0 = np.unique(taus0.cpu().numpy())
+            taus0 = taus0[taus0 > 0]
+            ext = [bp, np.asarray([t0])]
+            for k_echo in (1, 2):
+                for tau_v in taus0:
+                    ext.append(bp + k_echo * float(tau_v))
+                    ext.append(np.asarray([t0 + k_echo * float(tau_v)]))
+            bp = np.unique(np.concatenate(ext))
+            bp = bp[(bp > t0) & (bp <= tstop)]
+            if bp.size == 0 or bp[-1] != tstop:
+                bp = np.append(bp, tstop)
+        # a step crosses at most ceil(dtmax / save_dt) + 1 grid points
+        dt_min = float(np.min(np.diff(save_np))) if n_save > 1 else dtmax
+        W = min(int(np.ceil(dtmax / max(dt_min, 1e-300))) + 2, n_save)
 
-    assemble = make_system_assembler(cc)
-    rhs = make_rhs_assembler(cc)
-    runner = make_tran_runner(cc, n_save, int(max_steps), W, method=method,
-                              integ=integ, assemble=assemble, trace=trace,
-                              delay_hist=delay_hist)
-    xp = pad_state(x0)
-    lim0 = assemble.init_lim(xp)
-    dyn_op = cc.spec.dyn(dev, mode=MODE_TRANOP, time=t0)
-    f0, q0 = rhs(xp, params, dyn_op)
-    _, _, _, C0, _ = assemble(xp, lim0, params, dyn_op)
-    # the differential rows: those with a charge entry
-    if cc.bbd is None:
-        diff_mask = C0.abs().sum(-1) > 0.0
-    else:
-        from ..ops.bbd import global_row_sums
-        diff_mask = global_row_sums(cc.bbd, C0) > 0.0
-    dyn0 = cc.spec.dyn(dev, mode=MODE_TRAN, time=t0)
-    # hmin floor: below ~1e-5*dt the trapezoidal system becomes so stiff
-    # that f64 Newton cannot converge
-    hmin = max((tstop - t0) * 1e-12, dt * 1e-5, 1e-18)
-    h0 = min(dt / 10.0, dtmax)
-    xs, stats, passes, tr = runner(
-        x0, lim0, q0, -f0, params, dyn0, t0, tstop, h0, float(dtmax), hmin,
-        torch.as_tensor(bp, dtype=DTYPE, device=dev),
-        torch.as_tensor(save_np, dtype=DTYPE, device=dev), diff_mask)
-    if lanes is None:
-        xs = xs[0]
-        stats = TranStats(*(v[0] for v in stats))
-        op_conv, op_iters = op_conv[0], op_iters[0]
-        if tr is not None:
-            tr = (tr[0][0], tr[1][0])
-    timings = {"op": wall_op - wall0,
-               "transient": time.perf_counter() - wall_op}
+        assemble = make_system_assembler(cc)
+        rhs = make_rhs_assembler(cc)
+        runner = make_tran_runner(cc, n_save, int(max_steps), W, method=method,
+                                  integ=integ, assemble=assemble, trace=trace,
+                                  delay_hist=delay_hist)
+        xp = pad_state(x0)
+        lim0 = assemble.init_lim(xp)
+        dyn_op = cc.spec.dyn(dev, mode=MODE_TRANOP, time=t0)
+        f0, q0 = rhs(xp, params, dyn_op)
+        _, _, _, C0, _ = assemble(xp, lim0, params, dyn_op)
+        # the differential rows: those with a charge entry
+        if cc.bbd is None:
+            diff_mask = C0.abs().sum(-1) > 0.0
+        else:
+            from ..ops.bbd import global_row_sums
+            diff_mask = global_row_sums(cc.bbd, C0) > 0.0
+        dyn0 = cc.spec.dyn(dev, mode=MODE_TRAN, time=t0)
+        # hmin floor: below ~1e-5*dt the trapezoidal system becomes so stiff
+        # that f64 Newton cannot converge
+        hmin = max((tstop - t0) * 1e-12, dt * 1e-5, 1e-18)
+        h0 = min(dt / 10.0, dtmax)
+        xs, stats, passes, tr = runner(
+            x0, lim0, q0, -f0, params, dyn0, t0, tstop, h0, float(dtmax), hmin,
+            torch.as_tensor(bp, dtype=DTYPE, device=dev),
+            torch.as_tensor(save_np, dtype=DTYPE, device=dev), diff_mask)
+        if lanes is None:
+            xs = xs[0]
+            stats = TranStats(*(v[0] for v in stats))
+            op_conv, op_iters = op_conv[0], op_iters[0]
+            if tr is not None:
+                tr = (tr[0][0], tr[1][0])
     return TranSolution(cc, save_np, xs, stats, op_converged=op_conv,
-                        host_syncs=passes, op_iters=op_iters,
-                        timings=timings, trace=tr)
+                        host_syncs=passes, op_iters=op_iters, trace=tr)

@@ -21,11 +21,10 @@ evaluated by blocked prefix products:
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import DTYPE
 from ..mna.assemble import make_assembler, make_rhs_assembler, pad_state
 from ..mna.spec import MODE_TRAN, MODE_TRANOP
@@ -123,6 +122,7 @@ def auto_block(n: int, budget_bytes: float = 64e6) -> int:
     return 1 << (b.bit_length() - 1)
 
 
+@obs.entry
 def tran_linear(cc: CompiledCircuit, tspan, dt, params=None, *,
                 block: int | None = None, x0=None) -> TranSolution:
     """Fixed-step trapezoidal transient for linear circuits. Saves every
@@ -130,31 +130,31 @@ def tran_linear(cc: CompiledCircuit, tspan, dt, params=None, *,
     if not is_linear(cc):
         raise ValueError("tran_linear requires an all-linear circuit; "
                          "use tran() instead")
-    wall0 = time.perf_counter()
-    if block is None:
-        block = auto_block(cc.n)
-    t0, tstop = float(tspan[0]), float(tspan[1])
-    n_steps = int(round((tstop - t0) / dt))
-    if params is None:
-        params = cc.params0()
-    dev = cc.device
-    op_conv = True
-    if x0 is None:
-        # linear circuit: the operating point is ONE linear solve
-        assemble = make_assembler(cc)
-        zp = torch.zeros((1, cc.n + 1), dtype=DTYPE, device=dev)
-        F, _, G, _, _ = assemble(zp, assemble.init_lim(zp), params,
-                                 cc.spec.dyn(dev, mode=MODE_TRANOP, time=t0))
-        x0 = solve(G[0], -F[0], method="gauss")
-        op_conv = bool(torch.isfinite(x0).all())
-    x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev)
-    wall_op = time.perf_counter()
-    xs = make_linear_runner(cc, n_steps, block)(x0, params, t0, float(dt))
-    xs[-1, 0].item()          # the run's end, for the wall time
+    with obs.span("op"):
+        if block is None:
+            block = auto_block(cc.n)
+        t0, tstop = float(tspan[0]), float(tspan[1])
+        n_steps = int(round((tstop - t0) / dt))
+        if params is None:
+            params = cc.params0()
+        dev = cc.device
+        op_conv = True
+        if x0 is None:
+            # linear circuit: the operating point is ONE linear solve
+            assemble = make_assembler(cc)
+            zp = torch.zeros((1, cc.n + 1), dtype=DTYPE, device=dev)
+            F, _, G, _, _ = assemble(zp, assemble.init_lim(zp), params,
+                                     cc.spec.dyn(dev, mode=MODE_TRANOP,
+                                                 time=t0))
+            x0 = solve(G[0], -F[0], method="gauss")
+            op_conv = bool(torch.isfinite(x0).all())
+        x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev)
+    with obs.span("transient"):
+        xs = make_linear_runner(cc, n_steps, block)(x0, params, t0,
+                                                    float(dt))
+        xs[-1, 0].item()          # the run's end, for the wall time
     ts = t0 + dt * np.arange(n_steps + 1)
     z = torch.tensor(0)
     stats = TranStats(naccept=torch.tensor(n_steps), nreject=z, nnewton=z,
                       fail=torch.tensor(False))
-    return TranSolution(cc, ts, xs, stats, op_converged=op_conv,
-                        timings={"op": wall_op - wall0,
-                                 "transient": time.perf_counter() - wall_op})
+    return TranSolution(cc, ts, xs, stats, op_converged=op_conv)

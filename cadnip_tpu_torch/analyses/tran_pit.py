@@ -43,12 +43,12 @@ the residual floor is the CPU value, 1e-9.
 """
 from __future__ import annotations
 
-import time
 import warnings
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import DTYPE, F32
 from ..mna.assemble import (ensure_setup, make_assembler, make_rhs_assembler,
                              pad_state)
@@ -493,6 +493,7 @@ def make_flat_runner(cc: CompiledCircuit, params, dyn0, W: int, nw: int,
     return run
 
 
+@obs.entry
 def tran_pit(cc: CompiledCircuit, tspan, dt, *, window: int = 1024,
              max_iters: int = 40, x0=None, uic: bool = False, ic=None,
              params=None, windows_per_exec: int = 64, coarsen: int = 8,
@@ -526,71 +527,70 @@ def tran_pit(cc: CompiledCircuit, tspan, dt, *, window: int = 1024,
     window 0's seed on the periodic-seeded path (else None)."""
     if not supported(cc):
         raise ValueError("circuit not supported by the PIT runner")
-    wall0 = time.perf_counter()
     k1_0 = gj_solve.launches
-    spec = cc.spec
-    dev = cc.device
-    t0f, tstop = float(tspan[0]), float(tspan[1])
-    n_steps = int(round((tstop - t0f) / dt))
-    W = int(min(window, n_steps))
-    psteps = 0
-    if periodic == "auto":
-        P = common_period(cc)
-        if np.isfinite(P):
-            k = P / dt
-            if abs(k - round(k)) < 1e-6 and round(k) >= 8:
-                psteps = int(round(k))
-    if psteps and n_steps >= 2 * psteps:
-        W = psteps * max(1, W // psteps)
-    else:
+    with obs.span("op"):
+        spec = cc.spec
+        dev = cc.device
+        t0f, tstop = float(tspan[0]), float(tspan[1])
+        n_steps = int(round((tstop - t0f) / dt))
+        W = int(min(window, n_steps))
         psteps = 0
-    n_win = (n_steps + W - 1) // W
-    n_exec = min(int(windows_per_exec), n_win)
-    use_seeded = bool(psteps) and n_win >= 2
-
-    dyn_op = spec.dyn(dev, mode=MODE_TRANOP, time=t0f)
-    if params is None:
-        params = cc.params0()
-    params = ensure_setup(cc, params, dyn_op)
-    big = any(g.model.va_setup is not None for g in cc.groups)
-    op_conv = True
-    op_iters = 0
-    if x0 is None:
-        if uic:
-            x0 = torch.zeros(cc.n, dtype=DTYPE, device=dev)
+        if periodic == "auto":
+            P = common_period(cc)
+            if np.isfinite(P):
+                k = P / dt
+                if abs(k - round(k)) < 1e-6 and round(k) >= 8:
+                    psteps = int(round(k))
+        if psteps and n_steps >= 2 * psteps:
+            W = psteps * max(1, W // psteps)
         else:
-            op = dc(cc, params, mode=MODE_TRANOP, time=t0f)
-            x0 = op.x
-            op_conv = bool(op.converged)
-            op_iters = int(op.iters)
-    x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev).clone()
-    for node, v in (ic or {}).items():
-        x0[cc.index_of(str(node))] = float(v)
+            psteps = 0
+        n_win = (n_steps + W - 1) // W
+        n_exec = min(int(windows_per_exec), n_win)
+        use_seeded = bool(psteps) and n_win >= 2
 
-    rhs = make_rhs_assembler(cc)
-    assemble = make_assembler(cc)
-    # the ladder's coarsest step is bounded by the fastest source feature
-    tmin = fastest_timescale(cc)
-    if np.isfinite(tmin):
-        coarse_min = int(max(32, int(np.ceil(W * dt / max(tmin, dt)))))
-    else:
-        coarse_min = 32
-    dyn0 = spec.dyn(dev, mode=MODE_TRAN, time=t0f)
-    xs_parts, log = [], []
-    st = dict(nn=0, all_done=True, syncs=0, seed=0.0, k1_seed=0)
-    Xseed0 = None
+        dyn_op = spec.dyn(dev, mode=MODE_TRANOP, time=t0f)
+        if params is None:
+            params = cc.params0()
+        params = ensure_setup(cc, params, dyn_op)
+        big = any(g.model.va_setup is not None for g in cc.groups)
+        op_conv = True
+        op_iters = 0
+        if x0 is None:
+            if uic:
+                x0 = torch.zeros(cc.n, dtype=DTYPE, device=dev)
+            else:
+                op = dc(cc, params, mode=MODE_TRANOP, time=t0f)
+                x0 = op.x
+                op_conv = bool(op.converged)
+                op_iters = int(op.iters)
+        x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev).clone()
+        for node, v in (ic or {}).items():
+            x0[cc.index_of(str(node))] = float(v)
 
-    def _carry_at(x_cur, t_cur, dynb=None):
-        """Restart state at a solved trajectory point: on the trajectory
-        of f(x) + dq/dt = 0, qdot = -f(x)."""
-        dynb = dyn0 if dynb is None else dynb
-        xp = pad_state(x_cur[None])
-        F, Q = rhs(xp, params, dynb._replace(time=torch.as_tensor(
-            t_cur, dtype=DTYPE, device=dev)))
-        return (x_cur, Q[0], -F[0], assemble.init_lim(xp)[0])
+        rhs = make_rhs_assembler(cc)
+        assemble = make_assembler(cc)
+        # the ladder's coarsest step is bounded by the fastest source feature
+        tmin = fastest_timescale(cc)
+        if np.isfinite(tmin):
+            coarse_min = int(max(32, int(np.ceil(W * dt / max(tmin, dt)))))
+        else:
+            coarse_min = 32
+        dyn0 = spec.dyn(dev, mode=MODE_TRAN, time=t0f)
+        xs_parts, log = [], []
+        st = dict(nn=0, all_done=True, syncs=0, k1_seed=0)
+        Xseed0 = None
 
-    carry = _carry_at(x0, t0f, dyn_op)
-    wall_op = time.perf_counter()
+        def _carry_at(x_cur, t_cur, dynb=None):
+            """Restart state at a solved trajectory point: on the trajectory
+            of f(x) + dq/dt = 0, qdot = -f(x)."""
+            dynb = dyn0 if dynb is None else dynb
+            xp = pad_state(x_cur[None])
+            F, Q = rhs(xp, params, dynb._replace(time=torch.as_tensor(
+                t_cur, dtype=DTYPE, device=dev)))
+            return (x_cur, Q[0], -F[0], assemble.init_lim(xp)[0])
+
+        carry = _carry_at(x0, t0f, dyn_op)
     k1_op = gj_solve.launches
 
     ladders = {}
@@ -695,109 +695,112 @@ def tran_pit(cc: CompiledCircuit, tspan, dt, *, window: int = 1024,
         xs_parts.append(xs_e)
         st["all_done"] = st["all_done"] and all(dones)
 
-    if osc and not use_seeded and n_steps >= 2 * osc_window:
-        # autonomous oscillator: phase A solves serial single-step windows
-        # (CH per execution) while the host watches for a stable period;
-        # phase B seeds windows snapped to ~m measured periods with the
-        # last solved period tiled
-        done_pts = 0
-        P = None
-        mi_osc = max(max_iters, 160)
-        CH = int(min(128, n_steps))
-        while done_pts + CH <= n_steps:
-            _serial_chunk(CH, mi_osc, done_pts)
-            done_pts += CH
-            acc = torch.cat(xs_parts).cpu().numpy()
-            P = detect_period(acc, dt, min_cross=4)
-            if P is not None and done_pts >= int(round(P / dt)) + 2:
-                break
-            P = None
-        if P is not None:
-            # the period quantized to 1/4 step
-            pstep_f = round(P / dt * 4.0) / 4.0
-            if osc_period is not None:
-                pinned = round(osc_period / dt * 4.0) / 4.0
-                if abs(pinned - pstep_f) <= 0.02 * pstep_f:
-                    pstep_f = pinned
-                else:
-                    warnings.warn(
-                        f"osc_period pin {pinned} steps disagrees with "
-                        f"the measured period {pstep_f} steps by >2%; "
-                        "using the measurement", stacklevel=2)
-            m = max(1, int(round(W / pstep_f)))
-            Wb = int(round(m * pstep_f))
-            rem = n_steps - done_pts
-            # overshoot the remainder with full windows; the result is
-            # truncated at n_steps + 1 rows
-            n_winB = (rem + Wb - 1) // Wb if Wb >= 8 else 0
-            if n_winB >= 1:
-                pi = max(2, int(round(pstep_f)))
-                tail = acc[-pi:]
-                reps = int(np.ceil(Wb / pi)) + 1
-                Xseed = torch.as_tensor(np.tile(tail, (reps, 1))[-Wb:],
-                                        dtype=DTYPE, device=dev)
-                left = _flat_loop(Wb, min(n_exec, n_winB), done_pts, n_winB,
-                                  Xseed, trips_per_win=4 if big else 3)
-                done_pts += (n_winB - left) * Wb
-        # the trailing remainder, and the no-period fallback
-        while done_pts < n_steps:
-            _serial_chunk(CH, mi_osc, done_pts)
-            done_pts += CH
-    elif use_seeded:
+    if use_seeded:
         # window 0's seed: a serial transient at 8 dt on the window's grid
-        t, k1 = time.perf_counter(), gj_solve.launches
-        if xseed is None:
-            grid = t0f + dt * (1.0 + np.arange(W))
-            s0 = serial_tran(cc, (t0f, t0f + W * dt), params, dt=8 * dt,
-                             dtmax=8 * dt, save_ts=grid, x0=carry[0])
-            Xseed = s0.xs.contiguous()
-            st["syncs"] += s0.host_syncs
-        else:
-            Xseed = torch.as_tensor(xseed, dtype=DTYPE, device=dev).clone()
-        Xseed0 = Xseed
-        st["seed"] = time.perf_counter() - t
-        st["k1_seed"] = gj_solve.launches - k1
-        left = _flat_loop(W, min(n_exec, n_win), 0, n_win, Xseed)
-        while left > 0:
-            # seeding gave up (repeated stalls): the robust ladder, one
-            # window at a time
-            st["all_done"] = _solve_steps_robust(
-                (n_win - left) * W, W) and st["all_done"]
-            left -= 1
-    else:
-        run = _ladder(W, n_exec)
-        done_w = 0
-        while done_w < n_win:
-            o = done_w * W
-            te = t0f + o * dt
-            xs_e, dones, carry_l = _run_ladder(run, o, W)
-            if all(dones):
-                carry = carry_l
-                xs_parts.append(xs_e)
-                done_w += n_exec
+        k1 = gj_solve.launches
+        with obs.span("seed"):
+            if xseed is None:
+                grid = t0f + dt * (1.0 + np.arange(W))
+                s0 = serial_tran(cc, (t0f, t0f + W * dt), params, dt=8 * dt,
+                                 dtmax=8 * dt, save_ts=grid, x0=carry[0])
+                Xseed0 = s0.xs.contiguous()
+                st["syncs"] += s0.host_syncs
             else:
-                # salvage the converged prefix; the hard window through
-                # the robust ladder (never accept a poisoned carry)
-                k = dones.index(False)
-                if k > 0:
-                    xs_np = xs_e[: k * W]
-                    xs_parts.append(xs_np)
-                    carry = _carry_at(xs_np[-1], te + k * W * dt)
+                Xseed0 = torch.as_tensor(xseed, dtype=DTYPE,
+                                         device=dev).clone()
+        st["k1_seed"] = gj_solve.launches - k1
+    with obs.span("windows"):
+        if osc and not use_seeded and n_steps >= 2 * osc_window:
+            # autonomous oscillator: phase A solves serial single-step
+            # windows (CH per execution) while the host watches for a stable
+            # period; phase B seeds windows snapped to ~m measured periods
+            # with the last solved period tiled
+            done_pts = 0
+            P = None
+            mi_osc = max(max_iters, 160)
+            CH = int(min(128, n_steps))
+            while done_pts + CH <= n_steps:
+                _serial_chunk(CH, mi_osc, done_pts)
+                done_pts += CH
+                acc = torch.cat(xs_parts).cpu().numpy()
+                P = detect_period(acc, dt, min_cross=4)
+                if P is not None and done_pts >= int(round(P / dt)) + 2:
+                    break
+                P = None
+            if P is not None:
+                # the period quantized to 1/4 step
+                pstep_f = round(P / dt * 4.0) / 4.0
+                if osc_period is not None:
+                    pinned = round(osc_period / dt * 4.0) / 4.0
+                    if abs(pinned - pstep_f) <= 0.02 * pstep_f:
+                        pstep_f = pinned
+                    else:
+                        warnings.warn(
+                            f"osc_period pin {pinned} steps disagrees with "
+                            f"the measured period {pstep_f} steps by >2%; "
+                            "using the measurement", stacklevel=2)
+                m = max(1, int(round(W / pstep_f)))
+                Wb = int(round(m * pstep_f))
+                rem = n_steps - done_pts
+                # overshoot the remainder with full windows; the result is
+                # truncated at n_steps + 1 rows
+                n_winB = (rem + Wb - 1) // Wb if Wb >= 8 else 0
+                if n_winB >= 1:
+                    pi = max(2, int(round(pstep_f)))
+                    tail = acc[-pi:]
+                    reps = int(np.ceil(Wb / pi)) + 1
+                    Xseed = torch.as_tensor(np.tile(tail, (reps, 1))[-Wb:],
+                                            dtype=DTYPE, device=dev)
+                    left = _flat_loop(Wb, min(n_exec, n_winB), done_pts,
+                                      n_winB, Xseed,
+                                      trips_per_win=4 if big else 3)
+                    done_pts += (n_winB - left) * Wb
+            # the trailing remainder, and the no-period fallback
+            while done_pts < n_steps:
+                _serial_chunk(CH, mi_osc, done_pts)
+                done_pts += CH
+        elif use_seeded:
+            left = _flat_loop(W, min(n_exec, n_win), 0, n_win, Xseed0)
+            while left > 0:
+                # seeding gave up (repeated stalls): the robust ladder, one
+                # window at a time
                 st["all_done"] = _solve_steps_robust(
-                    (done_w + k) * W, W, True) and st["all_done"]
-                done_w += k + 1
-    xs = torch.cat([x0[None, :]] + xs_parts)[:n_steps + 1]
-    xs[-1, 0].item()          # the run's end, for the wall time
+                    (n_win - left) * W, W) and st["all_done"]
+                left -= 1
+        else:
+            run = _ladder(W, n_exec)
+            done_w = 0
+            while done_w < n_win:
+                o = done_w * W
+                te = t0f + o * dt
+                xs_e, dones, carry_l = _run_ladder(run, o, W)
+                if all(dones):
+                    carry = carry_l
+                    xs_parts.append(xs_e)
+                    done_w += n_exec
+                else:
+                    # salvage the converged prefix; the hard window through
+                    # the robust ladder (never accept a poisoned carry)
+                    k = dones.index(False)
+                    if k > 0:
+                        xs_np = xs_e[: k * W]
+                        xs_parts.append(xs_np)
+                        carry = _carry_at(xs_np[-1], te + k * W * dt)
+                    st["all_done"] = _solve_steps_robust(
+                        (done_w + k) * W, W, True) and st["all_done"]
+                    done_w += k + 1
+        xs = torch.cat([x0[None, :]] + xs_parts)[:n_steps + 1]
+        xs[-1, 0].item()          # the run's end, for the wall time
     ts = t0f + dt * np.arange(n_steps + 1)
     stats = TranStats(naccept=torch.tensor(n_steps),
                       nreject=torch.tensor(0),
                       nnewton=torch.tensor(st["nn"]),
                       fail=torch.tensor(not st["all_done"]))
+    # the spans add "op", "windows" and, on the periodic-seeded path,
+    # "seed" to these timings
     sol = TranSolution(cc, ts, xs, stats, op_converged=op_conv,
                        host_syncs=st["syncs"], op_iters=op_iters,
-                       timings={"op": wall_op - wall0, "seed": st["seed"],
-                                "windows": time.perf_counter() - wall_op
-                                - st["seed"]})
+                       timings={"seed": 0.0})
     sol.window_iters = log
     sol.window = W
     sol.xseed = Xseed0

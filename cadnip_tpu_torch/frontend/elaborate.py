@@ -61,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import DEFAULT_DEVICE
 from ..mna import devices as dv
 from ..mna import waveforms as wf
@@ -1221,29 +1222,32 @@ def elaborate_netlist(source, *, include_dirs=(), section=None, title=None,
     else:
         if dialect == "auto":
             dialect = "spectre" if looks_like_spectre(source) else "spice"
-        nl = (parse_spectre(source) if dialect == "spectre"
-              else parse_netlist(source))
-    el = Elaborator(include_dirs=include_dirs, section=section,
-                    dialect=dialect, rng=rng)
-    root = Scope()
-    for path in ([hdl] if isinstance(hdl, str) else hdl):
-        for name, model in load_va_file(path).items():
-            root.va_modules[name.lower()] = model
-    elements = el.collect(nl.cards, root)
-    el.eval_params(root)
-    # top-scope parameter names: the Spectre sweep container checks its
-    # target against them before it appends a `parameters` card
-    el.param_names = frozenset(str(k).lower() for k in root.param_vals)
-    el.cir = Circuit(title or nl.title or "netlist")
-    el.build(elements, root, "", {})
-    # resolve mutual inductances now that both L values are known
-    lvals = {i.name: i.params.get("l", i.model.defaults["l"])
-             for i in el.cir.instances if i.model is dv.INDUCTOR}
-    insts = {i.name: i for i in el.cir.instances}
-    for nm, l1, l2, k in el._mutuals:
-        if l1 not in lvals or l2 not in lvals:
-            raise ElabError(f"{nm}: couples unknown inductors {l1!r}/{l2!r}")
-        insts[nm].params["m"] = k * float(np.sqrt(lvals[l1] * lvals[l2]))
+        with obs.span("parse"):
+            nl = (parse_spectre(source) if dialect == "spectre"
+                  else parse_netlist(source))
+    with obs.span("elaborate"):
+        el = Elaborator(include_dirs=include_dirs, section=section,
+                        dialect=dialect, rng=rng)
+        root = Scope()
+        for path in ([hdl] if isinstance(hdl, str) else hdl):
+            for name, model in load_va_file(path).items():
+                root.va_modules[name.lower()] = model
+        elements = el.collect(nl.cards, root)
+        el.eval_params(root)
+        # top-scope parameter names: the Spectre sweep container checks
+        # its target against them before it appends a `parameters` card
+        el.param_names = frozenset(str(k).lower() for k in root.param_vals)
+        el.cir = Circuit(title or nl.title or "netlist")
+        el.build(elements, root, "", {})
+        # resolve mutual inductances now that both L values are known
+        lvals = {i.name: i.params.get("l", i.model.defaults["l"])
+                 for i in el.cir.instances if i.model is dv.INDUCTOR}
+        insts = {i.name: i for i in el.cir.instances}
+        for nm, l1, l2, k in el._mutuals:
+            if l1 not in lvals or l2 not in lvals:
+                raise ElabError(
+                    f"{nm}: couples unknown inductors {l1!r}/{l2!r}")
+            insts[nm].params["m"] = k * float(np.sqrt(lvals[l1] * lvals[l2]))
     return el.cir, el
 
 
@@ -1268,12 +1272,20 @@ def parse_spice(source, *, include_dirs=(), section=None,
                 device=DEFAULT_DEVICE, hdl=(), dialect="auto"):
     """SPICE or Spectre netlist text -> CompiledCircuit on `device`: the
     card by default (raises where there is none), "cpu" for the host; or
-    the Circuit if compile=False. hdl: Verilog-A files to preload."""
-    cir, el = elaborate_netlist(source, include_dirs=include_dirs,
-                                section=section, hdl=hdl, dialect=dialect)
-    if not compile:
-        return cir
-    return cir.compile(spice_spec(el, spec), device=device)
+    the Circuit if compile=False. hdl: Verilog-A files to preload.
+    The circuit's `timings` hold the host seconds of the spans
+    "frontend.parse", "frontend.elaborate" and "frontend.compile"
+    (`obs`)."""
+    with obs.call() as timings, obs.span("frontend"):
+        cir, el = elaborate_netlist(source, include_dirs=include_dirs,
+                                    section=section, hdl=hdl,
+                                    dialect=dialect)
+        if not compile:
+            return cir
+        with obs.span("compile"):
+            cc = cir.compile(spice_spec(el, spec), device=device)
+    cc.timings = timings
+    return cc
 
 
 def circuit_from_file(path, *, section=None, spec=None, compile=True,

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch.func import jacrev, vmap
 
+from .. import obs
 from ..config import DTYPE, ITYPE
 from .devices import CLASS_V
 from .spec import DynSpec
@@ -341,15 +342,19 @@ def make_assembler(cc: CompiledCircuit):
 
     def assemble(x_pad, lim, params, dyn: DynSpec, dly=None):
         B = x_pad.shape[0]
-        fs, qs, Js, Cs, lim_new = ev.evaluate(x_pad, lim, params, dyn, dly)
-        F = fq_scatter(fs)[:, :n]
-        Q = fq_scatter(qs)[:, :n]
-        G = gc_scatter(Js).reshape(B, np1, np1)[:, :n, :n]
-        C = gc_scatter(Cs).reshape(B, np1, np1)[:, :n, :n]
-        # gshunt homotopy shunts on node diagonals (residual AND jacobian)
-        gs = torch.as_tensor(dyn.gshunt).reshape(-1, 1) * vmask
-        F = F + gs * x_pad[:, :n]
-        G = G + torch.diag_embed(gs.expand(B, n))
+        with obs.span("eval"):
+            fs, qs, Js, Cs, lim_new = ev.evaluate(x_pad, lim, params, dyn,
+                                                  dly)
+        with obs.span("scatter"):
+            F = fq_scatter(fs)[:, :n]
+            Q = fq_scatter(qs)[:, :n]
+            G = gc_scatter(Js).reshape(B, np1, np1)[:, :n, :n]
+            C = gc_scatter(Cs).reshape(B, np1, np1)[:, :n, :n]
+            # gshunt homotopy shunts on node diagonals (residual AND
+            # jacobian)
+            gs = torch.as_tensor(dyn.gshunt).reshape(-1, 1) * vmask
+            F = F + gs * x_pad[:, :n]
+            G = G + torch.diag_embed(gs.expand(B, n))
         return F, Q, G, C, lim_new
 
     assemble.init_lim = ev.init_lim
@@ -440,14 +445,16 @@ def make_rhs_assembler(cc: CompiledCircuit):
     def rhs(x_pad, params, dyn: DynSpec):
         B = x_pad.shape[0]
         fs, qs = [], []
-        for (conn, res), p in zip(consts, params):
-            I, L = conn.shape
-            f, q = res(x_pad[:, conn].reshape(B * I, L),
-                       _lane_params(p, B, I), _lane_dyn(dyn, B, I))
-            fs.append(f.reshape(B, -1))
-            qs.append(q.reshape(B, -1))
-        gs = torch.as_tensor(dyn.gshunt).reshape(-1, 1) * vmask
-        F = scatter(fs)[:, :n] + gs * x_pad[:, :n]
-        return F, scatter(qs)[:, :n]
+        with obs.span("eval"):
+            for (conn, res), p in zip(consts, params):
+                I, L = conn.shape
+                f, q = res(x_pad[:, conn].reshape(B * I, L),
+                           _lane_params(p, B, I), _lane_dyn(dyn, B, I))
+                fs.append(f.reshape(B, -1))
+                qs.append(q.reshape(B, -1))
+        with obs.span("scatter"):
+            gs = torch.as_tensor(dyn.gshunt).reshape(-1, 1) * vmask
+            F = scatter(fs)[:, :n] + gs * x_pad[:, :n]
+            return F, scatter(qs)[:, :n]
 
     return rhs

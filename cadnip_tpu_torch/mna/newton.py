@@ -16,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import DTYPE, ITYPE
 from ..ops.linalg import solve as dense_solve
 from .assemble import make_assembler, make_rhs_assembler, pad_state
@@ -39,6 +40,14 @@ def damp_step(dx, is_v, max_dv):
                        keepdim=True).detach()
     return dx * torch.clamp(max_dv / torch.clamp(vstep, min=1e-300),
                             max=1.0)
+
+
+def _any(run) -> bool:
+    """Whether any lane still runs: the Newton loop's one host read per
+    iteration, where the host waits for the device's backlog (span
+    "sync")."""
+    with obs.span("sync"):
+        return bool(run.any())
 
 
 def _lane_col(v):
@@ -112,8 +121,10 @@ def make_newton(cc: CompiledCircuit, assemble=None, method: str | None = None):
     max_iters = spec.max_newton_iters
 
     def step(x, lim, params, dyn):
-        F, _, G, C, lim_new = assemble(pad_state(x), lim, params, dyn)
-        dx = solve_J(G, C, 0.0, -F)
+        with obs.span("assemble"):
+            F, _, G, C, lim_new = assemble(pad_state(x), lim, params, dyn)
+        with obs.span("solve"):
+            dx = solve_J(G, C, 0.0, -F)
         if spec.max_dv > 0:
             dx = damp_step(dx, is_v, spec.max_dv)
         x_new = x + dx
@@ -134,16 +145,17 @@ def make_newton(cc: CompiledCircuit, assemble=None, method: str | None = None):
             active = torch.ones(B, dtype=torch.bool, device=x.device)
         while True:
             run = active & ~done & (it < max_iters)
-            if not bool(run.any()):      # one host sync per iteration
+            if not _any(run):
                 break
-            x_new, lim_new, ok, rn = step(x, lim, params, dyn)
-            bad = ~torch.isfinite(x_new).all(-1)
-            keep = (bad | ~run)[:, None]
-            x = torch.where(keep, x, x_new)
-            lim = torch.where(keep, lim, lim_new)
-            it = it + run.to(ITYPE)
-            done = torch.where(run, ok & ~bad, done)
-            resnorm = torch.where(run, rn, resnorm)
+            with obs.span("iter"):
+                x_new, lim_new, ok, rn = step(x, lim, params, dyn)
+                bad = ~torch.isfinite(x_new).all(-1)
+                keep = (bad | ~run)[:, None]
+                x = torch.where(keep, x, x_new)
+                lim = torch.where(keep, lim, lim_new)
+                it = it + run.to(ITYPE)
+                done = torch.where(run, ok & ~bad, done)
+                resnorm = torch.where(run, rn, resnorm)
         return NewtonResult(x=x, converged=done, iters=it, resnorm=resnorm)
 
     return newton
@@ -181,27 +193,31 @@ def make_tran_newton(cc: CompiledCircuit, assemble=None,
         Fs = torch.zeros((B, n), dtype=DTYPE, device=x.device)
         while True:
             run = ~done & (it < max_iters)
-            if not bool(run.any()):
+            if not _any(run):
                 break
-            F, Q, G, C, lim_new = assemble(pad_state(x), lim, params, dyn)
-            Ft = F + c0c * Q - rhs_q
-            dx = solve_J(G, C, c0c, -Ft)
-            if spec.max_dv > 0:
-                dx = damp_step(dx, is_v, spec.max_dv)
-            x_new = x + dx
-            ok = (dx.abs() <= spec.reltol * torch.maximum(
-                x_new.abs(), x.abs()) + atol).all(-1)
-            bad = ~torch.isfinite(x_new).all(-1)
-            # first-order charge correction: q(x_new) ~= Q + C dx
-            Qc = Q + matvec(C, dx)
-            keep = (bad | ~run)[:, None]
-            x = torch.where(keep, x, x_new)
-            lim = torch.where(keep, lim, lim_new)
-            r = run[:, None]
-            Qs = torch.where(r, Qc, Qs)
-            Fs = torch.where(r, F, Fs)
-            it = it + run.to(ITYPE)
-            done = torch.where(run, ok & ~bad, done)
+            with obs.span("iter"):
+                with obs.span("assemble"):
+                    F, Q, G, C, lim_new = assemble(pad_state(x), lim,
+                                                   params, dyn)
+                Ft = F + c0c * Q - rhs_q
+                with obs.span("solve"):
+                    dx = solve_J(G, C, c0c, -Ft)
+                if spec.max_dv > 0:
+                    dx = damp_step(dx, is_v, spec.max_dv)
+                x_new = x + dx
+                ok = (dx.abs() <= spec.reltol * torch.maximum(
+                    x_new.abs(), x.abs()) + atol).all(-1)
+                bad = ~torch.isfinite(x_new).all(-1)
+                # first-order charge correction: q(x_new) ~= Q + C dx
+                Qc = Q + matvec(C, dx)
+                keep = (bad | ~run)[:, None]
+                x = torch.where(keep, x, x_new)
+                lim = torch.where(keep, lim, lim_new)
+                r = run[:, None]
+                Qs = torch.where(r, Qc, Qs)
+                Fs = torch.where(r, F, Fs)
+                it = it + run.to(ITYPE)
+                done = torch.where(run, ok & ~bad, done)
         return TranNewtonResult(x=x, lim=lim, q=Qs, f=Fs, converged=done,
                                 iters=it)
 
@@ -299,36 +315,41 @@ def make_lm_rescue(cc: CompiledCircuit):
         rn = torch.full((B,), float("inf"), dtype=DTYPE, device=x.device)
         while True:
             run = ~done & (it < max_iters)
-            if not bool(run.any()):      # one host sync per iteration
+            if not _any(run):
                 break
-            F, _, G, _, lim_new = assemble(pad_state(x), lim, params, dyn)
-            d = torch.clamp(G.abs().amax(-1), min=1e-12)
-            dx = solve_J(G, torch.diag_embed(d), lam, -F)
-            if spec.max_dv > 0:
-                dx = damp_step(dx, is_v, spec.max_dv)
-            x_t = x + dx
-            F_t, _, _, _, lim_t = assemble(pad_state(x_t), lim_new, params,
-                                           dyn)
-            f0 = (F * F).sum(-1)
-            f1 = (F_t * F_t).sum(-1)
-            better = ((f1 < f0) & torch.isfinite(x_t).all(-1)
-                      & torch.isfinite(f1))
-            small = (dx.abs() <= spec.reltol * torch.maximum(
-                x_t.abs(), x.abs()) + atol).all(-1)
-            ok = better & (lam < 1e-6) & small
-            r, b = run[:, None], better[:, None]
-            x = torch.where(r & b, x_t, x)
-            # the limiter anchor ALWAYS advances (SPICE practice): a frozen
-            # anchor makes the companion-limited residual look converged at
-            # a false solution, deadlocking the accept test
-            lim = torch.where(r, torch.where(b, lim_t, lim_new), lim)
-            lam = torch.where(run, torch.where(
-                better, torch.clamp(lam * 0.25, min=1e-12),
-                torch.clamp(lam * 8.0, max=1e10)), lam)
-            rn = torch.where(run, torch.where(better, F_t.abs().amax(-1),
-                                              F.abs().amax(-1)), rn)
-            it = it + run.to(ITYPE)
-            done = torch.where(run, ok, done)
+            with obs.span("iter"):
+                with obs.span("assemble"):
+                    F, _, G, _, lim_new = assemble(pad_state(x), lim, params,
+                                                   dyn)
+                d = torch.clamp(G.abs().amax(-1), min=1e-12)
+                with obs.span("solve"):
+                    dx = solve_J(G, torch.diag_embed(d), lam, -F)
+                if spec.max_dv > 0:
+                    dx = damp_step(dx, is_v, spec.max_dv)
+                x_t = x + dx
+                with obs.span("assemble"):
+                    F_t, _, _, _, lim_t = assemble(pad_state(x_t), lim_new,
+                                                   params, dyn)
+                f0 = (F * F).sum(-1)
+                f1 = (F_t * F_t).sum(-1)
+                better = ((f1 < f0) & torch.isfinite(x_t).all(-1)
+                          & torch.isfinite(f1))
+                small = (dx.abs() <= spec.reltol * torch.maximum(
+                    x_t.abs(), x.abs()) + atol).all(-1)
+                ok = better & (lam < 1e-6) & small
+                r, b = run[:, None], better[:, None]
+                x = torch.where(r & b, x_t, x)
+                # the limiter anchor ALWAYS advances (SPICE practice): a frozen
+                # anchor makes the companion-limited residual look converged at
+                # a false solution, deadlocking the accept test
+                lim = torch.where(r, torch.where(b, lim_t, lim_new), lim)
+                lam = torch.where(run, torch.where(
+                    better, torch.clamp(lam * 0.25, min=1e-12),
+                    torch.clamp(lam * 8.0, max=1e10)), lam)
+                rn = torch.where(run, torch.where(better, F_t.abs().amax(-1),
+                                                  F.abs().amax(-1)), rn)
+                it = it + run.to(ITYPE)
+                done = torch.where(run, ok, done)
         return NewtonResult(x=x, converged=done, iters=it, resnorm=rn)
 
     return lm
@@ -351,6 +372,9 @@ def make_dc_solver(cc: CompiledCircuit, assemble=None,
     sched_sf = [1.0] * (2 + len(gl)) + ramp
     sched_fin = ([True] + [False] * len(gl) + [True]
                  + [False] * (len(ramp) - 1) + [True])
+    # the tier of each entry, the span its Newton records under
+    sched_tier = (["direct"] + ["gmin"] * (len(gl) + 1)
+                  + ["source"] * len(ramp))
 
     def dc_solve(x0, params, dyn: DynSpec) -> NewtonResult:
         x = torch.as_tensor(x0, dtype=DTYPE, device=cc.device)
@@ -358,19 +382,23 @@ def make_dc_solver(cc: CompiledCircuit, assemble=None,
         done = torch.zeros(B, dtype=torch.bool, device=x.device)
         iters = torch.zeros(B, dtype=ITYPE, device=x.device)
         rn = torch.full((B,), float("inf"), dtype=DTYPE, device=x.device)
-        for gs, sf, fin in zip(sched_gs, sched_sf, sched_fin):
-            if bool(done.all()):
-                break
-            d = dyn._replace(
-                gshunt=torch.as_tensor(gs, dtype=DTYPE, device=x.device),
-                srcfact=torch.as_tensor(sf, dtype=DTYPE, device=x.device))
-            r = newton(x, params, d, active=~done)
-            active = ~done
-            x = torch.where(active[:, None], r.x, x)
-            rn = torch.where(active, r.resnorm, rn)
-            iters = iters + r.iters
-            if fin:
-                done = done | (active & r.converged)
+        for gs, sf, fin, tier in zip(sched_gs, sched_sf, sched_fin,
+                                     sched_tier):
+            with obs.span("sync"):
+                if bool(done.all()):
+                    break
+            with obs.span(tier):
+                d = dyn._replace(
+                    gshunt=torch.as_tensor(gs, dtype=DTYPE, device=x.device),
+                    srcfact=torch.as_tensor(sf, dtype=DTYPE,
+                                            device=x.device))
+                r = newton(x, params, d, active=~done)
+                active = ~done
+                x = torch.where(active[:, None], r.x, x)
+                rn = torch.where(active, r.resnorm, rn)
+                iters = iters + r.iters
+                if fin:
+                    done = done | (active & r.converged)
         return NewtonResult(x=x, converged=done, iters=iters, resnorm=rn)
 
     return dc_solve

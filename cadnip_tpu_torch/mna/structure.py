@@ -170,6 +170,8 @@ class CompiledCircuit:
     cache: dict = dataclasses.field(default_factory=dict)
     bbd: object = None                  # BBDPartition for large circuits
     bbd_nested: object = None           # level-2 border partition (Schur)
+    # host seconds of the front end's spans (`parse_spice`)
+    timings: dict = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------------ params
     def params0(self):

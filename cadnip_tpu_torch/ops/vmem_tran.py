@@ -48,12 +48,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-import time
 
 import numpy as np
 import torch
 from torch.func import vmap
 
+from .. import obs
 from ..config import DTYPE, ITYPE
 from ..mna.assemble import (_group_eval, _lane_dyn, make_assembler,
                             make_rhs_assembler, make_sorted_scatter,
@@ -235,38 +235,47 @@ def prepare(cc, tspan, *, dt=None, dtmax=None, n_save=None,
         if uic:
             x0 = torch.zeros(cc.n, dtype=DTYPE, device=dev)
         else:
-            op = dc(cc, params, mode=MODE_TRANOP, time=t0)
+            with obs.span("op"):
+                op = dc(cc, params, mode=MODE_TRANOP, time=t0)
             x0, op_conv, op_iters = op.x, op.converged, op.iters
-    x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev).clone()
-    for node, v in (ic or {}).items():
-        x0[cc.index_of(str(node))] = float(v)
+    with obs.span("pack"):
+        x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev).clone()
+        for node, v in (ic or {}).items():
+            x0[cc.index_of(str(node))] = float(v)
 
-    xp = pad_state(x0[None])
-    dyn_op = spec.dyn(dev, mode=MODE_TRANOP, time=t0)
-    f0, q0 = make_rhs_assembler(cc)(xp, params, dyn_op)
-    assemble = make_assembler(cc)
-    # init_lim(x0) serves only this call: the integrator's limiter states
-    # start at zeros, as the reference kernel's do (its `lim0`)
-    _, _, _, C0, _ = assemble(xp, assemble.init_lim(xp), params, dyn_op)
-    diff = C0[0].abs().sum(-1) > 0.0
+        xp = pad_state(x0[None])
+        dyn_op = spec.dyn(dev, mode=MODE_TRANOP, time=t0)
+        with obs.span("build"):
+            rhs = make_rhs_assembler(cc)
+            assemble = make_assembler(cc)
+        with obs.span("charge"):
+            f0, q0 = rhs(xp, params, dyn_op)
+            # init_lim(x0) serves only this call: the integrator's limiter
+            # states start at zeros, as the reference kernel's do (`lim0`)
+            _, _, _, C0, _ = assemble(xp, assemble.init_lim(xp), params,
+                                      dyn_op)
+            diff = C0[0].abs().sum(-1) > 0.0
 
-    bp = collect_breakpoints(cc, tstop)
-    bp = bp[bp > t0]
-    win_rows = min(rc, max(8, int(8 * np.ceil(
-        (np.ceil(dtmax / dt_save) + 2) / 8))))
-    return Setup(
-        cc=cc, params=params, t0=t0, tstop=tstop, dt_save=dt_save,
-        n_save=n_save, rows_per_chunk=rc, win_rows=win_rows,
-        n_chunks=(n_save + rc - 1) // rc,
-        h0=min(dt / 10.0, dtmax),
-        # a step may cross at most win_rows - 2 save rows
-        hmax=min(dtmax, (win_rows - 2) * dt_save),
-        hmin=max((tstop - t0) * 1e-7, dt * 1e-4, 1e-30),
-        reltol=max(spec.reltol, RELTOL_FLOOR), max_steps=int(max_steps),
-        bp=np.asarray(bp, np.float64), x0=x0, q0=q0[0], qdot0=-f0[0],
-        diff=diff, atol=abstol_vector(cc),
-        vmask=torch.as_tensor(cc.classes == CLASS_V, device=dev),
-        op_converged=op_conv, op_iters=op_iters)
+        # the breakpoints and the step-control scalars
+        with obs.span("steps"):
+            bp = collect_breakpoints(cc, tstop)
+            bp = bp[bp > t0]
+            win_rows = min(rc, max(8, int(8 * np.ceil(
+                (np.ceil(dtmax / dt_save) + 2) / 8))))
+            return Setup(
+                cc=cc, params=params, t0=t0, tstop=tstop, dt_save=dt_save,
+                n_save=n_save, rows_per_chunk=rc, win_rows=win_rows,
+                n_chunks=(n_save + rc - 1) // rc,
+                h0=min(dt / 10.0, dtmax),
+                # a step may cross at most win_rows - 2 save rows
+                hmax=min(dtmax, (win_rows - 2) * dt_save),
+                hmin=max((tstop - t0) * 1e-7, dt * 1e-4, 1e-30),
+                reltol=max(spec.reltol, RELTOL_FLOOR),
+                max_steps=int(max_steps), bp=np.asarray(bp, np.float64),
+                x0=x0, q0=q0[0], qdot0=-f0[0], diff=diff,
+                atol=abstol_vector(cc),
+                vmask=torch.as_tensor(cc.classes == CLASS_V, device=dev),
+                op_converged=op_conv, op_iters=op_iters)
 
 
 # ---------------------------------------------------------------------------
@@ -722,15 +731,18 @@ def integrate(S: Setup) -> _Result:
     if dev.type != "cuda":
         raise ValueError(f"vmem_tran: unsupported device {dev}")
     lib = load_library()
-    cfg, t = _kernel_args(S)
-    ptrs = _Ptrs(**{k: t[k].data_ptr() for k in _PTRS})
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.vmem_tran_f64(ctypes.byref(cfg), ctypes.byref(ptrs),
-                            _THREADS, stream)
+    with obs.span("args"):
+        cfg, t = _kernel_args(S)
+        ptrs = _Ptrs(**{k: t[k].data_ptr() for k in _PTRS})
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    with obs.span("launch"):
+        err = lib.vmem_tran_f64(ctypes.byref(cfg), ctypes.byref(ptrs),
+                                _THREADS, stream)
     if err != 0:
         raise RuntimeError(f"vmem_tran kernel launch failed: cudaError {err}")
     vmem_tran.launches += 1
-    stats = t["stats"].tolist()       # the one host sync of the transient
+    with obs.span("wait"):
+        stats = t["stats"].tolist()   # the one host sync of the transient
     return _Result(xs=t["xs"][:S.n_save], stats=tuple(stats[:4]),
                    final=t["fin"], host_syncs=1,
                    phases=dict(zip(PHASES, stats[_PHASE0:])))
@@ -763,7 +775,6 @@ def eval_group(model, u, u_prev, params, wv, dyn: DynSpec):
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vmem_eval_group launch failed: cudaError {err}")
-    eval_group.launches += 1
     return f, q, J, C, ue
 
 
@@ -783,7 +794,6 @@ def wave_values(packed, ts):
         torch.cuda.current_stream(co.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vmem_eval_waves launch failed: cudaError {err}")
-    eval_group.launches += 1
     return out
 
 
@@ -808,6 +818,7 @@ def _solution(S: Setup, r: _Result):
     return sol
 
 
+@obs.entry
 def vmem_tran(cc, tspan, *, dt=None, dtmax=None, n_save=None,
               max_steps=2_000_000, x0=None, uic=False, ic=None,
               rows_per_chunk=512):
@@ -819,17 +830,16 @@ def vmem_tran(cc, tspan, *, dt=None, dtmax=None, n_save=None,
     `uic` starts from zeros, `ic` pins node voltages in x0. Raises
     ValueError for an unsupported circuit. Returns a TranSolution, with
     `sol.final` ([3, n]: x, q, qdot at the end) and `sol.timings`."""
-    t = time.perf_counter()
-    S = prepare(cc, tspan, dt=dt, dtmax=dtmax, n_save=n_save,
-                max_steps=max_steps, x0=x0, uic=uic, ic=ic,
-                rows_per_chunk=rows_per_chunk)
-    t_prep = time.perf_counter()
-    sol = _solution(S, integrate(S))
-    #: host seconds of the operating point and set-up, and of the
-    #: integrator (which ends in a host sync)
-    sol.timings = {"prepare": t_prep - t,
-                   "integrate": time.perf_counter() - t_prep}
-    return sol
+    # host seconds (`obs`) of the operating point and set-up ("prepare":
+    # "prepare.op", the DC chain, and "prepare.pack", K2's set-up), and of
+    # the integrator, which ends in a host sync ("integrate"; on the card
+    # "integrate.args", ".launch" and ".wait")
+    with obs.span("prepare"):
+        S = prepare(cc, tspan, dt=dt, dtmax=dtmax, n_save=n_save,
+                    max_steps=max_steps, x0=x0, uic=uic, ic=ic,
+                    rows_per_chunk=rows_per_chunk)
+    with obs.span("integrate"):
+        return _solution(S, integrate(S))
 
 
 def vmem_tran_plain(cc, tspan, **kw):
@@ -840,5 +850,3 @@ def vmem_tran_plain(cc, tspan, **kw):
 
 #: K2 launches since the last reset (twin runs do not count)
 vmem_tran.launches = 0
-#: launches of the device-evaluation entries (checks, not the main path)
-eval_group.launches = 0

@@ -33,6 +33,7 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
+from .. import obs
 from ..config import DTYPE, resolve_device
 from ..mna.structure import CompiledCircuit
 from ..analyses.dc import DCSolution, _get_dc_solver
@@ -179,6 +180,6 @@ def sharded_transweep(cc: CompiledCircuit, sweep, tspan, params=None, *,
     if sol.trace is not None:
         sol.trace = (cat(lambda s: s.trace[0]), cat(lambda s: s.trace[1]))
     sol.host_syncs = sum(s.host_syncs for s in sols)
-    sol.timings = {k: sum(s.timings[k] for s in sols) for k in sol.timings}
+    sol.timings = obs.merge(s.timings for s in sols)
     sol.table = {k: v[:n_real] for k, v in table.items()}
     return sol
