@@ -628,8 +628,10 @@ __device__ double eval_wave(long long kind, const double* c, int W,
       // jnp.interp with flat extrapolation over (t_k, v_k) = c[2k], c[2k+1]
       const int m = W / 2;
       const double x = t + 0.0 * c[0];
-      int i = 0;   // searchsorted(right=True): first t_k > x
-      while (i < m && !(c[2 * i] > x)) ++i;
+      // searchsorted(right=True): the first t_k > x, which over sorted t_k
+      // is the count of t_k not above x (independent loads, no chain)
+      int i = 0;
+      for (int k = 0; k < m; ++k) i += !(c[2 * k] > x);
       i = i < 1 ? 1 : (i > m - 1 ? m - 1 : i);
       const double t_hi = c[2 * i], t_lo = c[2 * i - 2];
       const double v_hi = c[2 * i + 1], v_lo = c[2 * i - 1];

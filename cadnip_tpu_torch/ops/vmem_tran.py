@@ -28,20 +28,33 @@ intervals, steps capped at the last save time of their chunk of
 hmin and h0. The reference is f32 because Mosaic has no f64; K2 and its
 twin are f64 throughout.
 
-What bounds K2 on the H100 is one thread block's serial Newton chain: per
-iteration a string of block barriers and the FP64 latency of the device
-functions, not bytes. The design keeps the whole Newton state, the dense
-system, the per-instance locals and the gather plans where they fit
-(`locals_bytes`) and the scalar step control on chip (shared memory, one
-thread deciding, barriers publishing), touches device memory only for the
-save rows, and returns to the host once per transient. Each device
-group's instances run on warps of their own (host-built slots), so no
-warp holds two models. For n <= 32 (`WARP_SOLVE_MAX`) the Newton solve
-runs inside one warp with the system in registers, as K1's warp variant.
-Above that it runs K1's blocked form (`gj_solve_blocked_plain` in the
-twin) on the whole block. Thread 0 times each phase of an iteration with
-clock64(); `integrate` returns the cycles per phase (`PHASES`). Lane
-batching and TMA are later work.
+What bounds K2 on the H100 is the latency of one serial Newton chain on
+one SM, not bytes or operations: an iteration is a chain of dependent,
+latency-bound phases (the device evaluation, whose length one warp running
+a whole MOSFET or BJT group sets; the assembly; the elimination; the tests;
+the step control) with a hand-over between threads after each. For n <= 32
+(`WARP_SOLVE_MAX`) warps 1-7 evaluate the devices, each group on warps of
+its own (host-built slots), doing all per-instance work in one pass (the
+accepted step's C dx, the limiter states, the waveforms, the evaluation,
+and each contribution's copy to its place in plan order through the
+inverse plans `fq_pos`, `jc_pos`); the whole block sums the nonzero
+entries of A and the rows of F and Q, one plan run a thread (`jc_ent`);
+and warp 0 runs the rest of the iteration alone, lane r owning unknown r:
+its state in registers across iterations, the equilibration and
+elimination in registers (K1's warp variant), the tests and the LTE with
+warp votes and reductions, the save rows and the step decision, every lane
+computing the same scalars. Three block barriers an iteration (the
+contributions are in place; the system is assembled; the next trial is
+published); `sol.k2_warp_iterations` counts the iterations that ran so.
+Above that, up to `MAX_UNKNOWNS`, the whole block runs K1's blocked form
+(`gj_solve_blocked_plain` in the twin) on the system in shared memory, with
+thread 0 deciding the step and barriers publishing it. The two compute the
+same expressions in the same order. Both keep the per-instance locals and
+the gather plans on chip where they fit (`locals_bytes`), touch device
+memory only for the save rows, and return to the host once per transient.
+Thread 0 times each phase of an iteration with clock64(); `integrate`
+returns the cycles per phase (`PHASES`). Lane batching and TMA are later
+work.
 """
 from __future__ import annotations
 
@@ -84,13 +97,15 @@ GMIN = 1e-12            # junction gmin of the transient (reference: fixed)
 MAX_UNKNOWNS = 127
 #: most instances of one device group (the reference's lane width)
 MAX_INST = 128
-#: state vectors of length n + 1 that the kernel keeps in shared memory
+#: state vectors of length n + 1 that the block instance keeps in shared
+#: memory
 _N_VECTORS = 19
 _THREADS = 256
 #: largest circuit whose Newton solve runs inside one warp
 WARP_SOLVE_MAX = 32
-#: the kernel's statistics slots (csrc/vmem_tran.cu: N_STATS, PHASE0)
-_N_STATS, _PHASE0 = 16, 8
+#: the kernel's statistics slots (csrc/vmem_tran.cu: N_STATS, PHASE0, and
+#: WARP_ITERS, the Newton iterations that ran on the warp-resident path)
+_N_STATS, _PHASE0, _WARP_ITERS = 16, 8, 5
 #: phases of a Newton iteration that K2's thread 0 times, in slot order
 PHASES = ("device evaluation", "assembly", "equilibration + solve",
           "damping, convergence, LTE", "accept and save", "step control")
@@ -137,12 +152,15 @@ SMEM_MAX = 232448 - 2048
 
 
 def smem_bytes(n: int) -> int:
-    """Dynamic shared memory of one K2 launch: [n, n+1] (rows at an odd
-    stride for the block solve), the vectors and, for n > WARP_SOLVE_MAX,
-    the block solve's work area (csrc/vmem_tran.cu: a_ld,
-    solve_work_bytes)."""
+    """Dynamic shared memory of one K2 launch before the locals
+    (csrc/vmem_tran.cu: solve_smem_bytes). n <= WARP_SOLVE_MAX: the rows of
+    A at the odd stride n | 1, the trial iterate with its ground slot,
+    the chunk's entry state, F, Q, the node-voltage mask, the accepted step
+    with its ground slot, its Q and its charges, and two vectors of 32.
+    Above: [n, n+1] (rows at an odd stride), the vectors and the block
+    solve's work area."""
     if n <= WARP_SOLVE_MAX:
-        return 8 * (n * (n + 1) + _N_VECTORS * (n + 1))
+        return 8 * (n * (n | 1) + 8 * n + 66)
     zw = -(-(n + 1 - PANEL) // PANEL) * PANEL
     return 8 * (n * ((n + 1) | 1) + _N_VECTORS * (n + 1)) \
         + block_work_bytes(n, zw, 8)
@@ -153,11 +171,13 @@ def locals_bytes(n: int, pk: dict) -> int:
     the per-instance locals (f, q, the limited point, two limiter states
     and C dx, n_loc each; the local Jacobians J and C, n_jac each; the
     source values), the contributions laid out in plan order (f, q, J, C)
-    and the F/Q and J/C gather plans (int32)."""
+    and the F/Q and J/C gather plans with the J/C plan's nonzero entries
+    and each local's place in the plans (int32)."""
     n_fq, n_jc = len(pk["fq_idx"]), len(pk["jc_idx"])
     return (8 * (6 * pk["n_loc"] + 2 * pk["n_jac"] + pk["n_inst"]
                  + 2 * (n_fq + n_jc))
-            + 4 * (n + 1 + n_fq + n * n + 1 + n_jc))
+            + 4 * (n + 1 + n_fq + n * n + 1 + n_jc + len(pk["jc_ent"])
+                   + pk["n_loc"] + pk["n_jac"]))
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +341,7 @@ class _Result:
     final: torch.Tensor       # [3, n]: x, q, qdot at the end
     host_syncs: int
     phases: dict = None       # K2 only: {phase: clock64 cycles}
+    warp_iterations: int = None   # K2 only: iterations on the warp path
 
 
 def integrate_plain(S: Setup) -> _Result:
@@ -544,12 +565,12 @@ _CFG_DOUBLES = ("t0", "tstop", "h0", "hmax", "hmin", "dt_save", "reltol",
 _CFG_INTS = ("n", "n_groups", "n_inst", "n_loc", "n_bp", "max_steps",
              "max_newton", "n_save", "rows_per_chunk", "win_rows",
              "n_chunks", "n_jac", "n_slots", "n_fq", "n_jc",
-             "locals_in_smem")
+             "locals_in_smem", "n_ent")
 _PTRS = ("gdesc", "conn", "par", "wkind", "wcoef", "bp", "x0", "q0",
          "qdot0", "atol", "diff", "vmask", "fq_ptr", "fq_idx", "jc_ptr",
          "jc_idx", "floc", "qloc", "jloc", "cloc", "ueval", "lims",
          "limacc", "wv", "cdx", "xs", "stats", "fin", "slot_inst",
-         "slot_group", "gat")
+         "slot_group", "gat", "jc_ent", "fq_pos", "jc_pos")
 
 
 class _Config(ctypes.Structure):
@@ -618,7 +639,14 @@ def pack(S: Setup) -> dict:
     slot_inst, slot_group [n_slots] int32: the thread slots of the
     per-instance loops, each group padded to whole warps so that no warp
     runs two models; a slot's global instance index (-1 for padding) and
-    its group."""
+    its group.
+
+    jc_ent [n_ent] int32: the entries r n + c of the J/C plan that have
+    contributions, the longest runs first, one assembly task each in the
+    warp instance. fq_pos [n_loc], jc_pos [n_jac] int32: the inverse
+    plans, each local's place in the F/Q or J/C plan (-1 for ground and
+    padding), through which the warp instance's evaluating threads lay
+    their contributions out in plan order."""
     cc = S.cc
     n = cc.n
     gdesc, conn, par, wkind, wcoef = [], [], [], [], []
@@ -664,6 +692,13 @@ def pack(S: Setup) -> dict:
         off["inst"] += I
     fq_ptr, fq_idx = _csr(np.concatenate(fq_dest), n)
     jc_ptr, jc_idx = _csr(np.concatenate(jc_dest), n * n)
+    runs = np.diff(jc_ptr)
+    jc_ent = np.nonzero(runs)[0]
+    jc_ent = jc_ent[np.argsort(-runs[jc_ent], kind="stable")]
+    fq_pos = np.full(off["loc"], -1, np.int32)
+    fq_pos[fq_idx] = np.arange(len(fq_idx))
+    jc_pos = np.full(off["jac"], -1, np.int32)
+    jc_pos[jc_idx] = np.arange(len(jc_idx))
 
     def cat(parts, dtype):
         return (np.concatenate(parts).astype(dtype) if parts
@@ -673,6 +708,8 @@ def pack(S: Setup) -> dict:
                 conn=cat(conn, np.int32), par=cat(par, np.float64),
                 wkind=cat(wkind, np.int64), wcoef=cat(wcoef, np.float64),
                 fq_ptr=fq_ptr, fq_idx=fq_idx, jc_ptr=jc_ptr, jc_idx=jc_idx,
+                jc_ent=jc_ent.astype(np.int32), fq_pos=fq_pos,
+                jc_pos=jc_pos,
                 slot_inst=cat(slot_inst, np.int32),
                 slot_group=cat(slot_group, np.int32),
                 n_loc=off["loc"], n_jac=off["jac"], n_inst=off["inst"])
@@ -696,6 +733,8 @@ def _kernel_args(S: Setup):
              vmask=S.vmask.to(DTYPE).contiguous(),
              fq_ptr=dv(pk["fq_ptr"]), fq_idx=dv(pk["fq_idx"]),
              jc_ptr=dv(pk["jc_ptr"]), jc_idx=dv(pk["jc_idx"]),
+             jc_ent=dv(pk["jc_ent"]), fq_pos=dv(pk["fq_pos"]),
+             jc_pos=dv(pk["jc_pos"]),
              slot_inst=dv(pk["slot_inst"]), slot_group=dv(pk["slot_group"]),
              xs=torch.empty((S.n_chunks * S.rows_per_chunk, n), dtype=DTYPE,
                             device=dev),
@@ -718,7 +757,7 @@ def _kernel_args(S: Setup):
         rows_per_chunk=S.rows_per_chunk, win_rows=S.win_rows,
         n_chunks=S.n_chunks, n_jac=pk["n_jac"],
         n_slots=len(pk["slot_inst"]), n_fq=len(pk["fq_idx"]),
-        n_jc=len(pk["jc_idx"]),
+        n_jc=len(pk["jc_idx"]), n_ent=len(pk["jc_ent"]),
         locals_in_smem=int(smem_bytes(n) + locals_bytes(n, pk) <= SMEM_MAX))
     return cfg, t
 
@@ -745,7 +784,8 @@ def integrate(S: Setup) -> _Result:
         stats = t["stats"].tolist()   # the one host sync of the transient
     return _Result(xs=t["xs"][:S.n_save], stats=tuple(stats[:4]),
                    final=t["fin"], host_syncs=1,
-                   phases=dict(zip(PHASES, stats[_PHASE0:])))
+                   phases=dict(zip(PHASES, stats[_PHASE0:])),
+                   warp_iterations=stats[_WARP_ITERS])
 
 
 def eval_group(model, u, u_prev, params, wv, dyn: DynSpec):
@@ -815,6 +855,9 @@ def _solution(S: Setup, r: _Result):
     #: K2's clock64 cycles per phase of its Newton iterations (None for
     #: the twin)
     sol.phase_cycles = r.phases
+    #: K2's Newton iterations on its warp-resident path (n <= 32; equal to
+    #: stats.nnewton there, 0 on the block path; None for the twin)
+    sol.k2_warp_iterations = r.warp_iterations
     return sol
 
 

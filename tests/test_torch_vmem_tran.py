@@ -291,6 +291,17 @@ def test_phase_slots_match_the_kernel():
         == vt.WARP_SOLVE_MAX
 
 
+def test_warp_iteration_slot_matches_the_kernel():
+    """The statistics slot of the warp-resident iterations is the kernel's
+    WARP_ITERS, and a slot no other statistic uses: past the counts the
+    host reads and before the phase cycles."""
+    cu = open(os.path.join(CSRC, "vmem_tran.cu")).read()
+    slot = int(re.search(r"WARP_ITERS = (\d+);", cu).group(1))
+    assert slot == vt._WARP_ITERS
+    assert 5 <= slot < vt._PHASE0
+    assert re.search(r"P\.stats\[WARP_ITERS\] = warp_iters;", cu)
+
+
 def test_block_solve_layout_matches_the_kernel():
     """The host's block size is the kernel's (its block solve is compiled
     for that many threads), and above the warp solve the shared memory it
@@ -302,7 +313,12 @@ def test_block_solve_layout_matches_the_kernel():
     for n in (vt.WARP_SOLVE_MAX, vt.WARP_SOLVE_MAX + 1, 64, vt.MAX_UNKNOWNS):
         plain = 8 * (n * (n + 1) + vt._N_VECTORS * (n + 1))
         if n <= vt.WARP_SOLVE_MAX:
-            assert vt.smem_bytes(n) == plain
+            # the warp instance: rows of A at an odd stride, the
+            # trial iterate with its ground slot, the chunk's entry state,
+            # F, Q, the node-voltage mask, the accepted step with its
+            # ground slot, its Q and charges, and two vectors of one warp
+            assert vt.smem_bytes(n) == 8 * (n * (n | 1) + 2 * (n + 1)
+                                            + 6 * n + 2 * 32)
         else:
             zw = -(-(n + 1 - PANEL) // PANEL) * PANEL
             assert zw >= n + 1 - PANEL and zw % PANEL == 0
@@ -386,19 +402,55 @@ def test_k2_new_models_match_twin_on_gpu(cuda, name):
     assert float((rk.xs - rp.xs).pow(2).mean().sqrt()) / 5.0 <= tol
 
 
+#: the circuits of CIRCUITS that take K2's warp instance (n <= 32): the
+#: netlist, a span, its save interval, the waveform scale, and whether K2
+#: takes the twin's step counts exactly. graetz does not: its diodes put
+#: the system's condition near 1e15, and one step decision over 0-20 ms
+#: flips between the kernel (products contracted into FMAs) and the twin's
+#: torch ops, in the parent kernel as in this one; it is held to
+#: chip_smoke.py's bars for a flipped decision.
+WARP_SPANS = {"rc": (RC_NETLIST, (0, 4e-3), 8e-6, 1.0, True),
+              "graetz": (GRAETZ, (0, 2e-2), 1e-4, 20.0, False),
+              "mul": (MUL, (0, 5e-6), 1e-8, 50.0, True),
+              "dff": (tct.dff_netlist(), (0, 6e-8), 3.333e-10, 5.0, True),
+              "darlington": (DARLINGTON, (0, 1e-6), 2e-9, 5.0, True),
+              "lkefgh": (chip_smoke.LKEFGH, (0, 2.5e-7), 2e-9, 2.0, True)}
+
+
 @pytest.mark.gpu
-def test_k2_warp_solve_replays_twin_counts_on_gpu(cuda):
-    """The DFF (n = 19, the warp-resident Newton solve) over 0-60 ns: K2
-    takes the twin's accepted / rejected / Newton counts exactly, and
-    reports the cycles of every phase."""
-    S = vt.prepare(tct.parse_spice(tct.dff_netlist(), device=cuda),
-                   (0, 6e-8), dt=3.333e-10)
+@pytest.mark.parametrize("name", list(WARP_SPANS))
+def test_k2_warp_solve_replays_twin_counts_on_gpu(cuda, name):
+    """Each circuit of n <= 32 over its span through the warp-resident
+    Newton iteration: K2 takes the twin's accepted / rejected / Newton
+    counts (exactly, but for graetz), runs every iteration on the warp
+    path, and reports the cycles of every phase."""
+    net, span, dt, scale, exact = WARP_SPANS[name]
+    S = vt.prepare(tct.parse_spice(net, device=cuda), span, dt=dt)
     assert S.cc.n <= vt.WARP_SOLVE_MAX
     rk, rp = vt.integrate(S), vt.integrate_plain(S)
-    assert rk.stats == rp.stats and not rk.stats[3]
+    assert not rk.stats[3] and not rp.stats[3]
+    assert rk.warp_iterations == rk.stats[2]
     assert set(rk.phases) == set(vt.PHASES)
     assert all(v > 0 for v in rk.phases.values())
-    assert float((rk.xs - rp.xs).pow(2).mean().sqrt()) <= 1e-7 * 5.0
+    rmse = float((rk.xs - rp.xs).pow(2).mean().sqrt())
+    if exact:
+        assert rk.stats == rp.stats
+        assert rmse <= 1e-7 * scale
+    else:
+        assert all(abs(a - b) <= max(1, chip_smoke.TWIN_COUNT_TOL * b)
+                   for a, b in zip(rk.stats[:3], rp.stats[:3]))
+        assert rmse <= chip_smoke.TWIN_FLIP_TOL * scale
+
+
+@pytest.mark.gpu
+def test_k2_block_solve_runs_no_warp_iterations_on_gpu(cuda):
+    """n = 42 takes the block instance: its warp-iteration counter stays
+    at 0 while its Newton iterations run."""
+    S = vt.prepare(_rc_ladder(tct), (0, 4e-6), dt=2e-7)
+    assert S.cc.n > vt.WARP_SOLVE_MAX
+    rk = vt.integrate(S)
+    assert rk.stats[2] > 0 and not rk.stats[3]
+    assert rk.warp_iterations == 0
 
 
 def _rc_ladder(ct, sections=40):
