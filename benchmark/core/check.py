@@ -4,8 +4,9 @@ same netlist text and Monte Carlo values and nothing the program made.
 
 A unit is one netlist with B lanes (a sweep's table, or one job's text
 with B = 1) and what the program returned for it, in the program's own
-layout (`names`: unknown name -> column; a node by its name, a V source's
-branch current as "<v>#i", a diode's internal anode as "<d>#int"):
+layout (`names`: unknown name -> column; a node by its name, an internal
+unknown by the name its reference model declares, such as a V source's
+branch current "<v>#i" or a diode's internal anode "<d>#int"):
 
   x0     [B, n]           the operating point (the first save row)
   final  [B, 3, n]        x, q and dq/dt at the end (where returned)
@@ -40,14 +41,9 @@ from ..reference import mna, netlist
 
 
 def port_names(cir: mna.Circuit) -> dict:
-    """The program's name of each reference unknown."""
-    out = {k: v for k, v in cir.node_index.items()}
-    out.update({f"{k}#i": v for k, v in cir.branch_index.items()})
-    g = next((g for g in cir.groups if g.kind == "d"), None)
-    if g is not None:
-        out.update({f"{nm}#int": int(c[2]) for nm, c in
-                    zip(g.names, g.conn)})
-    return out
+    """The program's name of each reference unknown: a node by its name,
+    an internal unknown by the name its model module gives it."""
+    return {**cir.node_index, **cir.internal_index}
 
 
 def to_reference(cir: mna.Circuit, names: dict, arr) -> np.ndarray:

@@ -44,12 +44,12 @@ def circuit_counts(cfg: dict) -> tuple:
     """(unknowns n, input bytes) of a configuration's nominal netlist, as
     the reference assembles it: per instance its terminal indices (int32)
     and parameters (f64), then x0, q0, dq/dt0 and the tolerances [n] and
-    the source corners."""
+    the source corners up to the stop time, which closes them."""
     from . import traffic as tf
     from ..reference import mna, netlist
 
     cir = mna.Circuit(netlist.parse(tf.render(cfg)))
-    bytes_ = 8 * 4 * cir.n + 8 * len(cir.bp)
+    bytes_ = 8 * 4 * cir.n + 8 * len(cir.breakpoints(0.0, cfg["tstop"]))
     for g in cir.groups:
         I, L = g.conn.shape
         bytes_ += 4 * I * L + 8 * I * len(g.params)

@@ -6,11 +6,15 @@ It imports nothing of the program under test. Every number is computed
 in one dtype, float64 for the reference and float32 for the benchmark's
 lower-precision control (`control.py`).
 
-Unknowns: the voltage of every node but ground, then the branch current
-of every V source, then the internal anode of every diode with rs > 0.
-A device is a group of instances of one model with a terminal map conn
-[I, L] into the unknowns (ground and absent terminals map to n, a row
-that is dropped); the residual is f(x) + dq(x)/dt = 0.
+The devices and sources are the model modules of `registry.py`; this file
+names none of them. Unknowns: the voltage of every node but ground, then
+the internal unknowns that are currents (a V source's branch current),
+then those that are voltages (a diode's internal anode), each in the
+netlist's order. A device is a group of instances of one model, in the
+order its first instance appears, with a terminal map conn [I, L] into the
+unknowns (ground maps to n, a row that is dropped); the residual is
+f(x) + dq(x)/dt = 0. The linear groups' G and C are stamped once; an
+independent source adds its value at the time set (`set_time`).
 """
 from __future__ import annotations
 
@@ -20,67 +24,22 @@ import math
 import numpy as np
 
 from . import devices as dv
-from .netlist import GROUND, Netlist, breakpoints
+from . import registry
+from .netlist import GROUND, Netlist
 
 GMIN = 1e-12
 TRTOL = 7.0          # LTE slack, as SPICE's trtol
 MAX_NEWTON = 50
 
 
-def _eval_linear_r(u, p, vt, gmin):
-    g = 1.0 / p["r"]
-    i = g * (u[..., 0] - u[..., 1])
-    f = np.stack([i, -i], -1)
-    G = np.stack([np.stack([g, -g], -1), np.stack([-g, g], -1)], -2)
-    z = np.zeros_like(f)
-    return f, z, np.broadcast_to(G, u.shape + (2,)), np.zeros(
-        u.shape + (2,), u.dtype)
-
-
-def _eval_linear_c(u, p, vt, gmin):
-    c = p["c"]
-    q = c * (u[..., 0] - u[..., 1])
-    C = np.stack([np.stack([c, -c], -1), np.stack([-c, c], -1)], -2)
-    return (np.zeros(u.shape, u.dtype), np.stack([q, -q], -1),
-            np.zeros(u.shape + (2,), u.dtype), np.broadcast_to(C, u.shape
-                                                                + (2,)))
-
-
-def _eval_vsource(u, p, vt, gmin):
-    f = np.stack([u[..., 2], -u[..., 2], u[..., 0] - u[..., 1] - p["val"]],
-                 -1)
-    G = np.zeros(u.shape + (3,), u.dtype)
-    G[..., 0, 2] = 1.0
-    G[..., 1, 2] = -1.0
-    G[..., 2, 0] = 1.0
-    G[..., 2, 1] = -1.0
-    return f, np.zeros_like(f), G, np.zeros_like(G)
-
-
-def source_value(wave, t):
-    """A V source's value at time t (SPICE SIN and PWL semantics)."""
-    kind = wave[0]
-    if kind == "dc":
-        return wave[1]
-    if kind == "sin":
-        vo, va, fr, td, theta, ph = wave[1:7]
-        if t < td:
-            return vo + va * math.sin(2.0 * math.pi * ph / 360.0)
-        tl = t - td
-        return vo + va * math.exp(-tl * theta) * math.sin(
-            2.0 * math.pi * (fr * tl + ph / 360.0))
-    ts, vs = np.asarray(wave[1::2]), np.asarray(wave[2::2])
-    return float(np.interp(t, ts, vs))
-
-
 @dataclasses.dataclass
 class Group:
-    kind: str
+    kind: str                 # the model module of its first instance
     names: list
     conn: np.ndarray          # [I, L]
-    params: dict              # name -> [I] or [B, I]
-    evaluate: object
-    limit: object = None
+    params: dict              # name -> [B, I]
+    module: object            # that module (registry.py)
+    waves: list = None        # a source's waveforms, one per instance
 
 
 class Circuit:
@@ -92,6 +51,7 @@ class Circuit:
         self.dtype = np.dtype(dtype)
         self.B = lanes
         self.vt = dv.thermal_voltage(temp_c)
+        mods = [registry.module(e.kind) for e in net.elements]
         nodes = {}
         for e in net.elements:
             for nd in e.nodes:
@@ -99,27 +59,27 @@ class Circuit:
                     nodes[nd] = len(nodes)
         self.node_index = dict(nodes)
         n = len(nodes)
-        vsrc = [e for e in net.elements if e.kind == "v"]
-        diodes = [e for e in net.elements if e.kind == "d"]
-        self.branch_index = {e.name: n + k for k, e in enumerate(vsrc)}
-        n += len(vsrc)
-        internal = {}
-        for e in diodes:
-            rs = net.models[e.model][1].get("rs", 0.0)
-            if rs <= 0.0:
-                raise ValueError(f"{e.name}: the reference needs rs > 0")
-            internal[e.name] = n
-            n += 1
+        # the internal unknowns by the program's name: currents, then
+        # voltages
+        self.internal_index = {}
+        currents = []
+        for cls in ("current", "voltage"):
+            for e, mod in zip(net.elements, mods):
+                for suffix, kind in mod.INTERNAL:
+                    if kind == cls:
+                        self.internal_index[e.name + suffix] = n
+                        currents.append(cls == "current")
+                        n += 1
         self.n = n
         self.classes = np.zeros(n, bool)          # True: a current unknown
-        self.classes[list(self.branch_index.values())] = True
+        self.classes[len(nodes):] = currents
         overrides = dict(overrides or {})
 
         def idx(nd):
             return n if nd in GROUND else nodes[nd]
 
-        def param(els, key, get):
-            vals = np.array([get(e) for e in els], np.float64)
+        def param(els, key, vals):
+            vals = np.array(vals, np.float64)
             out = np.broadcast_to(vals, (lanes, len(els))).copy()
             for k, e in enumerate(els):
                 ov = overrides.pop(f"{e.name}.{key}", None)
@@ -127,64 +87,36 @@ class Circuit:
                     out[:, k] = np.asarray(ov, np.float64)
             return out.astype(self.dtype)
 
-        self.groups = []
         by = {}
-        for e in net.elements:
-            by.setdefault(e.kind, []).append(e)
-        if "r" in by:
-            els = by["r"]
+        for e, mod in zip(net.elements, mods):
+            by.setdefault(mod.evaluate, []).append((e, mod))
+        self.groups = []
+        for members in by.values():
+            els = [e for e, _ in members]
+            mod = members[0][1]
+            resolved = []
+            for e, m in members:
+                p = {k: e.params.get(k, d) for k, d in m.PARAMS.items()}
+                missing = [k for k, v in p.items() if v is None]
+                if missing:
+                    raise ValueError(f"{e.name}: {missing} not given")
+                p.update(m.FIXED)
+                if m.validate is not None:
+                    m.validate(e.name, p)
+                resolved.append(p)
+            params = {k: param(els, k, [p[k] for p in resolved])
+                      for k in resolved[0]}
+            if mod.SOURCE:
+                params["val"] = np.zeros((lanes, len(els)), self.dtype)
+            conn = [[idx(nd) for nd in e.nodes]
+                    + [self.internal_index[e.name + sfx]
+                       for sfx, _ in m.INTERNAL] for e, m in members]
             self.groups.append(Group(
-                "r", [e.name for e in els],
-                np.array([[idx(a), idx(b)] for a, b in
-                          (e.nodes for e in els)]),
-                {"r": param(els, "r", lambda e: e.params["v"])},
-                _eval_linear_r))
-        if "c" in by:
-            els = by["c"]
-            self.groups.append(Group(
-                "c", [e.name for e in els],
-                np.array([[idx(a), idx(b)] for a, b in
-                          (e.nodes for e in els)]),
-                {"c": param(els, "c", lambda e: e.params["v"])},
-                _eval_linear_c))
-        if vsrc:
-            self.sources = vsrc
-            self.groups.append(Group(
-                "v", [e.name for e in vsrc],
-                np.array([[idx(e.nodes[0]), idx(e.nodes[1]),
-                           self.branch_index[e.name]] for e in vsrc]),
-                {"val": np.zeros((lanes, len(vsrc)), self.dtype)},
-                _eval_vsource))
-        if diodes:
-            def dget(key):
-                return lambda e: net.models[e.model][1].get(
-                    key, dv.DIODE_DEFAULTS[key])
-            self.groups.append(Group(
-                "d", [e.name for e in diodes],
-                np.array([[idx(e.nodes[0]), idx(e.nodes[1]),
-                           internal[e.name]] for e in diodes]),
-                {k: param(diodes, k, dget(k)) for k in dv.DIODE_DEFAULTS},
-                dv.diode_eval, dv.diode_limit))
-        if "m" in by:
-            els = by["m"]
-
-            def mget(key):
-                def get(e):
-                    if key in e.params:
-                        return e.params[key]
-                    return net.models[e.model][1].get(
-                        key, dv.MOS1_DEFAULTS[key])
-                return get
-            pm = {k: param(els, k, mget(k)) for k in dv.MOS1_DEFAULTS}
-            pm["type"] = param(els, "type", lambda e: -1.0 if net.models[
-                e.model][0] == "pmos" else 1.0)
-            self.groups.append(Group(
-                "m", [e.name for e in els],
-                np.array([[idx(nd) for nd in e.nodes] for e in els]),
-                pm, dv.mos1_eval, dv.mos1_limit))
+                mod.__name__.rsplit(".", 1)[1], [e.name for e in els],
+                np.array(conn), params, mod,
+                [e.wave for e in els] if mod.SOURCE else None))
         if overrides:
             raise KeyError(f"unknown parameters {sorted(overrides)}")
-        self.bp = np.asarray(breakpoints(net, math.inf)[:-1], np.float64)
         # scatter plans: local entries -> the [n + 1] rows / [n + 1]^2
         # entries (row n is ground and is dropped)
         for g in self.groups:
@@ -196,32 +128,32 @@ class Circuit:
             ent = (g.conn[:, :, None] * n1 + g.conn[:, None, :]).reshape(-1)
             g.Sj = np.zeros((I * L * L, n1 * n1), self.dtype)
             g.Sj[np.arange(I * L * L), ent] = 1.0
-        self._vgroup = next(k for k, g in enumerate(self.groups)
-                            if g.kind == "v")
-        self._src_rows = np.array([self.branch_index[e.name]
-                                   for e in self.sources])
-        self._src = np.zeros((lanes, n), self.dtype)
-        self._nonlinear = [g for g in self.groups if g.limit is not None]
-        self._Glin, self._Clin = self._linear_stamps()
+        self._sources = [g for g in self.groups if g.module.SOURCE]
+        self._nonlinear = [g for g in self.groups if not g.module.LINEAR]
+        lin = [g for g in self.groups if g.module.LINEAR]
+        z = np.zeros((self.B, self.n), self.dtype)
+        # f and q of a linear group are affine in x: G and C at any point
+        self._Glin, self._Clin = self._assemble(z, lin)[2:4]
         self.set_time(0.0)
 
     def set_time(self, t: float):
-        """The V sources' values at time t."""
-        vals = np.asarray([source_value(e.wave, t) for e in self.sources],
-                          self.dtype)
-        self.groups[self._vgroup].params["val"][:] = vals
-        self._src[:, self._src_rows] = -vals
-
-    def _linear_stamps(self):
-        """The linear groups' constant G and C [B, n, n], and the rows of
-        the V sources' values in F (F = G x + C dq/dt - those values)."""
+        """The sources' values at time t."""
+        for g in self._sources:
+            g.params["val"][:] = np.asarray(
+                [g.module.value(w, t) for w in g.waves], self.dtype)
         z = np.zeros((self.B, self.n), self.dtype)
-        lin = [g for g in self.groups if g.limit is None]
-        saved = self.groups[self._vgroup].params["val"].copy()
-        self.groups[self._vgroup].params["val"][:] = 0.0
-        _, _, G, C, _ = self._assemble(z, lin)
-        self.groups[self._vgroup].params["val"][:] = saved
-        return G, C
+        self._src = self._assemble(z, self._sources)[0]
+
+    def breakpoints(self, t0: float, tstop: float) -> list:
+        """The sources' corners in (t0, tstop), in order, as float64
+        scalars, then tstop. (A float64 scalar is not weak under NumPy's
+        promotion: the float32 control's steps after a corner take it.)"""
+        out = set()
+        for g in self._sources:
+            for w in g.waves:
+                out.update(g.module.corners(w, tstop))
+        bps = np.asarray(sorted(out), np.float64)
+        return [b for b in bps if t0 < b < tstop] + [tstop]
 
     def _assemble(self, x, groups, lims=None):
         B, n = x.shape
@@ -234,10 +166,11 @@ class Circuit:
         for k, g in enumerate(groups):
             u = self.local(x, g)
             ue = u
-            if lims is not None:
-                ue = g.limit(u, lims[k], g.params, self.vt).astype(x.dtype)
+            if lims is not None and g.module.limit is not None:
+                ue = g.module.limit(u, lims[k], g.params, self.vt).astype(
+                    x.dtype)
             new_lims.append(ue)
-            f, q, Gl, Cl = g.evaluate(ue, g.params, self.vt, GMIN)
+            f, q, Gl, Cl = g.module.evaluate(ue, g.params, self.vt, GMIN)
             if ue is not u:
                 du = (u - ue)[..., None, :]
                 f = f + (Gl * du).sum(-1)
@@ -252,8 +185,9 @@ class Circuit:
         return F[:, :n], Q[:, :n], G, C, new_lims
 
     def init_lim(self, x):
-        """The first evaluation points of the limited devices: the state."""
-        return [self.local(x, g) for g in self.groups if g.limit is not None]
+        """The first evaluation points of the nonlinear devices: the
+        state."""
+        return [self.local(x, g) for g in self._nonlinear]
 
     def local(self, x, g):
         xp = np.concatenate([x, np.zeros((x.shape[0], 1), x.dtype)], 1)
@@ -355,7 +289,7 @@ def transient(cir: Circuit, x0, tstop, save_ts, reltol=1e-5, t0=0.0,
     span = tstop - t0
     hmax = span / 50.0
     hmin = span * 1e-14
-    bps = [b for b in cir.bp if t0 < b < tstop] + [tstop]
+    bps = cir.breakpoints(t0, tstop)
     save_ts = np.asarray(save_ts, np.float64)
     xs = np.zeros((B, len(save_ts), n), dt_)
     si = int(np.searchsorted(save_ts, t0 * (1 + 1e-12), side="right"))

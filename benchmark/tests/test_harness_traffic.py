@@ -38,7 +38,7 @@ def test_values_are_written_exactly():
     net = netlist.parse(tf.render(cfg, d))
     rl = next(e for e in net.elements if e.name == "rl")
     cl = next(e for e in net.elements if e.name == "cl")
-    assert rl.params["v"] == d["rl.r"] and cl.params["v"] == d["cl.c"]
+    assert rl.params["r"] == d["rl.r"] and cl.params["c"] == d["cl.c"]
 
 
 def test_job_values_are_the_seeds_draws():
