@@ -110,6 +110,10 @@ class DeviceModel:
     # matrix the residual reads back through p['__setup__'];
     # `mna/assemble.py::ensure_setup` injects it at every solver entry.
     va_setup: Optional[Callable] = None
+    # the VACompiler of a Verilog-A model: its unknown layout, parameter
+    # order and statements, from which `va/cuda.py` emits K2's device
+    # function
+    va_compiler: Optional[object] = None
 
     @property
     def n_terminals(self):

@@ -8,7 +8,8 @@ occurrences under `name#n` to the innermost open call's dict. A span's
 name is the dotted path of the spans open around it within that call, so
 the Newton loop of `mna/newton.py` records under
 `prepare.op.direct.iter` inside `vmem_tran` and under `op.direct.iter`
-inside `tran`. A span with no call open records nothing. The stack is
+inside `tran`. A span with no call open records nothing. `count(name, n)`
+adds a program counter under `name#n` at the same place. The stack is
 per thread: each shard thread of `parallel/mesh.py` keeps its own
 record.
 
@@ -95,6 +96,16 @@ class span:
             rec[name] = rec.get(name, 0.0) + dt * 1e-9
             rec[name + "#n"] = rec.get(name + "#n", 0) + 1
         return False
+
+
+def count(name: str, n) -> None:
+    """Add n to the count `name#n` under the dotted path of the open spans
+    in the innermost open call's record: a program counter, such as K2's
+    cycles (`integrate.group_cycles#n`). Nothing with no call open."""
+    rec, path = _frames()[-1]
+    if rec is not None:
+        key = f"{path[-1]}.{name}#n" if path else f"{name}#n"
+        rec[key] = rec.get(key, 0) + n
 
 
 def entry(fn):

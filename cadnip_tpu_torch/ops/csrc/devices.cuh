@@ -9,7 +9,9 @@
 //
 // Parameters arrive as one row per instance, in the order that
 // cadnip_tpu_torch/ops/vmem_tran.py::KERNEL_MODELS lists for the model;
-// the P_* indices below must match it.
+// the P_* indices below must match it. A library built for a circuit with
+// Verilog-A models (CADNIP_VA_MODELS) adds their emitted structs
+// (va/cuda.py), each row in the order the emitter gives.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -550,6 +552,17 @@ __device__ void eval_instance(const double* u, const double* up,
   }
 }
 
+}  // namespace dev
+
+#ifdef CADNIP_VA_MODELS
+// The Verilog-A models of this library (va/cuda.py writes the header beside
+// the build): structs of the form above, with ids from 14 on, and their
+// dispatch va_eval_model.
+#include "va_models.cuh"
+#endif
+
+namespace dev {
+
 // dispatch on the model id; returns false for an unknown id
 __device__ __forceinline__ bool eval_model(int model, const double* u,
                                            const double* up, const double* p,
@@ -585,7 +598,11 @@ __device__ __forceinline__ bool eval_model(int model, const double* u,
       return true;
     case BJT: eval_instance<Bjt>(u, up, p, v_src, d, f, q, J, C, ue);
       return true;
+#ifdef CADNIP_VA_MODELS
+    default: return va_eval_model(model, u, up, p, v_src, d, f, q, J, C, ue);
+#else
     default: return false;
+#endif
   }
 }
 

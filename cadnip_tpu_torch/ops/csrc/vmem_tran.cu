@@ -96,6 +96,10 @@ struct VmemConfig {
   long long n_jac, n_slots, n_fq, n_jc, locals_in_smem;
   // the nonzero entries of the n x n J/C plan (jc_ent)
   long long n_ent;
+  // the first instance slot of the largest device group: its thread times
+  // that instance's eval_model (stats[GROUP_CYCLES], warp instance); -1
+  // for none
+  long long timed_slot;
 };
 
 // Device pointers; mirrored by _Ptrs in ops/vmem_tran.py.
@@ -112,7 +116,9 @@ struct VmemPtrs {
   double* xs;               // [n_chunks * rows_per_chunk][n]
   long long* stats;         // [N_STATS]: naccept, nreject, nnewton, fail,
                             // nsteps; [WARP_ITERS]: iterations of the warp
-                            // instance; [PHASE0 + p]: cycles of phase p
+                            // instance; [PHASE0 + p]: cycles of phase p;
+                            // [GROUP_CYCLES]: the largest group's cycles
+                            // in eval_model
   double* fin;              // [3][n]: x, q, qdot at the end
   const int* slot_inst;     // [n_slots] global instance index, or -1
   const int* slot_group;    // [n_slots] its device group
@@ -183,6 +189,12 @@ enum { PH_EVAL, PH_ASSEMBLE, PH_SOLVE, PH_CHECK, PH_ACCEPT, PH_STEP,
        N_PHASES };
 constexpr int WARP_ITERS = 5;    // stats slot: warp-instance iterations
 constexpr int PHASE0 = 8;        // stats slot of the first phase
+// stats slot: clock64 cycles that the thread of cfg.timed_slot spends in
+// eval_model, over the transient; one instance of the largest group, which
+// its warp evaluates in lockstep, so the group's evaluation time. Counted
+// by the warp instance only (the block instance leaves it 0: its solve
+// took 8 % more cycles with the count in its evaluation loop)
+constexpr int GROUP_CYCLES = 14;
 constexpr int N_STATS = 16;      // mirrored by N_STATS in ops/vmem_tran.py
 
 // Scalar step control: in the block instance written by thread 0 only and
@@ -224,6 +236,24 @@ __device__ void trial_scalars(Ctl& S, const VmemConfig& cfg,
   S.use_be = S.iord == 1;
   S.c0 = S.use_be ? 1.0 / h_eff : 2.0 / h_eff;
   S.it = 0;
+}
+
+// The last save row of chunk ci.
+__device__ __forceinline__ long long chunk_last_row(long long ci,
+                                                   const VmemConfig& cfg) {
+  const long long last = (ci + 1) * cfg.rows_per_chunk - 1;
+  return last < cfg.n_save - 1 ? last : cfg.n_save - 1;
+}
+
+// Whether the chunk ended with its last row unwritten: its last step
+// stopped within 0.01 save intervals short of that row (the test that ends
+// the chunk), with no failure. The row then takes the accepted state. (The
+// reference kernel leaves it at the chunk's entry state.)
+__device__ __forceinline__ bool chunk_row_left(const Ctl& S,
+                                               const VmemConfig& cfg) {
+  return S.fail == 0 && S.nsteps < cfg.max_steps
+         && S.t >= S.chunk_t_last - 0.01 * cfg.dt_save
+         && S.chunk_t_last > S.t + 1e-37;
 }
 
 // The per-instance locals and the gather plans: in shared memory from `at`
@@ -446,6 +476,7 @@ __device__ __forceinline__ void evaluate_warps(const VmemConfig& cfg,
   const dev::Dyn dyn = dev::make_dyn(cfg.temp, cfg.gmin, cfg.srcfact);
   double *gf = L.gat, *gq = gf + cfg.n_fq, *gj = gq + cfg.n_fq;
   double* gc = gj + cfg.n_jc;
+  long long gcyc = 0;   // cycles in eval_model of the slot timed_slot
   for (long long ci = 0; ci < cfg.n_chunks; ++ci) {
     __syncthreads();   // warp 0 sets the chunk up
     __syncthreads();
@@ -488,11 +519,14 @@ __device__ __forceinline__ void evaluate_warps(const VmemConfig& cfg,
               P.wkind[idx], P.wcoef + G[GD_WAVE] + (idx - G[GD_INST]) * Wc,
               Wc, pub.t_new);
         }
+        const bool timed = s == cfg.timed_slot;
+        const long long c_in = timed ? clock64() : 0;
         dev::eval_model((int)G[GD_MODEL], u, up,
                         P.par + G[GD_PAR] + li * G[GD_NPAR],
                         G[GD_WAVE] >= 0 ? L.wv[idx] : 0.0, dyn,
                         L.floc + lo, L.qloc + lo, L.jloc + jo, L.cloc + jo,
                         L.ueval + lo);
+        if (timed) gcyc += clock64() - c_in;
         // each contribution to its place in plan order, the Jacobian's four
         // at a time so that their loads go out ahead of the stores
         for (int a = 0; a < nl; ++a) {
@@ -526,6 +560,8 @@ __device__ __forceinline__ void evaluate_warps(const VmemConfig& cfg,
       __syncthreads();       // the next trial is published
     }
   }
+  if (cfg.timed_slot >= et && (cfg.timed_slot - et) % EVAL_THREADS == 0)
+    P.stats[GROUP_CYCLES] = gcyc;
   // the charges of a step accepted last
   if (pub.acc) {
     for (int s = et; s < n_slots; s += EVAL_THREADS) {
@@ -611,9 +647,8 @@ __device__ __forceinline__ void newton_warp(const VmemConfig& cfg,
 
   for (long long ci = 0; ci < cfg.n_chunks; ++ci) {
     __syncthreads();   // the evaluating warps have read the last Pub
-    const long long last = (ci + 1) * rc - 1 < cfg.n_save - 1
-                               ? (ci + 1) * rc - 1 : cfg.n_save - 1;
-    S.chunk_t_last = cfg.t0 + (double)last * cfg.dt_save;
+    S.chunk_t_last =
+        cfg.t0 + (double)chunk_last_row(ci, cfg) * cfg.dt_save;
     S.row0 = ci * rc;
     trial_scalars(S, cfg, P.bp);
     trial();
@@ -841,6 +876,10 @@ __device__ __forceinline__ void newton_warp(const VmemConfig& cfg,
       }
       __syncthreads();   // the next trial is published
     }
+    if (chunk_row_left(S, cfg)) {
+      if (live) P.xs[chunk_last_row(ci, cfg) * n + lane] = x;
+      S.si += 1;
+    }
   }
 
   // the charges of a step accepted last (in step with evaluate_warps)
@@ -999,9 +1038,8 @@ __device__ __forceinline__ void block_transient(const VmemConfig& cfg,
 
   for (long long ci = 0; ci < cfg.n_chunks; ++ci) {
     if (tid == 0) {
-      const long long last = (ci + 1) * rc - 1 < cfg.n_save - 1
-                                 ? (ci + 1) * rc - 1 : cfg.n_save - 1;
-      S.chunk_t_last = cfg.t0 + (double)last * cfg.dt_save;
+      S.chunk_t_last =
+          cfg.t0 + (double)chunk_last_row(ci, cfg) * cfg.dt_save;
       S.row0 = ci * rc;
       trial_scalars(S, cfg, P.bp);
     }
@@ -1301,6 +1339,12 @@ __device__ __forceinline__ void block_transient(const VmemConfig& cfg,
       }
       __syncthreads();
     }
+    const bool row_left = chunk_row_left(S, cfg);
+    if (row_left)
+      for (int i = tid; i < n; i += bs)
+        P.xs[chunk_last_row(ci, cfg) * n + i] = x[i];
+    __syncthreads();   // every thread has read S
+    if (row_left && tid == 0) S.si += 1;
   }
 
   if (tid == 0) {

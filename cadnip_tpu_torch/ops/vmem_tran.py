@@ -25,8 +25,18 @@ hold after a reject and the failure after more than 100 rejects in a row.
 So are its step-limiting rules: hmax capped to (win_rows - 2) save
 intervals, steps capped at the last save time of their chunk of
 `rows_per_chunk` rows (rows a chunk never crosses keep its entry state),
-hmin and h0. The reference is f32 because Mosaic has no f64; K2 and its
-twin are f64 throughout.
+hmin and h0. One departure: a chunk whose last step stops within 0.01 save
+intervals short of its last row writes that row from the accepted state,
+where the reference leaves it at the chunk's entry state. The reference is
+f32 because Mosaic has no f64; K2 and its twin are f64 throughout.
+
+Device functions: every built-in model's, hand-written in
+`csrc/devices.cuh`, and for a Verilog-A model the one that `va/cuda.py`
+emits from the compiler's statements (the reference kernel refuses
+Verilog-A). A circuit with Verilog-A models runs a K2 library built with
+their generated header (`VaLibrary`, built once per header text and
+loaded once a process); its twin evaluates them through the compiler's
+torch interpreter.
 
 What bounds K2 on the H100 is the latency of one serial Newton chain on
 one SM, not bytes or operations: an iteration is a chain of dependent,
@@ -77,6 +87,7 @@ from ..mna.devices import (BJT, CAPACITOR, CCCS, CCVS, CLASS_V, DIODE,
 from ..mna.newton import abstol_vector
 from ..mna.spec import MODE_TRAN, MODE_TRANOP, T0_K, DynSpec, make_dynspec
 from ..mna.waveforms import WAVE_DC, eval_wave, pack_waveforms
+from ..va import cuda as va_cuda
 from . import nvcc
 from .gj_solve import (PANEL, block_work_bytes, gj_solve_blocked_plain,
                        gj_solve_plain)
@@ -103,9 +114,10 @@ _N_VECTORS = 19
 _THREADS = 256
 #: largest circuit whose Newton solve runs inside one warp
 WARP_SOLVE_MAX = 32
-#: the kernel's statistics slots (csrc/vmem_tran.cu: N_STATS, PHASE0, and
-#: WARP_ITERS, the Newton iterations that ran on the warp-resident path)
-_N_STATS, _PHASE0, _WARP_ITERS = 16, 8, 5
+#: the kernel's statistics slots (csrc/vmem_tran.cu: N_STATS, PHASE0,
+#: WARP_ITERS, the Newton iterations that ran on the warp-resident path, and
+#: GROUP_CYCLES, the largest device group's cycles in its device function)
+_N_STATS, _PHASE0, _WARP_ITERS, _GROUP_CYCLES = 16, 8, 5, 14
 #: phases of a Newton iteration that K2's thread 0 times, in slot order
 PHASES = ("device evaluation", "assembly", "equilibration + solve",
           "damping, convergence, LTE", "accept and save", "step control")
@@ -118,7 +130,9 @@ _BJT_P = ("type", "is", "bf", "br", "nf", "nr", "vaf", "var", "cje", "vje",
           "mje", "cjc", "vjc", "mjc", "tf", "tr", "fc", "area")
 #: models K2 has a device function for: model -> (id in csrc/devices.cuh,
 #: parameter order of its packed row). Every built-in model: the reference
-#: kernel traces any model that is not Verilog-A.
+#: kernel traces any model that is not Verilog-A. A Verilog-A model has one
+#: where `va/cuda.py` emits it: its id and row come from the circuit's
+#: `VaLibrary`.
 KERNEL_MODELS = {RESISTOR: (0, ("r",)), CAPACITOR: (1, ("c",)),
                  VSOURCE: (2, ()), ISOURCE: (3, ()), DIODE: (4, _DIODE_P),
                  DIODE_RS: (5, _DIODE_P), MOSFET1: (6, _MOS_P),
@@ -128,22 +142,56 @@ KERNEL_MODELS = {RESISTOR: (0, ("r",)), CAPACITOR: (1, ("c",)),
                  BJT: (13, _BJT_P)}
 
 
+def _is_va(model) -> bool:
+    return model.name.startswith("va:")
+
+
 def supported(cc) -> bool:
     """Can this circuit run through K2? The reference kernel's rule (dense,
-    n + 1 <= 128, <= 128 instances per group, no Verilog-A or B-source
-    models, no $limit sites or delays), and every model must be one K2 has
-    a device function for (every built-in model has one)."""
+    n + 1 <= 128, <= 128 instances per group, no B-source models, no $limit
+    sites or delays), and every model must be one K2 has a device function
+    for: every built-in model, and a Verilog-A model that `va/cuda.py`
+    emits (`va_cuda.refusal` says why it does not). The reference kernel
+    refuses every Verilog-A model."""
     if cc.bbd is not None or cc.n + 1 > MAX_UNKNOWNS + 1:
         return False
     for g in cc.groups:
         m = g.model
         if m.residual_lim is not None or m.n_delay_sites:
             return False
-        if m.name.startswith("va:") or m.name.startswith("bsrc"):
+        if m.name.startswith("bsrc") or g.n_inst > MAX_INST:
             return False
-        if g.n_inst > MAX_INST or m not in KERNEL_MODELS:
+        if _is_va(m):
+            if va_cuda.refusal(m) is not None:
+                return False
+        elif m not in KERNEL_MODELS:
             return False
     return True
+
+
+@dataclasses.dataclass
+class VaLibrary:
+    """The Verilog-A models of one circuit as K2 device functions: each
+    model's id and emitted form, the header of K2's library for them
+    (`va_cuda.header`), on a CUDA circuit that library, built once per
+    header text and loaded once a process (`load_library`), and each
+    group's parameter rows (set by `prepare`)."""
+    models: dict              # model -> (id, va_cuda.EmittedModel)
+    header: str
+    lib: object = None
+    rows: dict = dataclasses.field(default_factory=dict)  # model -> [I, P]
+
+
+def va_library(models, device) -> VaLibrary:
+    """The library of the Verilog-A `models` (distinct, in order)."""
+    emitted = [va_cuda.emit(m) for m in models]
+    head = va_cuda.header(emitted)
+    return VaLibrary(
+        models={m: (va_cuda.FIRST_ID + k, em)
+                for k, (m, em) in enumerate(zip(models, emitted))},
+        header=head,
+        lib=load_library(head) if torch.device(device).type == "cuda"
+        else None)
 
 
 #: dynamic shared memory one K2 block may use (227 KB less the kernel's
@@ -210,6 +258,7 @@ class Setup:
     vmask: torch.Tensor       # [n] bool: node-voltage rows
     op_converged: torch.Tensor
     op_iters: torch.Tensor
+    va: VaLibrary = None      # the circuit's Verilog-A models, if any
 
     def dyn(self, t):
         """The transient's DynSpec at time t, as the reference kernel
@@ -259,6 +308,22 @@ def prepare(cc, tspan, *, dt=None, dtmax=None, n_save=None,
                 op = dc(cc, params, mode=MODE_TRANOP, time=t0)
             x0, op_conv, op_iters = op.x, op.converged, op.iters
     with obs.span("pack"):
+        va = None
+        va_models = list(dict.fromkeys(g.model for g in cc.groups
+                                       if _is_va(g.model)))
+        if va_models:
+            # the header, its hash, the library's lookup, build or load,
+            # and the groups' parameter rows (the emission itself is cached
+            # on each model by `supported`)
+            with obs.span("va"):
+                va = va_library(va_models, dev)
+                dyn_t0 = make_dynspec(temp_c=spec.temp_c, time=t0,
+                                      gmin=GMIN, gshunt=spec.gshunt,
+                                      srcfact=1.0, mode=MODE_TRAN,
+                                      device="cpu")
+                va.rows = {g.model: va.models[g.model][1].rows(g.params,
+                                                               dyn_t0)
+                           for g in cc.groups if g.model in va.models}
         x0 = torch.as_tensor(x0, dtype=DTYPE, device=dev).clone()
         for node, v in (ic or {}).items():
             x0[cc.index_of(str(node))] = float(v)
@@ -295,7 +360,7 @@ def prepare(cc, tspan, *, dt=None, dtmax=None, n_save=None,
                 x0=x0, q0=q0[0], qdot0=-f0[0], diff=diff,
                 atol=abstol_vector(cc),
                 vmask=torch.as_tensor(cc.classes == CLASS_V, device=dev),
-                op_converged=op_conv, op_iters=op_iters)
+                op_converged=op_conv, op_iters=op_iters, va=va)
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +407,7 @@ class _Result:
     host_syncs: int
     phases: dict = None       # K2 only: {phase: clock64 cycles}
     warp_iterations: int = None   # K2 only: iterations on the warp path
+    group_cycles: int = None  # K2 only: the largest group's eval cycles
 
 
 def integrate_plain(S: Setup) -> _Result:
@@ -548,6 +614,14 @@ def integrate_plain(S: Setup) -> _Result:
                 it = 0
             else:
                 xi = xi_new
+        # a chunk whose last step stopped within 0.01 save intervals short
+        # of its last row: the row takes the accepted state (the reference
+        # kernel leaves it at the chunk's entry state)
+        if (not fail and nsteps < S.max_steps
+                and t >= chunk_t_last - 0.01 * S.dt_save
+                and chunk_t_last > t + 1e-37):
+            xs[last_row] = x
+            si += 1
 
     ran_out = nsteps >= S.max_steps and t < S.tstop * (1.0 - 1e-6)
     return _Result(xs=xs[:S.n_save], stats=(naccept, nreject, nnewton,
@@ -558,14 +632,14 @@ def integrate_plain(S: Setup) -> _Result:
 # ---------------------------------------------------------------------------
 # the kernel
 
-_lib = None
+_libs: dict = {}
 
 _CFG_DOUBLES = ("t0", "tstop", "h0", "hmax", "hmin", "dt_save", "reltol",
                 "max_dv", "gshunt", "gmin", "temp", "srcfact")
 _CFG_INTS = ("n", "n_groups", "n_inst", "n_loc", "n_bp", "max_steps",
              "max_newton", "n_save", "rows_per_chunk", "win_rows",
              "n_chunks", "n_jac", "n_slots", "n_fq", "n_jc",
-             "locals_in_smem", "n_ent")
+             "locals_in_smem", "n_ent", "timed_slot")
 _PTRS = ("gdesc", "conn", "par", "wkind", "wcoef", "bp", "x0", "q0",
          "qdot0", "atol", "diff", "vmask", "fq_ptr", "fq_idx", "jc_ptr",
          "jc_idx", "floc", "qloc", "jloc", "cloc", "ueval", "lims",
@@ -584,12 +658,15 @@ class _Ptrs(ctypes.Structure):
     _fields_ = [(k, ctypes.c_void_p) for k in _PTRS]
 
 
-def load_library():
-    """Build (once per source hash) and load the K2 shared library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = nvcc.load("vmem_tran")
+def load_library(header=None):
+    """Build (once per source hash) and load the K2 shared library; with
+    the `header` of a circuit's Verilog-A models (`va_cuda.header`), the
+    library built with it (`nvcc.load`). Loaded once a process per header
+    text."""
+    lib = _libs.get(header)
+    if lib is not None:
+        return lib
+    lib = nvcc.load("vmem_tran", header)
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.vmem_tran_f64.argtypes = [ctypes.POINTER(_Config),
                                   ctypes.POINTER(_Ptrs), ci, vp]
@@ -599,7 +676,7 @@ def load_library():
     lib.vmem_eval_group_f64.restype = ci
     lib.vmem_eval_waves_f64.argtypes = [vp, vp, ci, ci, vp, ci, vp, vp]
     lib.vmem_eval_waves_f64.restype = ci
-    _lib = lib
+    _libs[header] = lib
     return lib
 
 
@@ -639,7 +716,12 @@ def pack(S: Setup) -> dict:
     slot_inst, slot_group [n_slots] int32: the thread slots of the
     per-instance loops, each group padded to whole warps so that no warp
     runs two models; a slot's global instance index (-1 for padding) and
-    its group.
+    its group. timed_slot: the first slot of the group with the most local
+    unknowns (instances times locals), whose thread times its device
+    function in the warp instance (`group_cycles`); -1 without groups.
+
+    A Verilog-A group takes its id and its rows, the effective parameter
+    values in the emitter's order, from S.va (computed by `prepare`).
 
     jc_ent [n_ent] int32: the entries r n + c of the J/C plan that have
     contributions, the longest runs first, one assembly task each in the
@@ -653,8 +735,15 @@ def pack(S: Setup) -> dict:
     fq_dest, jc_dest, slot_inst, slot_group = [], [], [], []
     off = dict(conn=0, par=0, loc=0, jac=0, inst=0, wave=0)
     for g, p in zip(cc.groups, S.params):
-        mid, pnames = KERNEL_MODELS[g.model]
         I, L = g.conn.shape
+        if g.model in KERNEL_MODELS:
+            mid, pnames = KERNEL_MODELS[g.model]
+            rows = (np.stack([np.asarray(g.params[k], np.float64)
+                              for k in pnames], 1) if pnames else None)
+        else:
+            mid, em = S.va.models[g.model]
+            pnames = em.params
+            rows = S.va.rows[g.model]
         wave_off, W = -1, 0
         kinds = np.zeros(I, np.int64)
         if g.waves is not None:
@@ -669,8 +758,7 @@ def pack(S: Setup) -> dict:
                       off["loc"], off["jac"], off["inst"], wave_off, W])
         conn.append(g.conn.reshape(-1))
         if pnames:
-            par.append(np.stack([np.asarray(g.params[k], np.float64)
-                                 for k in pnames], 1).reshape(-1))
+            par.append(rows.reshape(-1))
         ls, js = loc_strides(L)
         fq = np.full((I, ls), -1, np.int64)
         fq[:, :L] = g.conn
@@ -704,6 +792,12 @@ def pack(S: Setup) -> dict:
         return (np.concatenate(parts).astype(dtype) if parts
                 else np.zeros(1, dtype))
 
+    sizes = [g.conn.size for g in cc.groups]
+    slot_group_all = cat(slot_group, np.int32)
+    timed_slot = (int(np.flatnonzero(slot_group_all
+                                     == int(np.argmax(sizes)))[0])
+                  if sizes else -1)
+
     return dict(gdesc=np.asarray(gdesc, np.int64),
                 conn=cat(conn, np.int32), par=cat(par, np.float64),
                 wkind=cat(wkind, np.int64), wcoef=cat(wcoef, np.float64),
@@ -711,7 +805,7 @@ def pack(S: Setup) -> dict:
                 jc_ent=jc_ent.astype(np.int32), fq_pos=fq_pos,
                 jc_pos=jc_pos,
                 slot_inst=cat(slot_inst, np.int32),
-                slot_group=cat(slot_group, np.int32),
+                slot_group=slot_group_all, timed_slot=timed_slot,
                 n_loc=off["loc"], n_jac=off["jac"], n_inst=off["inst"])
 
 
@@ -758,7 +852,8 @@ def _kernel_args(S: Setup):
         n_chunks=S.n_chunks, n_jac=pk["n_jac"],
         n_slots=len(pk["slot_inst"]), n_fq=len(pk["fq_idx"]),
         n_jc=len(pk["jc_idx"]), n_ent=len(pk["jc_ent"]),
-        locals_in_smem=int(smem_bytes(n) + locals_bytes(n, pk) <= SMEM_MAX))
+        locals_in_smem=int(smem_bytes(n) + locals_bytes(n, pk) <= SMEM_MAX),
+        timed_slot=pk["timed_slot"])
     return cfg, t
 
 
@@ -769,7 +864,7 @@ def integrate(S: Setup) -> _Result:
         return integrate_plain(S)
     if dev.type != "cuda":
         raise ValueError(f"vmem_tran: unsupported device {dev}")
-    lib = load_library()
+    lib = load_library() if S.va is None else S.va.lib
     with obs.span("args"):
         cfg, t = _kernel_args(S)
         ptrs = _Ptrs(**{k: t[k].data_ptr() for k in _PTRS})
@@ -782,10 +877,14 @@ def integrate(S: Setup) -> _Result:
     vmem_tran.launches += 1
     with obs.span("wait"):
         stats = t["stats"].tolist()   # the one host sync of the transient
+    # the largest group's device-function cycles, as a program counter of
+    # the call (`integrate.group_cycles#n`)
+    obs.count("group_cycles", stats[_GROUP_CYCLES])
     return _Result(xs=t["xs"][:S.n_save], stats=tuple(stats[:4]),
                    final=t["fin"], host_syncs=1,
                    phases=dict(zip(PHASES, stats[_PHASE0:])),
-                   warp_iterations=stats[_WARP_ITERS])
+                   warp_iterations=stats[_WARP_ITERS],
+                   group_cycles=stats[_GROUP_CYCLES])
 
 
 def eval_group(model, u, u_prev, params, wv, dyn: DynSpec):
@@ -794,13 +893,22 @@ def eval_group(model, u, u_prev, params, wv, dyn: DynSpec):
     on a CPU tensor."""
     if u.device.type == "cpu":
         return eval_group_plain(model, u, u_prev, params, wv, dyn)
-    lib = load_library()
-    mid, pnames = KERNEL_MODELS[model]
     I, L = u.shape
     dev = u.device
-    par = (torch.stack([params[k].to(DTYPE) for k in pnames], 1)
-           .contiguous() if pnames else torch.zeros(1, dtype=DTYPE,
-                                                    device=dev))
+    if model in KERNEL_MODELS:
+        lib = load_library()
+        mid, pnames = KERNEL_MODELS[model]
+        par = (torch.stack([params[k].to(DTYPE) for k in pnames], 1)
+               .contiguous() if pnames else torch.zeros(1, dtype=DTYPE,
+                                                        device=dev))
+    else:
+        va = va_library([model], dev)
+        lib = va.lib
+        mid, em = va.models[model]
+        pnames = em.params
+        par = torch.as_tensor(em.rows({k: v.cpu().numpy() for k, v in
+                                       params.items()}, dyn),
+                              dtype=DTYPE, device=dev).contiguous()
     wvt = (wv if wv is not None
            else torch.zeros(I, dtype=DTYPE, device=dev)).contiguous()
     f = torch.empty((I, L), dtype=DTYPE, device=dev)
@@ -858,6 +966,11 @@ def _solution(S: Setup, r: _Result):
     #: K2's Newton iterations on its warp-resident path (n <= 32; equal to
     #: stats.nnewton there, 0 on the block path; None for the twin)
     sol.k2_warp_iterations = r.warp_iterations
+    #: K2's clock64 cycles in the device function of the group with the
+    #: most local unknowns, summed over the transient (one thread of the
+    #: warp that evaluates the group's first instances; n <= 32 only, 0 on
+    #: the block path; None for the twin)
+    sol.group_cycles = r.group_cycles
     return sol
 
 

@@ -2434,6 +2434,7 @@ def compile_va_module(mod: VAModule, include_dirs=(),
         delay_probe=comp.make_delay_probe(),
         collapses=tuple(sorted(collapses, key=str)),
         va_setup=comp.host_setup if comp.host_setup_enabled else None,
+        va_compiler=comp,
     )
     if _specialize and not collapsed and (comp.collapse_cands
                                           or comp.host_setup_enabled):

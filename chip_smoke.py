@@ -7,7 +7,8 @@ Phases, each of which raises (exit code != 0) on failure:
   1. the card: torch.cuda must be available; prints nvidia-smi's name and
      power limit, and the torch and CUDA versions;
   2. builds kernels K1 (ops/csrc/gj_solve.cu) and K2 (ops/csrc/vmem_tran.cu)
-     with nvcc for sm_90a, one nvcc each, started together;
+     with nvcc for sm_90a, and K2 with the emitted ekv26 (phase 12b's), one
+     nvcc each, started together;
   3. K1 against its plain PyTorch twin on the card (gj_solve_plain for
      the warp variant, the blocked gj_solve_blocked_plain for the block
      and grid variants), at the DFF's shape and at a batch, an inverse, a
@@ -90,6 +91,12 @@ Phases, each of which raises (exit code != 0) on failure:
      the host time of one evaluation of the EKV group on the card and on
      the CPU; and a ten-diode chain behind `$limit` at DC against the
      CPU, K1's launches counted per path;
+ 12b. the EKV DFF through K2 (kernel vmem_tran built with the device
+     function that va/cuda.py emits for ekv26): that function against the
+     twin's group evaluation on the DFF's 26 instances (EVAL_TOL), then
+     one K2 launch over 0-60 ns and one over 0-600 ns, q latched high
+     after the 401 ns edge; their twins run on the host CPU (worker A)
+     and are held to K2 in phase 14 with phase 6's cases;
  13. (in a process of its own on the same card, started before phase 9,
      its output printed when it is joined after phase 18) the fixed-step
      engines at bench.py's settings: the VACASK rc through
@@ -169,14 +176,14 @@ Phases, each of which raises (exit code != 0) on failure:
      test's gates), and sharded_dcsweep of the same table against the
      plain DC chain. TF32 is asserted off. Phases c-e run in the main
      process after phase 17, inside the wait on phases 13 and 13b;
- 14. phase 6's and 8b's comparisons with their CPU twins and phase 8c's
+ 14. phase 6's, 12b's and 8b's comparisons with their CPU twins and phase 8c's
      ladder against the CPU port, the wall time of every phase and of the
      whole run, a JSON line of the kernels, the card's name and power
      limit, and the last line {"ok": true, "device": {...}}.
 
 From phase 9 on, two spawned worker processes replay the CPU references
 beside the card's host loop: worker A phase 9's check lanes, phases 11 and
-12, then phase 6's twins; worker B phase 8b's reference, phase 8c's
+12, then phase 6's and 12b's twins; worker B phase 8b's reference, phase 8c's
 ladder and the CPU sides of phases 16, 17 and 18a. Phases 13 and 13b run
 at the same time in spawned processes on the card (the card must be in
 the Default compute mode), phase 13's with two workers of its own (mul's
@@ -189,6 +196,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -352,6 +360,13 @@ def ekv_dff_netlist(va_path, kf=None):
 #: and the card is held to the CPU port's replay of the span (counts
 #: exact).
 EKV_SPAN, EKV_LOW_AT, EKV_DT = 3e-7, 290e-9, 3.333e-10
+#: phase 12b: the EKV DFF through K2 over its first 60 ns and over the whole
+#: 0-600 ns, whose latching edge at 401 ns sets q high by EKV_HIGH_AT
+EKV_K2_SPANS = {"ekv_dff 60 ns": 6e-8, "ekv_dff 600 ns": 6e-7}
+EKV_HIGH_AT = 550e-9
+#: the benchmark's copy of models/ekv.py's EKV_VA (byte for byte): a `.hdl`
+#: file that the CPU worker can parse again
+EKV_VA_FILE = os.path.join(ROOT, "benchmark", "configs", "ekv26.va")
 EKV_KF = 1e-24         # flicker coefficient of both cards for the noise
 VA_DC_TOL = 1e-12      # $limit diode chain at DC: card vs CPU, relative
 #: phases 3 and 3b time a plain twin over at most this many calls: the
@@ -1169,7 +1184,8 @@ def host_setup(S):
     return {f.name: (getattr(S, f.name).cpu().numpy()
                      if hasattr(getattr(S, f.name), "cpu")
                      else getattr(S, f.name))
-            for f in dataclasses.fields(S) if f.name not in ("cc", "params")}
+            for f in dataclasses.fields(S)
+            if f.name not in ("cc", "params", "va")}
 
 
 def cpu_k2_twin(net, setup):
@@ -2185,6 +2201,102 @@ def va_ekv(card, tran_job, cpu):
                           "VA EKV DFF noise (phase 12)": nlaunch,
                           "VA $limit diode chain dc (phase 12)": llaunch},
                 wall=wall, ms_card=ms_card, ms_cpu=ms_cpu)
+
+
+def ekv_k2(card):
+    """Phase 12b: the EKV DFF through K2, its 26 ekv26 instances evaluated
+    by the device function that va/cuda.py emits. First that function
+    (`eval_group`: the `vmem_eval_group` entry of the circuit's library)
+    interpreter) on the circuit's own group, at its operating point and at
+    seeded bias points around it, to EVAL_TOL (f to the scale of the
+    currents it sums); then one K2 launch per span
+    of EKV_K2_SPANS (K2's launch count reset before and read after), q low
+    at EKV_LOW_AT and, on the whole span, high at EKV_HIGH_AT. Returns the
+    runs as phase 6's cases: their twins run on the host CPU in a worker,
+    and twin_check holds them to K2 in phase 14."""
+    import torch
+    import cadnip_tpu_torch as ct
+    from cadnip_tpu_torch.mna.assemble import pad_state
+    from cadnip_tpu_torch.ops import vmem_tran as vt
+
+    net = ekv_dff_netlist(EKV_VA_FILE)
+    setups = {}
+    for name, tstop in sorted(EKV_K2_SPANS.items(), key=lambda kv: -kv[1]):
+        cc = ct.parse_spice(net, device="cuda")
+        x0 = next(iter(setups.values())).x0 if setups else None
+        setups[name] = vt.prepare(cc, (0, tstop), dt=EKV_DT, x0=x0)
+    S = setups[max(EKV_K2_SPANS, key=EKV_K2_SPANS.get)]
+    if S.va is None or S.va.lib is None:
+        raise RuntimeError("EKV DFF on K2: no library of emitted models")
+
+    # the emitted device function on the circuit's own group
+    gi = next(i for i, g in enumerate(S.cc.groups)
+              if g.model.name == "va:ekv26")
+    g = S.cc.groups[gi]
+    u0 = pad_state(S.x0)[torch.as_tensor(g.conn, device="cuda")]
+    rng = np.random.default_rng(12)
+    us = [u0] + [u0 + torch.as_tensor(rng.normal(0.0, 1.0, u0.shape),
+                                      device="cuda") for _ in range(3)]
+    worst = [0.0] * 5
+    for u in us:
+        args = (u, u, S.params[gi], None, S.dyn(0.0))
+        got = vt.eval_group(g.model, *args)
+        ref = vt.eval_group_plain(g.model, *args)
+        # f against the currents it sums, max|J| max|u|: at the operating
+        # point they cancel (max |f| about 1e-17 A from channel currents
+        # near 1e-4 A), and f's last bits there are their rounding
+        scales = [max(ref[0].abs().max(), ref[2].abs().max() * u.abs().max())
+                  ] + [b.abs().max() for b in ref[1:]]
+        worst = [max(w, float((a - b).abs().max() / max(float(sc), 1e-300)))
+                 for w, a, b, sc in zip(worst, got, ref, scales)]
+    print(f"K2 device eval ekv26 (emitted, the DFF's {g.n_inst} instances "
+          f"at the operating point and 3 seeded points around it): max "
+          f"relative error (f to max|J| max|u|, q, J, C, u_eval) "
+          + ", ".join(f"{e:.2e}" for e in worst) + f" [{card}]", flush=True)
+    worst = max(worst)
+    if not worst <= EVAL_TOL:
+        raise RuntimeError(f"K2 device eval ekv26: {worst:.3e} > "
+                           f"{EVAL_TOL:.0e}")
+
+    out = {}
+    for name, tstop in EKV_K2_SPANS.items():
+        S = setups[name]
+        cc = S.cc
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        ct.vmem_tran.launches = 0
+        start.record()
+        rk = vt.integrate(S)
+        end.record()
+        torch.cuda.synchronize()
+        ms, launches = start.elapsed_time(end), ct.vmem_tran.launches
+        stats = tuple(int(v) for v in rk.stats)
+        ts = np.linspace(0.0, tstop, S.n_save)
+        q = rk.xs[:, cc.index_of("q")].cpu().numpy()
+        lo = float(q[np.argmin(np.abs(ts - min(EKV_LOW_AT, tstop)))])
+        hi = (float(q[np.argmin(np.abs(ts - EKV_HIGH_AT))])
+              if tstop > EKV_HIGH_AT else None)
+        print(f"K2 {name} (n = {cc.n}, emitted ekv26): kernel {ms:.3f} ms, "
+              f"accepted, rejected, newton {stats[:3]}, K2 launches "
+              f"{launches}; ekv26 group {rk.group_cycles / max(stats[2], 1):.0f}"
+              f" cycles per Newton iteration; q {lo:.4f} V at "
+              f"{min(EKV_LOW_AT, tstop) * 1e9:.0f} ns"
+              + ("" if hi is None else
+                 f", {hi:.4f} V at {EKV_HIGH_AT * 1e9:.0f} ns")
+              + f" [{card}]", flush=True)
+        print(f"   K2 phases: {phase_shares(rk.phases, stats[2])}",
+              flush=True)
+        if stats[3] or launches != 1:
+            raise RuntimeError(f"K2 {name}: failed {stats[3]}, {launches} "
+                               f"K2 launches (want 1)")
+        if not (lo < 1.0 and (hi is None or hi > 4.0)):
+            raise RuntimeError(f"K2 {name}: q {lo} V before the latching "
+                               f"edge, {hi} V after it")
+        out[name] = dict(ms=ms, net=net, setup=host_setup(S),
+                         xs=rk.xs.cpu().numpy(), stats=stats, scale=5.0,
+                         cols=[cc.index_of("q")],
+                         group_cycles=rk.group_cycles)
+    return out
 
 
 def cpu_pit(name, x0, xseed):
@@ -3892,16 +4004,23 @@ def main():
     from cadnip_tpu_torch.ops import nvcc
     from cadnip_tpu_torch.ops.gj_solve import load_library as load_k1
     from cadnip_tpu_torch.ops.vmem_tran import load_library as load_k2
+    from cadnip_tpu_torch.models.ekv import compile_ekv
+    from cadnip_tpu_torch.va import cuda as va_cuda
 
     card = nvidia_smi("name,power.limit")
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; host CPUs (os.cpu_count()) "
           f"{os.cpu_count()}", flush=True)
     t = time.perf_counter()
+    # phase 12b's K2 library, built with the emitted ekv26 beside K1 and K2
+    va_build = threading.Thread(target=nvcc.build, args=(
+        ["vmem_tran"], va_cuda.header([va_cuda.emit(compile_ekv())])))
+    va_build.start()
     nvcc.build(["gj_solve", "vmem_tran"])
+    va_build.join()
     load_k1()
     load_k2()
-    print(f"K1 + K2 build+load (parallel nvcc) "
+    print(f"K1 + K2 + K2 with ekv26 build, K1 + K2 load (parallel nvcc) "
           f"{time.perf_counter() - t:.2f} s", flush=True)
     walls = {"build": time.perf_counter() - t}
 
@@ -3949,6 +4068,7 @@ def main():
         phase("10 dcsweep", dc_sweep_rescue, card)
         deriv = phase("11 derivatives", derivatives, card, deriv_job)
         va = phase("12 VA (EKV DFF)", va_ekv, card, ekv_job, cpu)
+        twin.update(phase("12b EKV DFF on K2", ekv_k2, card))
         twin_jobs = {name: cpu.submit(cpu_k2_twin, c["net"], c["setup"])
                      for name, c in twin.items() if name not in TWIN_ON_CARD}
         pg = phase("15 BBD power grid", power_grid, card)
